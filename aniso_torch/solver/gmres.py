@@ -1,0 +1,121 @@
+"""Restarted GMRES with CGS2 orthogonalization and Givens rotations.
+
+Counterpart of aniso_tpu/solver/gmres.py (reference gmres.cpp:53-169,
+relative residual |Ax - b| / |b|), with the same arithmetic and the same
+iteration accounting (:195-241): j starts at 1 and counts Arnoldi steps
+(matvecs), the inner loop runs while i < restart, j <= max_iter and not
+converged, and iterations = j - 1.
+
+The Krylov basis (restart + 1, *field) and the matvecs stay on the field's
+device in its dtype, in natural field shape.  The Hessenberg column, the
+rotations and s are kept in float64 on the host: each Arnoldi step reads
+its (i + 2) projections back, one small transfer per iteration.  (JAX runs
+the whole solve as one device while_loop; a CUDA graph of the Arnoldi step
+is later work.)
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+class GmresResult(NamedTuple):
+    x: torch.Tensor
+    residual: float            # final relative residual estimate
+    iterations: int            # total matvec count (inner iterations)
+    converged: bool
+
+
+def _givens(dx: float, dy: float):
+    """Generate a plane rotation (gmres.cpp:26-39)."""
+    if dy == 0.0:
+        return 1.0, 0.0
+    if abs(dy) > abs(dx):
+        t = dx / dy
+        sn = 1.0 / np.sqrt(1.0 + t * t)
+        return t * sn, sn
+    t = dy / dx
+    cs = 1.0 / np.sqrt(1.0 + t * t)
+    return cs, t * cs
+
+
+def gmres(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    restart: int = 80,
+    max_iter: int = 400,
+    tol: float = 1e-12,
+) -> GmresResult:
+    """Solve A x = b for a field b of any shape."""
+    shape = b.shape
+    m = restart
+    x = torch.zeros_like(b) if x0 is None else x0.reshape(shape).clone()
+
+    def A(v):
+        return matvec(v).reshape(shape)
+
+    normb = float(torch.linalg.vector_norm(b))
+    normb = 1.0 if normb == 0.0 else normb
+    r = b - A(x)
+    beta = float(torch.linalg.vector_norm(r))
+    j = 1
+    resid = beta / normb
+    done = resid <= tol
+    V = torch.empty((m + 1,) + tuple(shape), dtype=b.dtype, device=b.device)
+    Vf = V.view(m + 1, -1)
+
+    while j <= max_iter and not done:
+        # one restart cycle
+        V[0] = r / beta
+        H = np.zeros((m + 1, m))
+        s = np.zeros(m + 1)
+        s[0] = beta
+        cs = np.zeros(m)
+        sn = np.zeros(m)
+        i = 0
+        inner_done = False
+        while i < m and j <= max_iter and not inner_done:
+            w = A(V[i]).reshape(-1)
+            basis = Vf[: i + 1]
+            h1 = basis @ w                        # CGS2, two passes
+            w = w - h1 @ basis
+            h2 = basis @ w
+            w = w - h2 @ basis
+            wnorm = torch.linalg.vector_norm(w)
+            Vf[i + 1] = w / torch.where(wnorm == 0.0, 1.0, wnorm)
+            col = np.zeros(m + 1)
+            col[: i + 2] = torch.cat([h1 + h2, wnorm[None]]).cpu().numpy()
+            for k in range(i):                    # previous rotations
+                t = cs[k] * col[k] + sn[k] * col[k + 1]
+                col[k + 1] = -sn[k] * col[k] + cs[k] * col[k + 1]
+                col[k] = t
+            c_new, s_new = _givens(col[i], col[i + 1])
+            cs[i], sn[i] = c_new, s_new
+            col[i] = c_new * col[i] + s_new * col[i + 1]
+            col[i + 1] = 0.0
+            s_i = c_new * s[i] + s_new * s[i + 1]
+            s_i1 = -s_new * s[i] + c_new * s[i + 1]
+            s[i], s[i + 1] = s_i, s_i1
+            H[:, i] = col
+            inner_done = bool(abs(s_i1) / normb < tol)
+            i += 1
+            j += 1
+
+        # back-substitution on the leading i x i block (gmres.cpp:12-24)
+        y = np.zeros(i)
+        for k in range(i - 1, -1, -1):
+            y[k] = (s[k] - H[k, k + 1: i] @ y[k + 1:]) / H[k, k]
+        yt = torch.as_tensor(y, dtype=b.dtype, device=b.device)
+        x = x + (yt @ Vf[:i]).reshape(shape)
+        r = b - A(x)
+        beta = float(torch.linalg.vector_norm(r))
+        resid = float(abs(s[i]) / normb if inner_done else beta / normb)
+        done = resid < tol
+
+    return GmresResult(x=x, residual=resid, iterations=j - 1,
+                       converged=bool(done))
