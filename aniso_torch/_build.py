@@ -2,9 +2,10 @@
 
 Two kinds, both with a plain C interface loaded by ctypes:
 
-  * CUDA kernels (K1 m2l_translate.cu, K2 near_contract.cu): one nvcc per
-    source, ``-gencode arch=compute_90a,code=sm_90a -O3 -shared``, no fast
-    math (E feeds expf/expm1f; ``--use_fast_math`` would turn them into the
+  * CUDA kernels (K1 m2l_translate.cu, K2 near_contract.cu, K3
+    offsets_translate.cu; each with a float32 and a float64 entry): one nvcc
+    per source, ``-gencode arch=compute_90a,code=sm_90a -O3 -shared``, no fast
+    math (E feeds exp/expm1; ``--use_fast_math`` would turn them into the
     approximate intrinsics and expm1 of a small E into exp - 1);
   * the host engine (aniso_host.cpp): g++ -O3 -fopenmp.
 
@@ -27,7 +28,8 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
-CUDA_SOURCES = ("m2l_translate.cu", "near_contract.cu")
+CUDA_SOURCES = ("m2l_translate.cu", "near_contract.cu",
+                "offsets_translate.cu")
 HOST_SOURCE = "aniso_host.cpp"
 
 NVCC_FLAGS = (

@@ -10,8 +10,11 @@ solver/operator.py:150-152):
   m2l_E[l]   coarse: stacked (4, m2, m2, P) with P = r*27r in (a, o, b) order;
              fine: a tuple of 4 per-class blocks, row-major (m2, m2, r, 27r),
              y-minor (m2, r, 27r, m2) when m2 % 128 == 0 (smooth.py:337-341),
-             or flat (m2, m2, P)
-  sigma_w    (sz, sz, nq)
+             or flat (m2, m2, P); per-offset: {'Wo': tuple of flat
+             (r*r, bbx*bby*nq) blocks} (smooth.py:381-422)
+  sigma_w    (sz, sz, nq);  coeffs (sz, sz, nq) beside per-offset levels
+  the f64 twin (operator.py:462-483) holds near_W (3, 3, nq, nq, 3, 3, nq,
+             dx folded in) and coeffs in place of near_E
   m2l_cosr   {level: (4, r*27*r)};  near_cosrw, near_static (3, 3, nq_t, nq_s);
   duffy      (nq_t, nq_s, sz, sz)
 """
@@ -21,9 +24,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .fmm.smooth import near_E_from_weights
 
-def _m2l_level_from_jax(E) -> np.ndarray:
-    """One JAX M2L level -> the port's (4, m2, m2, r, 27r)."""
+
+def _m2l_level_from_jax(E):
+    """One JAX M2L level -> the port's (4, m2, m2, r, 27r), or a per-offset
+    level -> the port's {'Wo'}: each block transposed to (K, r*r), back to
+    back in the same key order."""
+    if isinstance(E, dict):
+        return {"Wo": np.concatenate(
+            [np.asarray(W).T.ravel() for W in E["Wo"]])}
     if isinstance(E, (tuple, list)):
         blocks = []
         for Ec in map(np.asarray, E):
@@ -38,31 +48,33 @@ def _m2l_level_from_jax(E) -> np.ndarray:
 
 
 def caches_from_jax_numpy(caches_np: dict, grid, tcfg, device, dtype) -> dict:
-    """aniso_tpu's dense FMM caches {'near_E', 'm2l_E', 'sigma_w'} (numpy)
-    -> the port's caches on `device` in `dtype`."""
-    near = np.asarray(caches_np["near_E"])
-    if near.shape[-2:] != (grid.sz, grid.sz):
-        raise ValueError(f"near_E {near.shape} is not on a {grid.sz}^2 grid")
+    """aniso_tpu's FMM caches {'near_E' or 'near_W', 'm2l_E', 'sigma_w'
+    [, 'coeffs']} (numpy) -> the port's caches on `device` in `dtype`; a
+    twin's near_W is contracted with its coeffs into the port's near E."""
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device=device)
+
     levels = sorted(caches_np["m2l_E"])
     if levels[-1] != tcfg.leaf_level:
         raise ValueError(f"m2l_E levels {levels}, leaf {tcfg.leaf_level}")
-    m2l = {
-        level: torch.tensor(
-            np.ascontiguousarray(_m2l_level_from_jax(E)),
-            dtype=dtype, device=device,
-        )
-        for level, E in caches_np["m2l_E"].items()
-    }
-    return {
-        "near_E": torch.tensor(
-            np.ascontiguousarray(near.transpose(4, 5, 2, 0, 1, 3)),
-            dtype=dtype, device=device,
-        ),
-        "m2l_E": m2l,
-        "sigma_w": torch.tensor(
-            np.asarray(caches_np["sigma_w"]), dtype=dtype, device=device
-        ),
-    }
+    m2l = {}
+    for level, E in caches_np["m2l_E"].items():
+        E = _m2l_level_from_jax(E)
+        m2l[level] = {"Wo": t(E["Wo"])} if isinstance(E, dict) else t(E)
+    out = {"m2l_E": m2l, "sigma_w": t(caches_np["sigma_w"])}
+    if "coeffs" in caches_np:
+        out["coeffs"] = t(caches_np["coeffs"])
+    if "near_E" in caches_np:
+        near = np.asarray(caches_np["near_E"])
+        if near.shape[-2:] != (grid.sz, grid.sz):
+            raise ValueError(f"near_E {near.shape} is not on a {grid.sz}^2 "
+                             "grid")
+        out["near_E"] = t(near.transpose(4, 5, 2, 0, 1, 3))
+    else:
+        out["near_E"] = near_E_from_weights(t(caches_np["near_W"]),
+                                            out["coeffs"])
+    return out
 
 
 def mode_static_from_jax_numpy(ms_np: dict, device, dtype) -> dict:

@@ -5,7 +5,9 @@ Counterpart of aniso_tpu/fmm/apply.py for a single mode:
   P2M   one (r, nq) matrix shared by every leaf (weights folded in)
   M2M   4 static (r, r) tensor-product transfers, level -> level-1
   M2L   per level: K1 (kernels.m2l), exp(-E) * cos(m theta)/r against the
-        V-list multipoles, all 4 parity classes in one launch
+        V-list multipoles, all 4 parity classes in one launch; or K3
+        (kernels.offsets) at a per-offset fine level, which re-forms E from
+        the coefficient field
   L2L   transpose of M2M
   L2T   transpose of P2M (no weights)
 
@@ -20,7 +22,8 @@ P2M, M2M, L2L and L2T are small matmuls left to torch (kernel table K8).
 Not ported, deliberately: _loop_variant_zero (aniso_tpu apply.py:258), an
 XLA loop-invariant-hoisting workaround that eager torch has no use for; the
 dense-translate orientation branches (:341-372), one GPU layout serves all;
-_row_chunk and the transient caps (:197-255, :567-574).
+_row_chunk and the transient caps (:197-255, :567-574); the factored patch@W
+levels of _level_E (:411-424).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 from ..core.geometry import Grid
 from ..kernels.m2l import m2l_translate
 from ..kernels.near import near_contract
+from ..kernels.offsets import offsets_translate
 from .cheb import cheb_grid_2d, m2m_tensor, p2m_matrix
 from .smooth import near_pair_geometry
 from .structure import TreeConfig, coarsest_m2l_level, vlist_offsets
@@ -155,13 +159,19 @@ def _up_pass(static, leaf_level: int, u: torch.Tensor) -> dict:
 
 
 def _down_pass(static, leaf_level: int, M: dict, m2l_E: dict,
-               m2l_cosr: dict) -> torch.Tensor:
-    """K1 per level, then L2L into the next level (one einsum)."""
+               m2l_cosr: dict, coeffs=None) -> torch.Tensor:
+    """Per level K1 (a dense E tensor) or K3 (a per-offset level {'Wo'},
+    re-formed from `coeffs`; aniso_tpu _level_E :411-424), then L2L into
+    the next level (one einsum)."""
     m2m = static["m2m"]
     L = None
     for level in range(coarsest_m2l_level(), leaf_level + 1):
-        T = m2l_translate(m2l_E[level], m2l_cosr[level], M[level],
-                          static["shift"])
+        E_l = m2l_E[level]
+        if isinstance(E_l, dict):
+            T = offsets_translate(E_l["Wo"], coeffs, m2l_cosr[level],
+                                  M[level], static["shift"])
+        else:
+            T = m2l_translate(E_l, m2l_cosr[level], M[level], static["shift"])
         if L is None:
             L = T
         else:
@@ -185,12 +195,13 @@ def _near_apply(caches, mode_static, mode: int, u: torch.Tensor):
 def fmm_apply_mode(leaf_level, static, caches, mode_static, mode, u):
     """Corrected mode matvec K_m u including the 1/2pi scaling.
 
-    caches: {'near_E', 'm2l_E', 'sigma_w'} (sigma-dependent,
-    mode-independent); mode_static: build_mode_static's tables.
+    caches: {'near_E', 'm2l_E', 'sigma_w'[, 'coeffs']} (sigma-dependent,
+    mode-independent; 'coeffs' when a level is per-offset); mode_static:
+    build_mode_static's tables.
     """
     M = _up_pass(static, leaf_level, u)
     L = _down_pass(static, leaf_level, M, caches["m2l_E"],
-                   mode_static["m2l_cosr"])
+                   mode_static["m2l_cosr"], caches.get("coeffs"))
     far = torch.einsum("kc,ijc->ijk", static["l2t"], L)
     near = _near_apply(caches, mode_static, mode, u)
     return (far + near) / (2.0 * math.pi)

@@ -1,27 +1,32 @@
 """Sigma-dependent attenuation caches (E) of the FMM operator.
 
-Counterpart of aniso_tpu/fmm/smooth.py for the main path.  The caches hold
-the attenuation line integrals E, which do not depend on the Fourier mode;
-the per-mode factors cos(m theta)/r are small static tables folded in at
-apply time (exp(-E) cos/r in M2L, expm1(-E) cos/r in the near field).
+Counterpart of aniso_tpu/fmm/smooth.py.  The caches hold the attenuation
+line integrals E, which do not depend on the Fourier mode; the per-mode
+factors cos(m theta)/r are small static tables folded in at apply time
+(exp(-E) cos/r in M2L, expm1(-E) cos/r in the near field).
 
 E is a fixed linear map of the sigma_t Legendre coefficient field with
 static, sigma-independent segment-quadrature weights (ops.segment_stencil):
 
-  * near pairs and the fine M2L levels (box size B in {1, 2} squares):
-    numpy weight tables (lru-cached, grid-size independent) contracted with
-    coefficient windows by torch on the device;
-  * coarse M2L levels (B >= 4): f64 on the host, per-offset dgemm where
-    boxes are many, exact per-pair integrals on the host engine (native.py)
-    where they are few.
+  * near pairs and the dense fine M2L levels (box size B in {1, 2}
+    squares): numpy weight tables (lru-cached, grid-size independent)
+    contracted with coefficient windows by torch on the device;
+  * per-offset fine levels ({'Wo'}): only the static weight block of each
+    canonical (class, offset) entry is stored; K3 (kernels.offsets)
+    re-forms E from coefficient windows inside the matvec.  A fine level
+    takes this form when it does not fit the dense budget, and every fine
+    level of the f64 refinement twin does;
+  * coarse M2L levels (B >= 4): f64, per-offset GEMMs on the device where
+    boxes are many (K6, build_m2l_E_coarse_device), exact per-pair
+    integrals on the host engine (native.py) where they are few.
 
-Layouts are the GPU kernels' own (kernels.m2l, kernels.near): near E
-(sz, sz, nq_t, 3, 3, nq_s) and every M2L level (4, m2, m2, r, 27r),
-contiguous.  Not ported, deliberately: the TPU tile-orientation switches
-(y-minor / row / flat, aniso_tpu smooth.py:288-342), the factored and
-per-offset fine levels (a fine level that does not fit the dense budget
-raises; the per-offset form comes with slice 2), the device f64 coarse
-build and the ANISO_* knobs.
+Layouts are the GPU kernels' own (kernels.m2l, kernels.near,
+kernels.offsets): near E (sz, sz, nq_t, 3, 3, nq_s) and every dense M2L
+level (4, m2, m2, r, 27r), contiguous.  Not ported, deliberately: the TPU
+tile-orientation switches (y-minor / row / flat, aniso_tpu smooth.py:
+288-342), the factored patch@W fine levels, the v5e upload caps of the
+device coarse build (_COARSE_DEVICE_MAX_W_LEVEL_BYTES) and the ANISO_*
+knobs.
 """
 
 from __future__ import annotations
@@ -148,12 +153,12 @@ def coarse_mirror_table(np_cheb: int) -> tuple:
     return tuple(out)
 
 
-def mirror_fill_coarse(E6: np.ndarray) -> None:
+def mirror_fill_coarse(E6) -> None:
     """Fill non-canonical (class, offset) blocks of E6 (4, m2, m2, 27, r, r)
     in place from their canonical mirrors (transposed point axes, shifted
     box plane).  Entries whose mirror source falls off the plane are
     zeroed: their multipoles are zero in the V-list gather, so their E
-    value is never observable."""
+    value is never observable.  E6 is a numpy array or a torch tensor."""
     m2 = E6.shape[1]
     r = E6.shape[-1]
     for (c, o, canonical, c2, o2, sx, sy) in coarse_mirror_table(
@@ -161,14 +166,36 @@ def mirror_fill_coarse(E6: np.ndarray) -> None:
     ):
         if not canonical:
             continue
-        blk = E6[c, :, :, o]                      # (m2, m2, r, r)
-        dst = np.zeros_like(blk)
         xd = slice(max(0, sx), m2 + min(0, sx))
         yd = slice(max(0, sy), m2 + min(0, sy))
         xs = slice(max(0, -sx), m2 + min(0, -sx))
         ys = slice(max(0, -sy), m2 + min(0, -sy))
-        dst[xd, yd] = blk[xs, ys].transpose(0, 1, 3, 2)
-        E6[c2, :, :, o2] = dst
+        E6[c2, :, :, o2] = 0
+        E6[c2, xd, yd, o2] = E6[c, xs, ys, o].swapaxes(-1, -2)
+
+
+@functools.lru_cache(maxsize=None)
+def _fine_offset_entries(np_cheb: int):
+    """Canonical per-offset plan shared by the per-offset fine levels, K3
+    and the device coarse build (copy of aniso_tpu smooth.py:358-378):
+    (entries, keys, mirrors) with entries = ((c, o, px, py, di, dj, ki),
+    ...) over canonical (class, offset) blocks, keys = the distinct
+    physical offsets (di, dj) in weight-block order (the weight geometry
+    drops the parity class), and mirrors[(c, o)] = (c2, o2, sx, sy) from
+    coarse_mirror_table."""
+    entries = []
+    keys = []
+    mirrors = {}
+    for (c, o, canonical, c2, o2, sx, sy) in coarse_mirror_table(np_cheb):
+        if not canonical:
+            continue
+        px, py = c >> 1, c & 1
+        di, dj = vlist_offsets(px, py)[o]
+        if (di, dj) not in keys:
+            keys.append((di, dj))
+        entries.append((c, o, px, py, di, dj, keys.index((di, dj))))
+        mirrors[(c, o)] = (c2, o2, sx, sy)
+    return tuple(entries), tuple(keys), mirrors
 
 
 # per-offset dgemm coarse levels: cap on one (class, offset) weight block
@@ -221,46 +248,89 @@ def coarse_m2l_levels(tcfg: TreeConfig) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Coarse levels: f64 on the host
+# Coarse levels (B >= 4): f64, on the device (K6) or the host engine
 # ---------------------------------------------------------------------------
 
 
-def _coarse_dgemm_level_np(
-    grid: Grid, tcfg: TreeConfig, level: int, np_cheb: int,
-    coeffs_np: np.ndarray,
-) -> np.ndarray:
-    """(4, m2, m2, 27, r, r) f64 E at a coarse level via per-offset static
-    weights x sliding coefficient windows (host BLAS dgemm): the same
-    piecewise-Gauss quadrature as the per-pair engine, as 54 canonical
-    (class, offset) matmuls + the mirror pass."""
-    B = tcfg.box_size_squares(level)
-    r = np_cheb * np_cheb
-    m2 = tcfg.boxes(level) // 2
-    cf = np.asarray(coeffs_np, np.float64)
-    pad = np.pad(cf, ((3 * B, 4 * B), (3 * B, 4 * B), (0, 0)))
-    E6 = np.empty((4, m2, m2, 27, r, r), dtype=np.float64)
-    for (c, o, canonical, _, _, _, _) in coarse_mirror_table(np_cheb):
-        if not canonical:
-            continue
-        px, py = c >> 1, c & 1
-        di, dj = vlist_offsets(px, py)[o]
-        W, ox0, oy0 = _coarse_offset_weight_cached(
-            grid.deg, np_cheb, B, di, dj
+def pad_coeffs(coeffs: torch.Tensor, B: int) -> torch.Tensor:
+    """The coefficient field zero-padded by 3B cells below and 4B above
+    (every V-list bounding box of a level with box size B stays inside)."""
+    sz, nq = coeffs.shape[0], coeffs.shape[-1]
+    pad = coeffs.new_zeros((sz + 7 * B, sz + 7 * B, nq))
+    pad[3 * B:3 * B + sz, 3 * B:3 * B + sz] = coeffs
+    return pad
+
+
+def box_windows(pad: torch.Tensor, B: int, m2: int, px: int, py: int,
+                di: int, dj: int) -> torch.Tensor:
+    """(m2, m2, K) bounding-box windows of one (class, offset) entry, K =
+    bbx * bby * nq in (a, b, q) order: box (x, y) of class (px, py) gets
+    cells [px B + min(0, di B) + 2Bx, + (|di|+1) B) x [...] of the field
+    (pad = pad_coeffs(coeffs, B)), taken as B-granular strided box-plane
+    slices (aniso_tpu _coarse_device_level_fn :686-706,
+    _offsets_translate_impl :483-496)."""
+    nq = pad.shape[-1]
+    LX = pad.shape[0] // B
+    pb = pad.reshape(LX, B, LX, B, nq)
+    ux = px + min(0, di) + 3
+    uy = py + min(0, dj) + 3
+    rows = torch.cat(
+        [pb[ux + s:ux + s + 2 * m2:2] for s in range(abs(di) + 1)], dim=1
+    )                                       # (m2, bbx, LX, B, nq)
+    win = torch.cat(
+        [rows[:, :, uy + s:uy + s + 2 * m2:2] for s in range(abs(dj) + 1)],
+        dim=3,
+    )                                       # (m2, bbx, m2, bby, nq)
+    return win.permute(0, 2, 1, 3, 4).reshape(m2, m2, -1)
+
+
+# static f64 weight blocks of the device coarse build, resident on their
+# device for the process: {(deg, np_cheb, B, di, dj, device): (r*r, K)}
+_DEVICE_W_CACHE: dict = {}
+
+
+def _coarse_offset_weight_device(deg: int, np_cheb: int, B: int, di: int,
+                                 dj: int, device) -> torch.Tensor:
+    """(r*r, K) f64 weight block of one offset on `device`, made once per
+    process and kept there across set_coeff calls (the host table is not
+    kept: at 512^2 the B = 32 level alone holds 3.2 GB of them)."""
+    key = (deg, np_cheb, B, di, dj, str(device))
+    W = _DEVICE_W_CACHE.get(key)
+    if W is None:
+        Wnp = _coarse_offset_weight_cached.__wrapped__(deg, np_cheb, B, di, dj)[0]
+        W = torch.as_tensor(
+            Wnp.reshape(Wnp.shape[0], -1), dtype=torch.float64, device=device
         )
-        bbx, bby = W.shape[1], W.shape[2]
-        x0 = px * B + ox0 + 3 * B
-        y0 = py * B + oy0 + 3 * B
-        sl = pad[x0 : x0 + 2 * B * (m2 - 1) + bbx,
-                 y0 : y0 + 2 * B * (m2 - 1) + bby]
-        win = np.lib.stride_tricks.sliding_window_view(
-            sl, (bbx, bby), axis=(0, 1)
-        )[:: 2 * B, :: 2 * B]
-        # win[x, y, q, a, b] = sl[2Bx + a, 2By + b, q]
-        E6[c, :, :, o] = np.einsum(
-            "pabq,xyqab->xyp", W, win, optimize=True
-        ).reshape(m2, m2, r, r)
+        _DEVICE_W_CACHE[key] = W
+    return W
+
+
+def build_m2l_E_coarse_device(grid: Grid, tcfg: TreeConfig, level: int,
+                              np_cheb: int, coeffs: torch.Tensor
+                              ) -> torch.Tensor:
+    """f64 E (4, m2, m2, r, 27r) in K1's layout at a dgemm-eligible coarse
+    level, on coeffs' device: K6 (aniso_tpu _coarse_device_level_fn
+    :661-733 and build_m2l_E_coarse_device :736-770).
+
+    Per canonical (class, offset) entry one (m2^2, K) @ (K, r^2) f64 GEMM
+    of B-granular box windows against the resident static weight block,
+    then the mirror fill E(a->b) = E(b->a) and the (a, o, b) assembly.
+    These are plain large GEMMs outside any kernel, left to torch.matmul
+    as JAX left them to XLA."""
+    B = tcfg.box_size_squares(level)
+    m2 = tcfg.boxes(level) // 2
+    r = np_cheb * np_cheb
+    pad = pad_coeffs(coeffs.to(torch.float64), B)
+    entries, _, _ = _fine_offset_entries(np_cheb)
+    E6 = pad.new_empty((4, m2, m2, 27, r, r))
+    for (c, o, px, py, di, dj, _) in entries:
+        W = _coarse_offset_weight_device(grid.deg, np_cheb, B, di, dj,
+                                         pad.device)
+        win = box_windows(pad, B, m2, px, py, di, dj)
+        E6[c, :, :, o] = (win.reshape(m2 * m2, -1) @ W.T).reshape(m2, m2, r, r)
     mirror_fill_coarse(E6)
-    return E6 * grid.dx
+    E6.mul_(grid.dx)
+    return E6.permute(0, 1, 2, 4, 3, 5).reshape(4, m2, m2, r, 27 * r)
 
 
 def _coarse_perpair_level_np(
@@ -309,29 +379,28 @@ def _coarse_perpair_level_np(
     return E_out.transpose(0, 1, 2, 4, 3, 5).reshape(4, m2, m2, -1)
 
 
-def build_m2l_E_coarse_np(
-    grid: Grid, tcfg: TreeConfig, level: int, np_cheb: int,
-    coeffs_np: np.ndarray,
-) -> np.ndarray:
-    """f64 (4, m2, m2, r*27*r) E at a coarse level (B >= 4): per-offset
-    dgemm where eligible, else the canonical per-pair engine + mirror."""
-    if _coarse_dgemm_eligible(grid, tcfg, level, np_cheb):
-        E6 = _coarse_dgemm_level_np(grid, tcfg, level, np_cheb, coeffs_np)
-        m2 = tcfg.boxes(level) // 2
-        return E6.transpose(0, 1, 2, 4, 3, 5).reshape(4, m2, m2, -1)
-    return _coarse_perpair_level_np(
-        grid, tcfg, level, np_cheb, coeffs_np, canonical_only=True
-    )
-
-
-def build_m2l_E_coarse_all_np(
-    grid: Grid, tcfg: TreeConfig, np_cheb: int, coeffs_np: np.ndarray,
-) -> dict:
-    """f64 host E for every coarse level: {level: (4, m2, m2, r*27*r)}."""
-    return {
-        lv: build_m2l_E_coarse_np(grid, tcfg, lv, np_cheb, coeffs_np)
-        for lv in coarse_m2l_levels(tcfg)
+def build_m2l_E_coarse_all(grid: Grid, tcfg: TreeConfig, np_cheb: int,
+                           coeffs_np: np.ndarray, device) -> dict:
+    """f64 E for every coarse level on `device`, {level: (4, m2, m2, r,
+    27r)}, shared by the f32 cache (a cast) and the f64 twin (as it is)
+    (aniso_tpu build_m2l_E_coarse_all :991-1036): dgemm-eligible levels by
+    K6 on the device, queued first so that the host's per-pair levels (a
+    handful of boxes, native engine) overlap them."""
+    coeffs = torch.as_tensor(coeffs_np, dtype=torch.float64, device=device)
+    r = np_cheb * np_cheb
+    levels = coarse_m2l_levels(tcfg)
+    out = {
+        lv: build_m2l_E_coarse_device(grid, tcfg, lv, np_cheb, coeffs)
+        for lv in levels if _coarse_dgemm_eligible(grid, tcfg, lv, np_cheb)
     }
+    for lv in levels:
+        if lv not in out:
+            m2 = tcfg.boxes(lv) // 2
+            out[lv] = torch.as_tensor(
+                _coarse_perpair_level_np(grid, tcfg, lv, np_cheb, coeffs_np),
+                device=device,
+            ).reshape(4, m2, m2, r, 27 * r)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -341,18 +410,23 @@ def build_m2l_E_coarse_all_np(
 
 def build_near_E(grid: Grid, coeffs: torch.Tensor) -> torch.Tensor:
     """Near-pair E in K2's layout (sz, sz, nq_t, 3, 3, nq_s), physical
-    units, in coeffs' dtype and device (aniso_tpu build_near_E, :166).
-
-    One GEMM: the 3x3 coefficient windows (sz^2, 9 nq) against the static
-    weights permuted to (nq_t, 3, 3, nq_s | 3, 3, nq)."""
-    sz, nq = coeffs.shape[0], coeffs.shape[-1]
+    units, in coeffs' dtype and device (aniso_tpu build_near_E, :166)."""
     W = torch.as_tensor(
-        near_weights_np(grid.deg), dtype=coeffs.dtype, device=coeffs.device
+        near_weights_np(grid.deg) * grid.dx, dtype=coeffs.dtype,
+        device=coeffs.device,
     )
+    return near_E_from_weights(W, coeffs)
+
+
+def near_E_from_weights(W: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """Near E from the (3, 3, nq, nq, 3, 3, nq) weights of near_weights_np
+    with grid.dx folded in: one GEMM of the 3x3 coefficient windows
+    (sz^2, 9 nq) against the weights permuted to (nq_t, 3, 3, nq_s | 3, 3,
+    nq)."""
+    sz, nq = coeffs.shape[0], coeffs.shape[-1]
     Wp = W.permute(2, 0, 1, 3, 4, 5, 6).reshape(9 * nq * nq, 9 * nq)
     win = patch_3x3(coeffs).reshape(sz * sz, 9 * nq)
-    E = torch.matmul(win, Wp.T) * grid.dx
-    return E.reshape(sz, sz, nq, 3, 3, nq)
+    return torch.matmul(win, Wp.T).reshape(sz, sz, nq, 3, 3, nq)
 
 
 def patch_for_level(coeffs: torch.Tensor, level: int) -> torch.Tensor:
@@ -399,31 +473,62 @@ def build_m2l_E_fine(grid: Grid, tcfg: TreeConfig, level: int, np_cheb: int,
     return E.reshape(4, m2, m2, r, 27 * r)
 
 
+def build_m2l_offsets_fine(grid: Grid, tcfg: TreeConfig, level: int,
+                           np_cheb: int, dtype, device) -> dict:
+    """Per-offset form of a fine level, {'Wo': flat tensor} (aniso_tpu
+    build_m2l_offsets_fine, :381-422): the static weight block of each
+    distinct canonical offset (_coarse_offset_weight_cached, grid.dx folded
+    in), stored in K3's layout, (K, r*r) per offset back to back in
+    _fine_offset_entries' key order (kernels.offsets).  A few MB instead of
+    GBs of dense E; K3 re-forms E inside the matvec from the coefficient
+    field, which the caller stores beside the cache as caches['coeffs']."""
+    _, keys, _ = _fine_offset_entries(np_cheb)
+    B = tcfg.box_size_squares(level)
+    r2 = (np_cheb * np_cheb) ** 2
+    blocks = [
+        (_coarse_offset_weight_cached(grid.deg, np_cheb, B, di, dj)[0]
+         * grid.dx).reshape(r2, -1).T.ravel()
+        for (di, dj) in keys
+    ]
+    return {"Wo": torch.as_tensor(np.concatenate(blocks), dtype=dtype,
+                                  device=device)}
+
+
 # headroom kept free next to the dense E levels for the build transients
-# (the fine W operator, the patches), the Krylov basis and the apply's
-# temporaries
+# (the fine W operator, the patches) and the apply's temporaries
 _DEVICE_HEADROOM_BYTES = 2 * 1024 ** 3
 
 
 def dense_budget_bytes(device: torch.device):
-    """Bytes the M2L E cache may take: the device's free memory less a
-    fixed headroom (None on the CPU: no budget)."""
+    """Bytes the dense fine M2L E levels may take (None on the CPU: no
+    budget): the device memory not in use (free, plus what torch's
+    allocator holds unused) less a fixed headroom.  Whatever is resident
+    when it is called (the f64 twin, the near E, the coarse levels and
+    their weights) is already out of the free memory it reads."""
     if device.type != "cuda":
         return None
     free, _ = torch.cuda.mem_get_info(device)
-    return free - _DEVICE_HEADROOM_BYTES
+    idle = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(
+        device)
+    return free + idle - _DEVICE_HEADROOM_BYTES
 
 
 def build_m2l_E(grid: Grid, tcfg: TreeConfig, np_cheb: int,
-                coeffs: torch.Tensor, coarse_np: dict,
+                coeffs: torch.Tensor, coarse: dict,
                 budget_bytes=None) -> dict:
-    """Per-level M2L E cache {level: (4, m2, m2, r, 27r)}, all dense, in
-    coeffs' dtype and device (aniso_tpu build_m2l_E, :1039).  coarse_np
-    holds the f64 host coarse levels (build_m2l_E_coarse_all_np).
+    """Per-level M2L E cache in coeffs' dtype and device (aniso_tpu
+    build_m2l_E, :1039-1122): dense levels (4, m2, m2, r, 27r) and
+    per-offset fine levels {'Wo'} (build_m2l_offsets_fine).  coarse holds
+    the f64 coarse levels (build_m2l_E_coarse_all); a dtype or device that
+    differs from theirs takes a cast, f64 on their device shares them.
 
-    Levels are allocated coarsest-first against budget_bytes; a fine level
-    that does not fit raises: its per-offset recompute form is slice 2's
-    (ROADMAP queue A item 10)."""
+    Coarse levels are always dense (they are resident already, in f64).
+    Fine levels are allocated coarsest-first against budget_bytes, the
+    bytes their dense E may take in the port's unpadded layout (None: no
+    limit); a fine level that does not fit takes the per-offset form.
+    Coarsest-first is also the right order: a per-offset level costs the
+    same re-form operations at any depth, so the budget goes to the levels
+    that are cheapest in bytes."""
     r = np_cheb * np_cheb
     itemsize = coeffs.element_size()
     cache = {}
@@ -431,23 +536,30 @@ def build_m2l_E(grid: Grid, tcfg: TreeConfig, np_cheb: int,
     for level in range(coarsest_m2l_level(), tcfg.leaf_level + 1):
         m2 = tcfg.boxes(level) // 2
         nbytes = 4 * m2 * m2 * r * 27 * r * itemsize
-        if budget_bytes is not None and spent + nbytes > budget_bytes:
-            raise NotImplementedError(
-                f"m2l E level {level} ({nbytes / 1e9:.2f} GB dense) does not "
-                f"fit the dense budget ({budget_bytes / 1e9:.2f} GB, "
-                f"{spent / 1e9:.2f} GB spent): the per-offset fine-level "
-                "form is ported in slice 2"
-            )
-        spent += nbytes
-        if tcfg.box_size_squares(level) <= 2:
-            cache[level] = build_m2l_E_fine(grid, tcfg, level, np_cheb, coeffs)
-        else:
+        if tcfg.box_size_squares(level) > 2:
             cache[level] = torch.as_tensor(
-                coarse_np[level], dtype=coeffs.dtype, device=coeffs.device
+                coarse[level], dtype=coeffs.dtype, device=coeffs.device
             ).reshape(4, m2, m2, r, 27 * r)
+        elif budget_bytes is not None and spent + nbytes > budget_bytes:
+            cache[level] = build_m2l_offsets_fine(
+                grid, tcfg, level, np_cheb, coeffs.dtype, coeffs.device
+            )
+        else:
+            spent += nbytes
+            cache[level] = build_m2l_E_fine(grid, tcfg, level, np_cheb, coeffs)
     return cache
 
 
+def per_offset_levels(cache: dict) -> list:
+    """The levels of an M2L cache held in the per-offset form."""
+    return [lv for lv, v in cache.items() if isinstance(v, dict)]
+
+
 def m2l_cache_bytes(cache: dict) -> int:
-    """Bytes of the per-level E tensors (contiguous, unpadded)."""
-    return sum(t.numel() * t.element_size() for t in cache.values())
+    """Bytes of the per-level tensors (contiguous, unpadded): dense E, or
+    the weight blocks of a per-offset level."""
+    return sum(
+        t.numel() * t.element_size()
+        for t in (v["Wo"] if isinstance(v, dict) else v
+                  for v in cache.values())
+    )

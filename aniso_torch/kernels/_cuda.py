@@ -29,6 +29,21 @@ def load(source: str, symbol: str, argtypes: tuple):
     return fn
 
 
+# kernel instances by the scalar type they take
+INSTANCES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def instance(name: str, t: torch.Tensor) -> str:
+    """"f32" or "f64": the instance of a kernel template that takes t's
+    dtype; any other dtype raises."""
+    try:
+        return INSTANCES[t.dtype]
+    except KeyError:
+        raise TypeError(
+            f"{name}: the kernel takes float32 or float64, got {t.dtype}"
+        ) from None
+
+
 def check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.float32):
     """Raise unless t is a contiguous CUDA tensor of `shape` and `dtype`."""
     if not t.is_cuda:

@@ -19,7 +19,9 @@ Layouts (the port's own, contiguous, no padding):
 returns L (2m2, 2m2, r).
 
 m2l_translate takes m2l_translate_plain for CPU tensors and launches the
-kernel for CUDA tensors (float32 only); `launches` counts kernel launches.
+kernel for CUDA tensors: the float32 instance or the float64 one (the
+refinement twin's coarse levels and the plain f64 solve), by E's dtype;
+`launches` counts kernel launches per instance.
 """
 
 from __future__ import annotations
@@ -31,10 +33,10 @@ import torch
 from . import _cuda
 
 SOURCE = "m2l_translate.cu"
-SYMBOL = "aniso_m2l_translate_f32"
+SYMBOLS = {"f32": "aniso_m2l_translate_f32", "f64": "aniso_m2l_translate_f64"}
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
-launches = 0
+launches = {"f32": 0, "f64": 0}
 
 
 def vlist_gather(M: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -68,22 +70,23 @@ def m2l_translate_plain(E, cosr, M, shift) -> torch.Tensor:
 
 
 def m2l_translate(E, cosr, M, shift) -> torch.Tensor:
-    global launches
     if E.device.type == "cpu":
         return m2l_translate_plain(E, cosr, M, shift)
+    inst = _cuda.instance("E", E)
     _, m2, _, r, ob = E.shape
     if ob != 27 * r:
         raise ValueError(f"E: last dim {ob}, expected 27 r = {27 * r}")
-    _cuda.check("E", E, (4, m2, m2, r, ob))
-    _cuda.check("cosr", cosr, (4, r, ob))
-    _cuda.check("M", M, (2 * m2, 2 * m2, r))
+    _cuda.check("E", E, (4, m2, m2, r, ob), E.dtype)
+    _cuda.check("cosr", cosr, (4, r, ob), E.dtype)
+    _cuda.check("M", M, (2 * m2, 2 * m2, r), E.dtype)
     _cuda.check("shift", shift, (4, 27, 4), torch.int32)
-    if ob * 4 > 48 * 1024:
+    if ob * E.element_size() > 48 * 1024:
         raise ValueError(f"r = {r}: the gathered multipoles exceed 48 KB")
-    fn = _cuda.load(SOURCE, SYMBOL, _ARGTYPES)
+    symbol = SYMBOLS[inst]
+    fn = _cuda.load(SOURCE, symbol, _ARGTYPES)
     L = torch.empty_like(M)
     rc = fn(_cuda.ptr(E), _cuda.ptr(cosr), _cuda.ptr(M), _cuda.ptr(shift),
             _cuda.ptr(L), m2, r, _cuda.stream(E.device))
-    _cuda.raise_on_error(SYMBOL, rc)
-    launches += 1
+    _cuda.raise_on_error(symbol, rc)
+    launches[inst] += 1
     return L

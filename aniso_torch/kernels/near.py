@@ -17,7 +17,9 @@ with u zero off the grid.  Layouts (the port's own, square major):
     u, sigma_w, out (sz, sz, nq);  duffy (sz, sz, nq, nq)
 
 near_contract takes near_contract_plain for CPU tensors and launches the
-kernel for CUDA tensors (float32 only); `launches` counts kernel launches.
+kernel for CUDA tensors: the float32 instance or the float64 one (the
+refinement twin and the plain f64 solve), by E's dtype; `launches` counts
+kernel launches per instance.
 """
 
 from __future__ import annotations
@@ -30,10 +32,10 @@ from ..ops.windows import patch_3x3
 from . import _cuda
 
 SOURCE = "near_contract.cu"
-SYMBOL = "aniso_near_contract_f32"
+SYMBOLS = {"f32": "aniso_near_contract_f32", "f64": "aniso_near_contract_f64"}
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
-launches = 0
+launches = {"f32": 0, "f64": 0}
 
 
 def near_contract_plain(E, cosrw, S, u, sigma_w=None, duffy=None):
@@ -49,23 +51,25 @@ def near_contract_plain(E, cosrw, S, u, sigma_w=None, duffy=None):
 
 
 def near_contract(E, cosrw, S, u, sigma_w=None, duffy=None) -> torch.Tensor:
-    global launches
     if E.device.type == "cpu":
         return near_contract_plain(E, cosrw, S, u, sigma_w, duffy)
+    inst = _cuda.instance("E", E)
     sz, _, nq = u.shape
-    _cuda.check("E", E, (sz, sz, nq, 3, 3, nq))
-    _cuda.check("cosrw", cosrw, (nq, 3, 3, nq))
-    _cuda.check("S", S, (nq, 3, 3, nq))
-    _cuda.check("u", u, (sz, sz, nq))
+    dt = E.dtype
+    _cuda.check("E", E, (sz, sz, nq, 3, 3, nq), dt)
+    _cuda.check("cosrw", cosrw, (nq, 3, 3, nq), dt)
+    _cuda.check("S", S, (nq, 3, 3, nq), dt)
+    _cuda.check("u", u, (sz, sz, nq), dt)
     if sigma_w is not None:
-        _cuda.check("sigma_w", sigma_w, (sz, sz, nq))
+        _cuda.check("sigma_w", sigma_w, (sz, sz, nq), dt)
     if duffy is not None:
-        _cuda.check("duffy", duffy, (sz, sz, nq, nq))
-    fn = _cuda.load(SOURCE, SYMBOL, _ARGTYPES)
+        _cuda.check("duffy", duffy, (sz, sz, nq, nq), dt)
+    symbol = SYMBOLS[inst]
+    fn = _cuda.load(SOURCE, symbol, _ARGTYPES)
     out = torch.empty_like(u)
     rc = fn(_cuda.ptr(E), _cuda.ptr(cosrw), _cuda.ptr(S), _cuda.ptr(u),
             _cuda.ptr(sigma_w), _cuda.ptr(duffy), _cuda.ptr(out), sz, nq,
             _cuda.stream(E.device))
-    _cuda.raise_on_error(SYMBOL, rc)
-    launches += 1
+    _cuda.raise_on_error(symbol, rc)
+    launches[inst] += 1
     return out

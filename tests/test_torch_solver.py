@@ -61,7 +61,7 @@ def test_fmm_solve_16_matches_jax(compat):
 
 @pytest.mark.parametrize("change,backend", [
     ({"kernel_size": 2}, "fmm"),
-    ({"refine": True, "dtype": "float32"}, "fmm"),
+    ({"refine": True, "dtype": "float32", "refine_twin": "host"}, "fmm"),
     ({}, "dense"),
 ])
 def test_later_slices_raise(change, backend):
