@@ -1,6 +1,6 @@
 """Carry aniso_tpu's caches and per-mode tables across into the port.
 
-Both functions take numpy arrays (the caller converts JAX arrays with
+The functions take numpy arrays (the caller converts JAX arrays with
 np.asarray) and import nothing of JAX, so a test can feed both packages the
 same caches and compare the apply alone.
 
@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .fmm.apply import stack_mode_statics
 from .fmm.smooth import near_E_from_weights
 
 
@@ -99,3 +100,11 @@ def mode_static_from_jax_numpy(ms_np: dict, device, dtype) -> dict:
             np.asarray(duffy).transpose(2, 3, 0, 1)
         ),
     }
+
+
+def mode_stack_from_jax_numpy(ms_list, device, dtype) -> dict:
+    """aniso_tpu's per-mode tables of modes 0..D-1 (solver._mode_statics)
+    -> the port's stacked tables with the leading mode axis, as the
+    all-modes sweep reads them (fmm.apply.stack_mode_statics)."""
+    return stack_mode_statics(
+        [mode_static_from_jax_numpy(ms, device, dtype) for ms in ms_list])

@@ -1,9 +1,9 @@
 """Typed solver configuration with a data.cfg-compatible loader.
 
 Copy of aniso_tpu/core/config.py (the port keeps its own: importing any
-aniso_tpu module imports JAX).  The fields the port does not implement yet
-(kernel_size > 1, refine, the DSA preconditioner) are kept so that a
-data.cfg parses the same in both packages; solver.operator rejects them.
+aniso_tpu module imports JAX).  Every field is kept so that a data.cfg
+parses the same in both packages; what the port does not implement
+(refine_twin="host") solver.operator rejects.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ class SolverConfig:
     # numerics
     dtype: str = "float64"        # float32 | float64
     # mixed-precision iterative refinement (f32 inner GMRES, f64 outer
-    # residuals) and where its f64 twin lives: parsed for data.cfg parity;
-    # the port does not implement them yet (solver.operator raises)
+    # residuals) and where its f64 twin lives (the port keeps it on the
+    # device; "host" raises in solver.operator)
     refine: bool = False
     refine_twin: str = "device"
     # reference-compat: evaluate per-square Legendre expansions at *global*

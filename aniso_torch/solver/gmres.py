@@ -6,6 +6,11 @@ iteration accounting (:195-241): j starts at 1 and counts Arnoldi steps
 (matvecs), the inner loop runs while i < restart, j <= max_iter and not
 converged, and iterations = j - 1.
 
+An optional left preconditioner (aniso_tpu gmres.py:97-120; MATLAB's
+gmres(A, b, ..., M), which is how the reference applies its diffusion solve,
+aniso.m:111-119): `precond` is the action of inv(M), the solve is of
+inv(M) A x = inv(M) b, and the reported residual is the preconditioned one.
+
 The Krylov basis (restart + 1, *field) and the matvecs stay on the field's
 device in its dtype, in natural field shape.  The Hessenberg column, the
 rotations and s are kept in float64 on the host: each Arnoldi step reads
@@ -50,6 +55,7 @@ def gmres(
     restart: int = 80,
     max_iter: int = 400,
     tol: float = 1e-12,
+    precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> GmresResult:
     """Solve A x = b for a field b of any shape."""
     shape = b.shape
@@ -57,7 +63,13 @@ def gmres(
     x = torch.zeros_like(b) if x0 is None else x0.reshape(shape).clone()
 
     def A(v):
-        return matvec(v).reshape(shape)
+        out = matvec(v)
+        if precond is not None:
+            out = precond(out)
+        return out.reshape(shape)
+
+    if precond is not None:
+        b = precond(b).reshape(shape)
 
     normb = float(torch.linalg.vector_norm(b))
     normb = 1.0 if normb == 0.0 else normb

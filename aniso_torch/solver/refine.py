@@ -32,7 +32,7 @@ MAX_REFINE = 10  # cap on inner solves; two reach 1e-11 from f32's ~1e-6
 
 
 class RefinedResult(NamedTuple):
-    x: torch.Tensor            # (1, sz, sz, nq) float64
+    x: torch.Tensor            # (N, sz, sz, nq) float64
     residual: float            # true f64 relative residual |b - A x| / |b|
     iterations: int            # total inner (f32) matvec count
     converged: bool
@@ -58,7 +58,7 @@ def refined_solve(
               "inner_iters": [], "update_s": 0.0}
     f64 = torch.float64
     dev = solver.device
-    shape = (1,) + solver.grid.nodes_x.shape
+    shape = (solver.cfg.kernel_size,) + solver.grid.nodes_x.shape
     q = torch.as_tensor(charge, dtype=f64, device=dev).reshape(shape)
 
     t0 = time.perf_counter()

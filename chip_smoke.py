@@ -9,15 +9,25 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
 
   device   first the nvidia-smi name and power limit line as nvidia-smi
            prints it, then torch / CUDA versions and the TF32 pins
-  build    nvcc of K1, K2 and K3 and g++ of the host engine, in parallel
+  build    nvcc of K1, K2, K3 and K9d and g++ of the host engine, in
+           parallel
   kernels_vs_plain  at every size solved below, each kernel at the shapes
            the paths give it, against its plain version on inputs from a
-           seed (random E, M, cosr; the bench sigma field's coefficients
-           for K3), with CUDA-event device times and bounds:
+           seed (random E, M, cosr; the sigma field's coefficients of the
+           problem solved there for K3), with CUDA-event device times and
+           bounds:
              64^2, 128^2: K1 f32 at every level, K2 f32 (compat off, on);
              64^2: K1/K2 f64, K3 f32/f64 at the fine levels;
              512^2: K1 f32 at every level, K1 f64 at the coarse levels,
-             K2 f32/f64, K3 f32/f64 at both fine levels.
+             K2 f32/f64, K3 f32/f64 at both fine levels;
+           the all-modes instances (D = 9 modes of one charge per launch),
+           each also against D launches of its one-mode instance:
+             128^2 deg 1 (demo128) and 512^2 deg 3 (mm512): K1-D f32 at
+             every level and f64 at the twin's coarse levels, K2-D f32/f64
+             (compat off, on), K3-D f64 at both fine levels;
+             64^2 deg 2 (dsa64): K1-D and K2-D f64 at D = 5, less than one
+             chunk of modes, and the one-mode K2 f64 at 4 nodes per square;
+           K9d (the DSA diffusion stencil) f32/f64 at 64^2, 128^2, 512^2.
            Gates: max|kernel - plain| <= 1e-5 max|plain| in f32 (sums of
            432 to 729 terms, or K3's 27 atomic adds, in another order) and
            1e-12 max|plain| in f64
@@ -47,14 +57,40 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            iterations +- 1
   f64_64   the oracle64 problem in float64 to tol 1e-10: K1/K2 f64, true
            residual < 1e-9, relative Linf error < 1e-3 against oracle_64
+  demo128  the reference's demo.m problem (examples/demo_torch.py): 128^2,
+           deg 1, N = 5 coupled modes, g = 0.8, sigma_s = 20, sigma_a =
+           0.2, Gaussian charge on mode 0, f32 inner GMRES(80) with f64
+           refinement to tol 1e-11; plain and with the DSA preconditioner.
+           Converged in <= 4 rounds with the true f64 residual < 1e-11
+           recomputed here; inner iterations within 10% of the JAX
+           package's on the CPU for the same command (DEMO_ITERS), fewer
+           with DSA than without; the two x within 1e-8 relative; K1/K2/K3
+           launches = launches per sweep x sweeps (N sweeps per forward);
+           K9d launches = the CG iterations counted; CG iterations per
+           preconditioner call and its share of the solve time
+  dsa64    benchmarks/dsa_bench.py's 64^2 cases in float64 on the card (deg
+           2, tol 1e-8, sigma_s = 20): (N = 1, g = 0) and (N = 3, g = 0.9),
+           plain and DSA: the JAX package's CPU iteration counts +- 1
+           (DSA64_ITERS), DSA never above plain, true residual < 1e-7
+           (< 1e-6 with DSA, which stops on the preconditioned residual),
+           the two x within 1e-6 relative
+  mm512    the multi-mode system at the north-star grid: 512^2, deg 3, N =
+           5, g = 0.8, the bench sigma, its charge on mode 0, refined to
+           tol 1e-8: forward(u) on a seeded u within 1e-5 of its maximum of
+           u - sum C_fwd[i, a, d] apply_mode(d, sigma_s u_a) composed from
+           the one-mode kernels, the twin's forward within 1e-12 of the
+           same composition in f64; converged in <= 3 rounds, true f64
+           residual < 1e-8, x's residual through the f32 path < 1e-5;
+           forward() time, device time and busy share, time per mode pair,
+           the twin forward's time, launches per forward
 
 then the kernels line (times at each kernel's main-path shapes, launches
 counted in the run of that path) and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The bench phase also prints the rows of the kernel table left to torch
 (K4, K5, K8: time, launches, bound).  Any failed check raises before the
-last line.  Takes about 45-60 s on one H100, the kernel builds included
-(PERF.md).
+last line.  PERF.md states the time of the whole run on one H100, the
+kernel builds included.
 """
 
 import json
@@ -77,8 +113,18 @@ HOLD_CYCLES = 5_000_000          # GPU sleep before a kernel sample: ~2.5 ms
 SEED = 0
 DEVICE = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
-R, NQ = 16, 9                    # np_cheb 4, deg 3: every problem below
+R, NQ = 16, 9                    # np_cheb 4 everywhere; deg 3 but in demo128
 NORTH = 512                      # the north-star grid (BASELINE.json)
+DEMO = 128                       # demo.m's grid, deg 1 (one node per square)
+DSA_SZ = 64                      # benchmarks/dsa_bench.py's larger grid, deg 2
+MODES = 5                        # N of demo128 and mm512: D = 9 kernel modes
+# inner iterations of the JAX package on the CPU for the same problems:
+# `python examples/demo.py --cpu --refine --tol 1e-11 [--dsa]`, and
+# benchmarks/dsa_bench.py's run_case at (64, 20.0, 0.0, 1) and
+# (64, 20.0, 0.9, 3)
+DEMO_ITERS = {"plain": 57, "dsa": 50}
+DSA64_ITERS = {(1, 0.0): {"plain": 18, "dsa": 7},
+               (3, 0.9): {"plain": 28, "dsa": 19}}
 
 
 def emit(obj):
@@ -143,22 +189,23 @@ class Kernels:
 
     def __init__(self, torch, flush):
         from aniso_torch.fmm.apply import parity_shift_table_np
-        from aniso_torch.kernels import m2l, near, offsets
+        from aniso_torch.kernels import diffusion, m2l, near, offsets
 
         self.torch, self.flush = torch, flush
         self.m2l, self.near, self.offsets = m2l, near, offsets
+        self.diffusion = diffusion
+        self.modules = (("k1", m2l), ("k2", near), ("k3", offsets),
+                        ("k9d", diffusion))
         self.shift = torch.as_tensor(parity_shift_table_np(),
                                      dtype=torch.int32, device=DEVICE)
 
     def reset(self):
-        for mod in (self.m2l, self.near, self.offsets):
+        for _, mod in self.modules:
             mod.launches.update(f32=0, f64=0)
 
     def counts(self):
         return {f"{k}_{inst}": mod.launches[inst]
-                for k, mod in (("k1", self.m2l), ("k2", self.near),
-                               ("k3", self.offsets))
-                for inst in ("f32", "f64")}
+                for k, mod in self.modules for inst in ("f32", "f64")}
 
     def rand(self, shape, inst, lo=0.0, hi=1.0, normal=False, seed=0):
         """Inputs made on the card from a seed (GBs at 512^2)."""
@@ -171,8 +218,11 @@ class Kernels:
         return lo + (hi - lo) * torch.rand(shape, generator=gen, dtype=dtype,
                                            device=DEVICE)
 
-    def compare(self, what, inst, fn, plain, nbytes, flops):
-        """One kernel call against its plain version, then both timed."""
+    def compare(self, what, inst, fn, plain, nbytes, flops, per_mode=None,
+                reps=21):
+        """One kernel call against its plain version, then both timed.
+        per_mode: the same result from one launch of the one-mode instance
+        per mode, held to the same gate and timed as well."""
         torch = self.torch
         got, want = fn(), plain()
         torch.cuda.synchronize()
@@ -180,81 +230,112 @@ class Kernels:
         scale = float(want.abs().max())
         check(err <= TOL_KERNEL[inst] * scale,
               f"{what}: max err {err} > {TOL_KERNEL[inst]} x {scale}")
-        del got, want
+        del want
         bms, bby = bound_ms(nbytes, flops, inst)
-        return {"max_abs_err": err, "max_abs_plain": scale,
-                "ms": event_ms(torch, fn, flush=self.flush),
-                "plain_ms": event_ms(torch, plain, flush=self.flush),
-                "bytes": nbytes, "flops": flops, "bound_ms": bms,
-                "bound_by": bby}
+        out = {"max_abs_err": err, "max_abs_plain": scale,
+               "ms": event_ms(torch, fn, reps=reps, flush=self.flush),
+               "plain_ms": event_ms(torch, plain, reps=reps,
+                                    flush=self.flush),
+               "bytes": nbytes, "flops": flops, "bound_ms": bms,
+               "bound_by": bby}
+        if per_mode is not None:
+            err1 = float((got - per_mode()).abs().max())
+            check(err1 <= TOL_KERNEL[inst] * scale,
+                  f"{what}: differs from the one-mode launches by {err1}")
+            out["max_abs_err_vs_one_mode_launches"] = err1
+            out["one_mode_launches_ms"] = event_ms(torch, per_mode, reps=reps,
+                                                   flush=self.flush)
+        return out
 
     @staticmethod
     def total(rows):
         """Sum over levels: one matvec's (or twin sweep's) worth."""
         out = {k: sum(r[k] for r in rows)
-               for k in ("ms", "plain_ms", "bytes", "flops", "bound_ms")}
+               for k in ("ms", "plain_ms", "bytes", "flops", "bound_ms",
+                         "one_mode_launches_ms") if k in rows[0]}
         out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
         out["bound_by"] = rows[-1]["bound_by"]
         return out
 
-    def k1(self, sz, inst, levels):
-        """K1 at the given levels of a sz^2 solve: E in [0, 3)."""
-        m2l = self.m2l
+    def k1(self, sz, inst, levels, D=None):
+        """K1 at the given levels of a sz^2 solve: E in [0, 3).  D: the
+        all-modes instance with D mode tables (None: one mode)."""
+        torch, m2l = self.torch, self.m2l
         rows = []
         for level in levels:
             m2 = (1 << level) // 2
             seed = 1000 * level + sz
             E = self.rand((4, m2, m2, R, 27 * R), inst, 0.0, 3.0, seed=seed)
-            cosr = self.rand((4, R, 27 * R), inst, normal=True, seed=seed + 1)
+            cosr = self.rand(((D,) if D else ()) + (4, R, 27 * R), inst,
+                             normal=True, seed=seed + 1)
             M = self.rand((2 * m2, 2 * m2, R), inst, normal=True,
                           seed=seed + 2)
             item = E.element_size()
+            nd = D or 1
             row = self.compare(
-                f"K1 {inst} {sz}^2 level {level}", inst,
+                f"K1 {inst} {sz}^2 level {level} D {D}", inst,
                 lambda: m2l.m2l_translate(E, cosr, M, self.shift),
                 lambda: m2l.m2l_translate_plain(E, cosr, M, self.shift),
-                item * (E.numel() + cosr.numel() + 2 * M.numel())
+                item * (E.numel() + cosr.numel() + (1 + nd) * M.numel())
                 + 4 * self.shift.numel(),
-                4 * E.numel())
+                (2 + 2 * nd) * E.numel(),
+                per_mode=D and (lambda: torch.stack(
+                    [m2l.m2l_translate(E, cosr[d], M, self.shift)
+                     for d in range(D)])),
+                reps=7 if D else 21)
             rows.append({"level": level, "m2": m2, **row})
             del E
         return rows
 
-    def k2(self, sz, inst, variants=(("m0", False),)):
-        """K2 on a sz^2 grid (m = 0), with and without the Duffy term."""
-        near = self.near
-        E = self.rand((sz, sz, NQ, 3, 3, NQ), inst, 0.0, 0.5, seed=sz)
+    def k2(self, sz, inst, variants=(("m0", False),), D=None, nq=NQ):
+        """K2 on a sz^2 grid with nq nodes per square (slot 0 is mode 0),
+        with and without the Duffy term.  D: the all-modes instance."""
+        torch, near = self.torch, self.near
+        lead = (D,) if D else ()
+        nd = D or 1
+        E = self.rand((sz, sz, nq, 3, 3, nq), inst, 0.0, 0.5, seed=sz)
         cosrw, S, u, sigma_w = (
             self.rand(shape, inst, normal=True, seed=sz + k)
-            for k, shape in enumerate(((NQ, 3, 3, NQ), (NQ, 3, 3, NQ),
-                                       (sz, sz, NQ), (sz, sz, NQ)), 1))
-        duffy = self.rand((sz, sz, NQ, NQ), inst, normal=True, seed=sz + 5)
+            for k, shape in enumerate((lead + (nq, 3, 3, nq),
+                                       lead + (nq, 3, 3, nq),
+                                       (sz, sz, nq), (sz, sz, nq)), 1))
+        duffy = self.rand(lead + (sz, sz, nq, nq), inst, normal=True,
+                          seed=sz + 5)
         rows = []
         for name, compat in variants:
             dfy = duffy if compat else None
             item = E.element_size()
             row = self.compare(
-                f"K2 {inst} {sz}^2 {name}", inst,
+                f"K2 {inst} {sz}^2 nq {nq} {name} D {D}", inst,
                 lambda: near.near_contract(E, cosrw, S, u, sigma_w, dfy),
                 lambda: near.near_contract_plain(E, cosrw, S, u, sigma_w,
                                                  dfy),
                 item * (E.numel() + cosrw.numel() + S.numel()
-                        + 3 * u.numel() + (0 if dfy is None else dfy.numel())),
-                4 * E.numel())
+                        + (2 + nd) * u.numel()
+                        + (0 if dfy is None else dfy.numel())),
+                (1 + 3 * nd) * E.numel(),
+                per_mode=D and (lambda: torch.stack([
+                    near.near_contract(E, cosrw[d], S[d], u,
+                                       sigma_w if d == 0 else None,
+                                       None if dfy is None else dfy[d])
+                    for d in range(D)])),
+                reps=7 if D else 21)
             rows.append({"variant": name, **row})
         return rows
 
-    def k3(self, sz, inst, levels, coeffs_np):
-        """K3 at the given fine levels of a sz^2 solve, on the coefficient
-        field of the problem solved there and its real weight blocks."""
+    def k3(self, sz, inst, levels, coeffs_np, D=None, deg=3):
+        """K3 at the given fine levels of a sz^2 solve at degree deg, on the
+        coefficient field of the problem solved there and its real weight
+        blocks.  D: the all-modes instance."""
         torch, offsets = self.torch, self.offsets
         from aniso_torch.core.geometry import make_grid
         from aniso_torch.fmm.smooth import build_m2l_offsets_fine
         from aniso_torch.fmm.structure import tree_config
 
         dtype = torch.float32 if inst == "f32" else torch.float64
-        grid, tcfg = make_grid(sz, 3), tree_config(sz)
+        grid, tcfg = make_grid(sz, deg), tree_config(sz)
         coeffs = torch.as_tensor(coeffs_np, dtype=dtype, device=DEVICE)
+        nd = D or 1
         rows = []
         for level in levels:
             m2 = (1 << level) // 2
@@ -262,21 +343,47 @@ class Kernels:
             Wo = build_m2l_offsets_fine(grid, tcfg, level, 4, dtype,
                                         DEVICE)["Wo"]
             seed = 2000 * level + sz
-            cosr = self.rand((4, R, 27 * R), inst, normal=True, seed=seed)
+            cosr = self.rand(((D,) if D else ()) + (4, R, 27 * R), inst,
+                             normal=True, seed=seed)
             M = self.rand((2 * m2, 2 * m2, R), inst, normal=True,
                           seed=seed + 1)
             item = coeffs.element_size()
             row = self.compare(
-                f"K3 {inst} {sz}^2 level {level}", inst,
+                f"K3 {inst} {sz}^2 level {level} D {D}", inst,
                 lambda: offsets.offsets_translate(Wo, coeffs, cosr, M,
                                                   self.shift),
                 lambda: offsets.offsets_translate_plain(Wo, coeffs, cosr, M,
                                                         self.shift),
                 item * (Wo.numel() + coeffs.numel() + cosr.numel()
-                        + 2 * M.numel()) + 4 * self.shift.numel(),
-                offsets.translate_flops(4, B, NQ, m2))
+                        + (1 + nd) * M.numel()) + 4 * self.shift.numel(),
+                offsets.translate_flops(4, B, grid.nq, m2, nd),
+                per_mode=D and (lambda: torch.stack(
+                    [offsets.offsets_translate(Wo, coeffs, cosr[d], M,
+                                               self.shift)
+                     for d in range(D)])),
+                reps=5 if D else 21)
             rows.append({"level": level, "m2": m2, "B": B, **row})
         return rows
+
+    def k9d(self, sz, inst):
+        """K9d on a sz^2 grid of cells: the diffusion coefficient of a
+        medium with sigma_t in [1, 21), absorption in [0.1, 1.1)."""
+        from aniso_torch.solver.dsa import _face_coeffs
+
+        diffusion = self.diffusion
+        dx = 1.0 / sz
+        D = 0.5 / self.rand((sz, sz), inst, 1.0, 21.0, seed=sz + 10)
+        Dx, Dy, robin = _face_coeffs(D, dx)
+        sigma_a = self.rand((sz, sz), inst, 0.1, 1.1, seed=sz + 11)
+        z = self.rand((sz, sz), inst, normal=True, seed=sz + 12)
+        row = self.compare(
+            f"K9d {inst} {sz}^2", inst,
+            lambda: diffusion.diffusion_apply(z, Dx, Dy, robin, sigma_a, dx),
+            lambda: diffusion.diffusion_apply_plain(z, Dx, Dy, robin,
+                                                    sigma_a, dx),
+            z.element_size() * (4 * z.numel() + Dx.numel() + Dy.numel()),
+            17 * z.numel())
+        return [row]
 
 
 def bench_coeffs(sz):
@@ -286,6 +393,15 @@ def bench_coeffs(sz):
 
     grid = make_grid(sz, 3)
     return project_field(grid, bench_sigma(grid) + 0.2)
+
+
+def demo_coeffs(sz):
+    """demo.m's constant sigma_t = 20.2 at sz^2, deg 1: what K3 reads in
+    demo128's twin."""
+    from aniso_torch.core.geometry import make_grid, project_field
+
+    grid = make_grid(sz, 1)
+    return project_field(grid, np.full_like(grid.nodes_x, 20.2))
 
 
 def bench_sigma(grid):
@@ -408,15 +524,15 @@ def torch_op_rows(torch, s):
 
 
 def make_solver(torch, sz, g, compat, dtype="float32", tol=1e-7,
-                refine=False):
+                refine=False, **changes):
     from aniso_torch.core.config import SolverConfig
     from aniso_torch.solver.operator import TransportSolver
 
-    cfg = SolverConfig(domain_size=sz, quad_rule=3, kernel_size=1, g=g,
-                       sing_rule=8, np_cheb=4, dtype=dtype, tol=tol,
-                       restart=80, max_iter=400, compat_global_basis=compat,
-                       refine=refine)
-    return TransportSolver(cfg, backend="fmm", device=DEVICE)
+    kw = dict(domain_size=sz, quad_rule=3, kernel_size=1, g=g, sing_rule=8,
+              np_cheb=4, dtype=dtype, tol=tol, restart=80, max_iter=400,
+              compat_global_basis=compat, refine=refine)
+    kw.update(changes)
+    return TransportSolver(SolverConfig(**kw), backend="fmm", device=DEVICE)
 
 
 def timed_set_coeff(torch, s):
@@ -449,23 +565,83 @@ def matvec_timing(torch, s):
     return out
 
 
-def counted_solve(torch, kern, s, q):
+def counted_solve(torch, kern, s, q, precond=None, warm=True):
     """A first solve (one-time costs: library handles, first launches of
-    each shape), then the main path's run with the counters set to 0 just
-    before it and read just after."""
-    t0 = time.perf_counter()
-    s.solve(q)
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t0
+    each shape; skipped with warm=False), then the main path's run with the
+    counters set to 0 just before it and read just after.  matvecs and
+    twin_sweeps count FMM sweeps: N per forward of an N-mode solver.
+    solve_is_first says that solve_s holds those one-time costs."""
+    out = {"solve_is_first": not warm}
+    if warm:
+        t0 = time.perf_counter()
+        s.solve(q, precond=precond)
+        torch.cuda.synchronize()
+        out["solve_first_s"] = time.perf_counter() - t0
     kern.reset()
     n0, n64 = s.n_matvecs, s.n_matvecs64
     t0 = time.perf_counter()
-    res = s.solve(q)
+    res = s.solve(q, precond=precond)
     torch.cuda.synchronize()
-    out = {"solve_first_s": first, "solve_s": time.perf_counter() - t0,
-           "matvecs": s.n_matvecs - n0, "twin_sweeps": s.n_matvecs64 - n64,
-           "launches": kern.counts()}
+    out.update({"solve_s": time.perf_counter() - t0,
+                "matvecs": s.n_matvecs - n0,
+                "twin_sweeps": s.n_matvecs64 - n64,
+                "launches": kern.counts()})
     return res, out
+
+
+class TimedPrecond:
+    """A preconditioner with the seconds spent in it (the card drained
+    before and after each call) and its calls counted."""
+
+    def __init__(self, torch, precond):
+        self.torch, self.precond = torch, precond
+        self.seconds, self.calls = 0.0, 0
+
+    def __call__(self, h):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.precond(h)
+        self.torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def true_residual64(torch, s, q, x):
+    """|b - A64 x| / |b| recomputed with the solver's f64 twin."""
+    b = s._rhs64(q)
+    return float(torch.linalg.vector_norm(b - s._forward64(x))
+                 / torch.linalg.vector_norm(b))
+
+
+def fine_levels(tcfg):
+    """The levels whose boxes are one or two squares wide: per-offset in
+    the f64 twin."""
+    return [lv for lv in range(2, tcfg.leaf_level + 1)
+            if tcfg.box_size_squares(lv) <= 2]
+
+
+def mode0_charge(grid, N):
+    """The Gaussian source on mode 0 (demo.m:24-29; bench.py's charge)."""
+    q = np.zeros((N,) + grid.nodes_x.shape)
+    q[0] = bench_charge(grid)
+    return q
+
+
+def fields_from_seed(grid, N, seed=SEED):
+    return np.random.default_rng(seed).standard_normal(
+        (N,) + grid.nodes_x.shape)
+
+
+def dsa_stats(pre, timed, solve_s):
+    calls = pre.cg_iterations
+    return {"precond_calls": len(calls), "cg_iterations_total": sum(calls),
+            "cg_iterations_per_call": sum(calls) / max(len(calls), 1),
+            "cg_iterations_max": max(calls, default=0),
+            "precond_s": timed.seconds,
+            "precond_share_of_solve": timed.seconds / solve_s,
+            "precond_ms_per_cg_iteration":
+                1e3 * timed.seconds / max(sum(calls), 1)}
 
 
 def true_residual(torch, s, q, x):
@@ -504,7 +680,7 @@ def check_launches(name, out, expect):
 
 def run_problem(torch, kern, name, sz, g, compat, oracle=None,
                 expect_iters=None, timing=False, dtype="float32", tol=1e-7,
-                max_true_res=1e-5):
+                max_true_res=1e-5, warm=True):
     s = make_solver(torch, sz, g, compat, dtype, tol)
     grid = s.grid
     inst = "f32" if dtype == "float32" else "f64"
@@ -517,7 +693,7 @@ def run_problem(torch, kern, name, sz, g, compat, oracle=None,
         out.update(matvec_timing(torch, s))
         out["torch_rows"] = torch_op_rows(torch, s)
     q = bench_charge(grid)
-    res, run = counted_solve(torch, kern, s, q)
+    res, run = counted_solve(torch, kern, s, q, warm=warm)
     true_res = true_residual(torch, s, q, res.x)
     x = res.x.double().cpu().numpy().reshape(-1)
     matvecs = run["matvecs"]
@@ -597,9 +773,7 @@ def run_refined512(torch, kern):
     q = bench_charge(grid)
     res, run = counted_solve(torch, kern, s, q)
     out.update(run)
-    b = s._rhs64(q)
-    true_res = float(torch.linalg.vector_norm(b - s._forward64(res.x))
-                     / torch.linalg.vector_norm(b))
+    true_res = true_residual64(torch, s, q, res.x)
     x = res.x.cpu().numpy()
     out.update({
         "converged": res.converged, "refinements": res.refinements,
@@ -688,7 +862,7 @@ def run_f32_512(torch, kern, x_refined):
     off = {"phase": "offsets_leaf512", "matvec_rel_diff_vs_dense": diff,
            "cache_report_bytes": s.cache_report(),
            "apply_ms": event_ms(torch, lambda: s.apply_mode(0, u))}
-    res2, run2 = counted_solve(torch, kern, s, q)
+    res2, run2 = counted_solve(torch, kern, s, q, warm=False)
     off.update(run2)
     true2 = true_residual(torch, s, q, res2.x)
     off.update({"iterations": res2.iterations, "converged": res2.converged,
@@ -704,6 +878,263 @@ def run_f32_512(torch, kern, x_refined):
         "k1_f32": (leaf - 2) * run2["matvecs"], "k2_f32": run2["matvecs"],
         "k3_f32": run2["matvecs"]})
     return out, off
+
+
+def run_demo128(torch, kern):
+    """The reference's demo.m problem, plain and DSA-preconditioned."""
+    from aniso_torch.solver.dsa import DsaPreconditioner
+
+    N = MODES
+    s = make_solver(torch, DEMO, 0.8, False, tol=1e-11, refine=True,
+                    quad_rule=1, kernel_size=N, sing_rule=10)
+    grid, tcfg = s.grid, s._tcfg
+    sig_s = np.full_like(grid.nodes_x, 20.0)
+    t0 = time.perf_counter()
+    s.set_coeff(sig_s, sig_s + 0.2)
+    torch.cuda.synchronize()
+    out = {"phase": "demo128", "sz": DEMO, "deg": 1, "modes": N, "g": 0.8,
+           "sigma_s": 20.0, "sigma_a": 0.2, "tol": 1e-11,
+           "set_coeff_s": time.perf_counter() - t0,
+           "set_coeff_phases_s": s.set_coeff_phases,
+           "cache_report_bytes": s.cache_report()}
+    q = mode0_charge(grid, N)
+    u = torch.as_tensor(fields_from_seed(grid, N), dtype=s.dtype,
+                        device=DEVICE)
+    out["forward_ms"] = event_ms(torch, lambda: s.forward(u))
+    out["forward64_ms"] = event_ms(torch, lambda: s._forward64(u), reps=5)
+
+    pre = DsaPreconditioner(s)
+    n_levels = tcfg.leaf_level - 1
+    n_fine = len(fine_levels(tcfg))
+    runs = {}
+    for name in ("plain", "dsa"):
+        # a first solve for the one-time costs, then the counted one, whose
+        # preconditioner calls are timed and whose CG iterations counted
+        t0 = time.perf_counter()
+        s.solve(q, precond=pre if name == "dsa" else None)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        pre.cg_iterations.clear()
+        timed = TimedPrecond(torch, pre) if name == "dsa" else None
+        res, run = counted_solve(torch, kern, s, q, precond=timed,
+                                 warm=False)
+        run.update({
+            "solve_first_s": first,
+            "converged": res.converged, "refinements": res.refinements,
+            "history": list(res.history), "inner_iterations": res.iterations,
+            "inner_iterations_per_round": res.phases["inner_iters"],
+            "true_f64_residual": true_residual64(torch, s, q, res.x),
+            "finite": bool(torch.isfinite(res.x).all()),
+        })
+        if timed is not None:
+            run.update(dsa_stats(pre, timed, run["solve_s"]))
+        runs[name] = (res, run)
+        out[name] = run
+    res_dsa, run_dsa = runs["dsa"]
+    x_plain, x_dsa = runs["plain"][0].x, res_dsa.x
+    out["x_rel_diff_dsa_vs_plain"] = float(
+        torch.linalg.vector_norm(x_dsa - x_plain)
+        / torch.linalg.vector_norm(x_plain))
+    out["expected_inner_iterations"] = DEMO_ITERS
+    emit(out)
+
+    for name, (res, run) in runs.items():
+        what = f"demo128 {name}"
+        check(run["finite"] and tuple(res.x.shape) == (N, DEMO, DEMO, 1),
+              f"{what}: bad x")
+        check(res.converged and run["true_f64_residual"] < 1e-11,
+              f"{what}: true f64 residual {run['true_f64_residual']}")
+        check(res.refinements <= 4, f"{what}: {res.refinements} rounds")
+        want = DEMO_ITERS[name]
+        check(abs(res.iterations - want) <= 0.1 * want,
+              f"{what}: {res.iterations} inner iterations, expected "
+              f"{want} +- 10%")
+        sweeps, fast = run["twin_sweeps"], run["matvecs"]
+        check(sweeps == N * (1 + res.refinements),
+              f"{what}: {sweeps} twin sweeps")
+        check_launches(what, run, {
+            "k1_f32": n_levels * fast, "k2_f32": fast,
+            "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
+            "k3_f64": n_fine * sweeps,
+            "k9d_f32": run.get("cg_iterations_total", 0)})
+    check(res_dsa.iterations < runs["plain"][0].iterations,
+          "demo128: DSA did not cut the iterations")
+    check(run_dsa["cg_iterations_total"] > 0, "demo128: no CG iteration")
+    check(out["x_rel_diff_dsa_vs_plain"] < 1e-8,
+          f"demo128: the two x differ by {out['x_rel_diff_dsa_vs_plain']}")
+    return out
+
+
+def run_dsa64(torch, kern):
+    """benchmarks/dsa_bench.py's two 64^2 cases in float64 on the card."""
+    from aniso_torch.solver.dsa import DsaPreconditioner
+
+    outs = []
+    for (N, g), want in DSA64_ITERS.items():
+        s = make_solver(torch, DSA_SZ, g, False, dtype="float64", tol=1e-8,
+                        quad_rule=2, kernel_size=N, max_iter=200)
+        grid = s.grid
+        sig_s = np.full_like(grid.nodes_x, 20.0)
+        s.set_coeff(sig_s, sig_s + 0.2)
+        q = mode0_charge(grid, N)
+        n_levels = s._tcfg.leaf_level - 1
+        out = {"phase": "dsa64", "sz": DSA_SZ, "deg": 2, "modes": N, "g": g,
+               "sigma_s": 20.0, "dtype": "float64", "tol": 1e-8,
+               "expected_iterations": want}
+        pre = DsaPreconditioner(s)
+        xs = {}
+        for name in ("plain", "dsa"):
+            pre.cg_iterations.clear()
+            timed = TimedPrecond(torch, pre) if name == "dsa" else None
+            res, run = counted_solve(torch, kern, s, q, precond=timed,
+                                     warm=False)
+            run.update({"iterations": res.iterations,
+                        "converged": res.converged,
+                        "residual_estimate": res.residual,
+                        "true_relative_residual":
+                            true_residual(torch, s, q, res.x)})
+            if timed is not None:
+                run.update(dsa_stats(pre, timed, run["solve_s"]))
+            out[name] = run
+            xs[name] = res.x
+        out["x_rel_diff_dsa_vs_plain"] = float(
+            torch.linalg.vector_norm(xs["dsa"] - xs["plain"])
+            / torch.linalg.vector_norm(xs["plain"]))
+        emit(out)
+        for name in ("plain", "dsa"):
+            run = out[name]
+            what = f"dsa64 N={N} g={g} {name}"
+            check(run["converged"], f"{what}: GMRES did not converge")
+            check(abs(run["iterations"] - want[name]) <= 1,
+                  f"{what}: {run['iterations']} iterations, expected "
+                  f"{want[name]} +- 1")
+            # the preconditioned solve stops on the preconditioned
+            # residual; the plain one it leaves is up to |M| times larger
+            check(run["true_relative_residual"]
+                  < (1e-7 if name == "plain" else 1e-6),
+                  f"{what}: true residual {run['true_relative_residual']}")
+            check_launches(what, run, {
+                "k1_f64": n_levels * run["matvecs"],
+                "k2_f64": run["matvecs"],
+                "k9d_f64": run.get("cg_iterations_total", 0)})
+        check(out["dsa"]["iterations"] <= out["plain"]["iterations"],
+              f"dsa64 N={N}: DSA above plain")
+        check(out["dsa"]["cg_iterations_total"] > 0,
+              f"dsa64 N={N}: no CG iteration")
+        check(out["x_rel_diff_dsa_vs_plain"] < 1e-6,
+              f"dsa64 N={N}: the two x differ by "
+              f"{out['x_rel_diff_dsa_vs_plain']}")
+        outs.append(out)
+    return outs
+
+
+def composed_forward(torch, s, u, twin):
+    """u - sum_{a,d} C_fwd[i, a, d] K_d(sigma_s u_a) from one-mode sweeps:
+    apply_mode on the fast path, the twin's tables through fmm_apply_mode
+    in f64."""
+    from aniso_torch.fmm.apply import fmm_apply_mode
+
+    N, D = s.cfg.kernel_size, s.n_modes
+    if twin:
+        C, sigma_s = s._C_fwd64, s._sigma_s64
+
+        def K(d, v):
+            return fmm_apply_mode(s._tcfg.leaf_level, s._fmm_static64,
+                                  s._caches64, s._mode_statics64[d], d, v)
+    else:
+        C, sigma_s, K = s._C_fwd, s.sigma_s, s.apply_mode
+    out = u.clone()
+    for a in range(N):
+        v = (sigma_s * u[a]).contiguous()
+        for d in range(D):
+            if bool((C[:, a, d] != 0).any()):
+                out -= C[:, a, d, None, None, None] * K(d, v)[None]
+    return out
+
+
+def run_mm512(torch, kern):
+    """The N = 5 coupled system at the north-star grid, refined to 1e-8."""
+    N = MODES
+    torch.cuda.reset_peak_memory_stats()
+    s = make_solver(torch, NORTH, 0.8, False, tol=1e-8, refine=True,
+                    kernel_size=N)
+    grid, tcfg = s.grid, s._tcfg
+    out = {"phase": "mm512", "sz": NORTH, "modes": N, "g": 0.8, "tol": 1e-8,
+           "set_coeff_s": timed_set_coeff(torch, s),
+           "set_coeff_phases_s": s.set_coeff_phases,
+           "cache_report_bytes": s.cache_report()}
+    n_levels = tcfg.leaf_level - 1
+    n_fine = len(fine_levels(tcfg))
+
+    # forward against its composition from the one-mode kernels
+    u64 = torch.as_tensor(fields_from_seed(grid, N), device=DEVICE)
+    u = u64.float()
+    want = composed_forward(torch, s, u, twin=False)
+    kern.reset()
+    got = s.forward(u)
+    out["launches_per_forward"] = kern.counts()
+    out["forward_vs_composed"] = float((got - want).abs().max()
+                                       / want.abs().max())
+    want = composed_forward(torch, s, u64, twin=True)
+    kern.reset()
+    got = s._forward64(u64)
+    out["launches_per_forward64"] = kern.counts()
+    out["forward64_vs_composed"] = float((got - want).abs().max()
+                                         / want.abs().max())
+    del got, want
+
+    out["forward_ms"] = event_ms(torch, lambda: s.forward(u), reps=7)
+    out["forward_ms_per_mode_pair"] = out["forward_ms"] / (N * s.n_modes)
+    out["forward_device_ms"], out["forward_device_kernels"] = \
+        device_ms_per_call(torch, lambda: s.forward(u), calls=3)
+    if out["forward_device_ms"] is not None:
+        out["forward_device_busy_share"] = (
+            out["forward_device_ms"] / out["forward_ms"])
+    v = u[0].contiguous()
+    out["apply_mode_ms"] = event_ms(torch, lambda: s.apply_mode(0, v),
+                                    reps=7)
+    out["forward64_ms"] = event_ms(torch, lambda: s._forward64(u64), reps=3)
+
+    q = mode0_charge(grid, N)
+    res, run = counted_solve(torch, kern, s, q, warm=False)
+    out.update(run)
+    out.update({
+        "converged": res.converged, "refinements": res.refinements,
+        "history": list(res.history), "inner_iterations": res.iterations,
+        "inner_iterations_per_round": res.phases["inner_iters"],
+        "refine_phases_s": res.phases,
+        "true_f64_residual": true_residual64(torch, s, q, res.x),
+        "f32_path_residual": true_residual(torch, s, q, res.x),
+        "finite": bool(torch.isfinite(res.x).all()),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    })
+    emit(out)
+    check(out["forward_vs_composed"] < 1e-5,
+          f"mm512: forward differs from its composition by "
+          f"{out['forward_vs_composed']}")
+    check(out["forward64_vs_composed"] < 1e-12,
+          f"mm512: the twin's forward differs from its composition by "
+          f"{out['forward64_vs_composed']}")
+    check_launches("mm512 forward", {"launches": out["launches_per_forward"]},
+                   {"k1_f32": n_levels * N, "k2_f32": N})
+    check_launches("mm512 forward64",
+                   {"launches": out["launches_per_forward64"]},
+                   {"k1_f64": (n_levels - n_fine) * N, "k2_f64": N,
+                    "k3_f64": n_fine * N})
+    check(out["finite"] and tuple(res.x.shape) == (N, NORTH, NORTH, NQ),
+          "mm512: bad x")
+    check(res.converged and out["true_f64_residual"] < 1e-8,
+          f"mm512: true f64 residual {out['true_f64_residual']}")
+    check(res.refinements <= 3, f"mm512: {res.refinements} rounds")
+    check(out["f32_path_residual"] < 1e-5,
+          f"mm512: f32-path residual {out['f32_path_residual']}")
+    sweeps, fast = run["twin_sweeps"], run["matvecs"]
+    check(sweeps == N * (1 + res.refinements), f"mm512: {sweeps} twin sweeps")
+    check_launches("mm512", out, {
+        "k1_f32": n_levels * fast, "k2_f32": fast,
+        "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
+        "k3_f64": n_fine * sweeps})
+    return out
 
 
 def kernel_line(name, source, replaces, launches, rows, **extra):
@@ -772,7 +1203,38 @@ def main():
         cf = bench_coeffs(sz)
         for inst in ("f32", "f64"):
             chk[sz, f"k3_{inst}"] = kern.k3(sz, inst, lv[sz][-2:], cf)
-    for sz in (64, 128, NORTH):
+    # the all-modes instances at demo128's shapes (deg 1: one node per
+    # square) and mm512's (deg 3), D = 2N - 1 = 9 modes per launch; K9d at
+    # the grids of dsa64, demo128 and, for scale, 512^2
+    D = 2 * MODES - 1
+    both = (("m0", False), ("m0_compat", True))
+    lv[DEMO] = list(range(2, int(math.log2(DEMO)) + 1))
+    for sz, nq, deg, cf in ((DEMO, 1, 1, demo_coeffs(DEMO)),
+                            (NORTH, NQ, 3, bench_coeffs(NORTH))):
+        tag = "deg1" if deg == 1 else "deg3"
+        chk[sz, f"k1d_f32_{tag}"] = kern.k1(sz, "f32", lv[sz], D=D)
+        chk[sz, f"k1d_f64_{tag}"] = kern.k1(sz, "f64", lv[sz][:-2], D=D)
+        for inst in ("f32", "f64"):
+            chk[sz, f"k2d_{inst}_{tag}"] = kern.k2(sz, inst, both, D=D, nq=nq)
+        chk[sz, f"k3d_f64_{tag}"] = kern.k3(sz, "f64", lv[sz][-2:], cf, D=D,
+                                            deg=deg)
+        torch.cuda.empty_cache()
+    # dsa64's shapes (float64, deg 2: 4 nodes per square, all levels dense):
+    # one mode for N = 1, and for N = 3 the all-modes instances at D = 5,
+    # less than one chunk of modes (their partly filled epilogues)
+    lv[DSA_SZ] = list(range(2, int(math.log2(DSA_SZ)) + 1))
+    for N, _ in DSA64_ITERS:
+        if N == 1:
+            chk[DSA_SZ, "k2_f64_deg2"] = kern.k2(DSA_SZ, "f64", both, nq=4)
+        else:
+            chk[DSA_SZ, "k1d_f64_deg2"] = kern.k1(DSA_SZ, "f64", lv[DSA_SZ],
+                                                  D=2 * N - 1)
+            chk[DSA_SZ, "k2d_f64_deg2"] = kern.k2(DSA_SZ, "f64", both,
+                                                  D=2 * N - 1, nq=4)
+    for sz in (DSA_SZ, DEMO, NORTH):
+        for inst in ("f32", "f64"):
+            chk[sz, f"k9d_{inst}"] = kern.k9d(sz, inst)
+    for sz in sorted({64, 128, DSA_SZ, DEMO, NORTH}):
         emit({"phase": "kernels_vs_plain", "sz": sz,
               **{k: rows for (z, k), rows in chk.items() if z == sz}})
 
@@ -781,7 +1243,7 @@ def main():
     run_problem(torch, kern, "oracle64", 64, 0.95, True,
                 oracle="oracle_64", expect_iters=18)
     run_problem(torch, kern, "oracle128", 128, 0.5, True,
-                oracle="oracle_128", expect_iters=18)
+                oracle="oracle_128", expect_iters=18, warm=False)
     refined, x_refined = run_refined512(torch, kern)
     torch.cuda.empty_cache()
     _, leaf512 = run_f32_512(torch, kern, x_refined)
@@ -789,15 +1251,21 @@ def main():
     f64 = run_problem(torch, kern, "f64_64", 64, 0.95, True,
                       oracle="oracle_64", dtype="float64", tol=1e-10,
                       max_true_res=1e-9)
+    demo = run_demo128(torch, kern)
+    torch.cuda.empty_cache()
+    dsa64 = run_dsa64(torch, kern)
+    torch.cuda.empty_cache()
+    mm = run_mm512(torch, kern)
 
     # times and bounds at each kernel's main-path shapes (summed over the
     # levels one matvec or twin sweep runs); errors the worst over every
     # checked size; launches counted in that path's run
     def worst(key):
         return max(r["max_abs_err"] for (_, k), rows in chk.items()
-                   if k == key for r in rows)
+                   if k == key or k.startswith(key + "_deg") for r in rows)
 
     rl = refined["launches"]
+    dl = demo["plain"]["launches"]
     emit({"kernels": [
         kernel_line("m2l_translate", "aniso_torch/csrc/m2l_translate.cu",
                     "aniso_tpu/fmm/apply.py:317", bench["launches"]["k1_f32"],
@@ -830,6 +1298,68 @@ def main():
                     leaf512["launches"]["k3_f32"], chk[NORTH, "k3_f32"][-1:],
                     shapes="offsets_leaf512, leaf level 9",
                     max_abs_err_all_sizes=worst("k3_f32")),
+        # the all-modes instances (D = 9 modes of one charge per launch):
+        # times at demo128's shapes, launches from its plain refined solve;
+        # mm512's solve beside them
+        kernel_line("m2l_translate_modes", "aniso_torch/csrc/m2l_translate.cu",
+                    "aniso_tpu/fmm/apply.py:745", dl["k1_f32"],
+                    chk[DEMO, "k1d_f32_deg1"], id="K1-D",
+                    shapes=f"demo128 {DEMO}^2, D = {D}, levels 2-7",
+                    launches_mm512=mm["launches"]["k1_f32"],
+                    ms_mm512=Kernels.total(chk[NORTH, "k1d_f32_deg3"])["ms"],
+                    one_mode_launches_ms=Kernels.total(
+                        chk[DEMO, "k1d_f32_deg1"])["one_mode_launches_ms"],
+                    max_abs_err_all_sizes=worst("k1d_f32")),
+        kernel_line("m2l_translate_modes_f64",
+                    "aniso_torch/csrc/m2l_translate.cu",
+                    "aniso_tpu/fmm/apply.py:745", dl["k1_f64"],
+                    chk[DEMO, "k1d_f64_deg1"], id="K1-D f64",
+                    shapes=f"demo128 twin, D = {D}, coarse levels 2-5",
+                    launches_mm512=mm["launches"]["k1_f64"],
+                    launches_dsa64=sum(o[k]["launches"]["k1_f64"]
+                                       for o in dsa64 if o["modes"] > 1
+                                       for k in ("plain", "dsa")),
+                    ms_dsa64=Kernels.total(chk[DSA_SZ, "k1d_f64_deg2"])["ms"],
+                    max_abs_err_all_sizes=worst("k1d_f64")),
+        kernel_line("near_contract_modes", "aniso_torch/csrc/near_contract.cu",
+                    "aniso_tpu/fmm/apply.py:762", dl["k2_f32"],
+                    chk[DEMO, "k2d_f32_deg1"][:1], id="K2-D",
+                    shapes=f"demo128 {DEMO}^2, deg 1, D = {D}",
+                    launches_mm512=mm["launches"]["k2_f32"],
+                    ms_mm512=chk[NORTH, "k2d_f32_deg3"][0]["ms"],
+                    max_abs_err_all_sizes=worst("k2d_f32")),
+        kernel_line("near_contract_modes_f64",
+                    "aniso_torch/csrc/near_contract.cu",
+                    "aniso_tpu/fmm/apply.py:762", dl["k2_f64"],
+                    chk[DEMO, "k2d_f64_deg1"][:1], id="K2-D f64",
+                    shapes=f"demo128 twin, deg 1, D = {D}",
+                    launches_mm512=mm["launches"]["k2_f64"],
+                    ms_mm512=chk[NORTH, "k2d_f64_deg3"][0]["ms"],
+                    launches_dsa64=sum(o[k]["launches"]["k2_f64"]
+                                       for o in dsa64 if o["modes"] > 1
+                                       for k in ("plain", "dsa")),
+                    ms_dsa64=chk[DSA_SZ, "k2d_f64_deg2"][0]["ms"],
+                    max_abs_err_all_sizes=worst("k2d_f64")),
+        kernel_line("offsets_translate_modes_f64",
+                    "aniso_torch/csrc/offsets_translate.cu",
+                    "aniso_tpu/fmm/apply.py:427", dl["k3_f64"],
+                    chk[DEMO, "k3d_f64_deg1"], id="K3-D f64",
+                    shapes=f"demo128 twin, deg 1, D = {D}, fine levels 6-7",
+                    launches_mm512=mm["launches"]["k3_f64"],
+                    ms_mm512=Kernels.total(chk[NORTH, "k3d_f64_deg3"])["ms"],
+                    max_abs_err_all_sizes=worst("k3d_f64")),
+        kernel_line("diffusion_apply", "aniso_torch/csrc/diffusion_apply.cu",
+                    "aniso_tpu/solver/dsa.py:85",
+                    demo["dsa"]["launches"]["k9d_f32"], chk[DEMO, "k9d_f32"],
+                    id="K9d", shapes=f"demo128 DSA, {DEMO}^2 cells",
+                    max_abs_err_all_sizes=worst("k9d_f32")),
+        kernel_line("diffusion_apply_f64",
+                    "aniso_torch/csrc/diffusion_apply.cu",
+                    "aniso_tpu/solver/dsa.py:85",
+                    sum(o["dsa"]["launches"]["k9d_f64"] for o in dsa64),
+                    chk[DSA_SZ, "k9d_f64"], id="K9d f64",
+                    shapes=f"dsa64 DSA, {DSA_SZ}^2 cells",
+                    max_abs_err_all_sizes=worst("k9d_f64")),
     ]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr, flush=True)

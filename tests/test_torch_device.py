@@ -23,7 +23,8 @@ from aniso_torch.fmm.apply import parity_shift_table_np
 from aniso_torch.core.geometry import make_grid, project_field
 from aniso_torch.fmm.smooth import build_m2l_offsets_fine
 from aniso_torch.fmm.structure import tree_config
-from aniso_torch.kernels import _cuda, m2l, near, offsets
+from aniso_torch.kernels import _cuda, diffusion, m2l, near, offsets
+from aniso_torch.solver.dsa import _face_coeffs
 from aniso_torch.solver.operator import TransportSolver, resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,7 +49,8 @@ def test_port_imports_neither_jax_nor_aniso_tpu():
         "import aniso_torch, aniso_torch.convert, aniso_torch.native\n"
         "import aniso_torch.solver.operator, aniso_torch.kernels.m2l\n"
         "import aniso_torch.kernels.near, aniso_torch.kernels.offsets\n"
-        "import aniso_torch.solver.refine, chip_smoke\n"
+        "import aniso_torch.solver.refine, aniso_torch.solver.dsa\n"
+        "import aniso_torch.kernels.diffusion, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m.startswith('aniso_tpu')]\n"
         "assert not bad, bad\n"
@@ -139,7 +141,7 @@ def test_wrappers_refuse_other_dtypes(kernel):
         fn(*args)
 
 
-@pytest.mark.parametrize("kernel", [m2l, near, offsets])
+@pytest.mark.parametrize("kernel", [m2l, near, offsets, diffusion])
 def test_kernel_load_raises_without_cuda(no_cuda, kernel):
     with pytest.raises(RuntimeError):
         _cuda.load(kernel.SOURCE, kernel.SYMBOLS["f64"], ())
@@ -205,3 +207,101 @@ def test_offsets_kernel_matches_plain_on_card(cuda_device, dtype, sz, level):
     assert offsets.launches[inst] == n0 + 1
     assert float((got - want).abs().max()) <= \
         _GATE[dtype] * float(want.abs().max())
+
+
+def _gate(got, want, dtype):
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= \
+        _GATE[dtype] * float(want.abs().max())
+
+
+def _mode_tables(shape, D, device, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal((D,) + shape),
+                           dtype=dtype).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D,m2", [(2, 8), (9, 8), (11, 8), (9, 2), (3, 3)])
+def test_m2l_all_modes_kernel_matches_plain_on_card(cuda_device, dtype, D,
+                                                    m2):
+    """K1 with the mode axis (D = 11 takes two chunks of modes; m2 = 2 and
+    3 leave the last tile of boxes ragged) against its plain version and
+    against D launches of the one-mode instance."""
+    E, _, M, shift = _k1_inputs(cuda_device, dtype, m2=m2)
+    cosr = _mode_tables((4, 16, 432), D, cuda_device, dtype, 11)
+    inst = _cuda.INSTANCES[dtype]
+    n0 = m2l.launches[inst]
+    got = m2l.m2l_translate(E, cosr, M, shift)
+    assert m2l.launches[inst] == n0 + 1
+    _gate(got, m2l.m2l_translate_plain(E, cosr, M, shift), dtype)
+    each = torch.stack([m2l.m2l_translate(E, cosr[d], M, shift)
+                        for d in range(D)])
+    assert m2l.launches[inst] == n0 + 1 + D
+    _gate(got, each, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [3, 9, 10])
+def test_near_all_modes_kernel_matches_plain_on_card(cuda_device, dtype, D):
+    """K2 with the mode axis: the diagonal on slot 0 only, each mode's own
+    Duffy blocks."""
+    E, _, _, u, sigma_w, _ = _k2_inputs(cuda_device, dtype, sz=16)
+    cosrw = _mode_tables((9, 3, 3, 9), D, cuda_device, dtype, 12)
+    S = _mode_tables((9, 3, 3, 9), D, cuda_device, dtype, 13)
+    duffy = _mode_tables((16, 16, 9, 9), D, cuda_device, dtype, 14)
+    inst = _cuda.INSTANCES[dtype]
+    for sw, dfy in ((sigma_w, None), (sigma_w, duffy), (None, None)):
+        n0 = near.launches[inst]
+        got = near.near_contract(E, cosrw, S, u, sw, dfy)
+        assert near.launches[inst] == n0 + 1
+        _gate(got, near.near_contract_plain(E, cosrw, S, u, sw, dfy), dtype)
+        each = torch.stack([
+            near.near_contract(E, cosrw[d], S[d], u, sw if d == 0 else None,
+                               None if dfy is None else dfy[d])
+            for d in range(D)])
+        _gate(got, each, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sz,level,D", [(16, 3, 3), (16, 4, 9), (32, 5, 2)])
+def test_offsets_all_modes_kernel_matches_plain_on_card(cuda_device, dtype,
+                                                        sz, level, D):
+    Wo, coeffs, _, M, shift = _k3_inputs(cuda_device, dtype, sz, level)
+    cosr = _mode_tables((4, 16, 432), D, cuda_device, dtype, 15)
+    inst = _cuda.INSTANCES[dtype]
+    n0 = offsets.launches[inst]
+    got = offsets.offsets_translate(Wo, coeffs, cosr, M, shift)
+    assert offsets.launches[inst] == n0 + 1
+    _gate(got, offsets.offsets_translate_plain(Wo, coeffs, cosr, M, shift),
+          dtype)
+    each = torch.stack([offsets.offsets_translate(Wo, coeffs, cosr[d], M,
+                                                  shift) for d in range(D)])
+    _gate(got, each, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sz", [1, 2, 33, 128])
+def test_diffusion_kernel_matches_plain_on_card(cuda_device, dtype, sz):
+    """K9d against its plain version; at sz = 1 and 2 every cell touches
+    two or more sides of the domain."""
+    rng = np.random.default_rng(8)
+    dx = 1.0 / sz
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype).to(cuda_device)
+
+    Dx, Dy, robin = _face_coeffs(t(0.5 / (1.0 + 20 * rng.random((sz, sz)))),
+                                 dx)
+    sa = t(0.1 + rng.random((sz, sz)))
+    z = t(rng.standard_normal((sz, sz)))
+    inst = _cuda.INSTANCES[dtype]
+    n0 = diffusion.launches[inst]
+    got = diffusion.diffusion_apply(z, Dx, Dy, robin, sa, dx)
+    assert diffusion.launches[inst] == n0 + 1
+    _gate(got, diffusion.diffusion_apply_plain(z, Dx, Dy, robin, sa, dx),
+          dtype)

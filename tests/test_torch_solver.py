@@ -60,7 +60,7 @@ def test_fmm_solve_16_matches_jax(compat):
 
 
 @pytest.mark.parametrize("change,backend", [
-    ({"kernel_size": 2}, "fmm"),
+    ({}, "sparse"),
     ({"refine": True, "dtype": "float32", "refine_twin": "host"}, "fmm"),
     ({}, "dense"),
 ])
@@ -70,13 +70,71 @@ def test_later_slices_raise(change, backend):
         TransportSolver(cfg, backend=backend, device="cpu")
 
 
-def test_precond_and_higher_modes_raise():
-    ts = TransportSolver(SolverConfig(domain_size=8, quad_rule=2,
-                                      np_cheb=3), device="cpu")
+def _pair_n2():
+    kw = dict(domain_size=8, quad_rule=2, kernel_size=2, g=0.7, np_cheb=3,
+              sing_rule=6, tol=1e-10)
+    js = JSolver(JConfig(**kw), backend="fmm")
+    ts = TransportSolver(SolverConfig(**kw), device="cpu")
     g = ts.grid
-    ts.set_coeff(np.ones(g.nodes_x.shape), 2 * np.ones(g.nodes_x.shape))
-    q = np.ones(g.nodes_x.shape)
-    with pytest.raises(NotImplementedError):
-        ts.solve(q, precond=lambda v: v)
-    with pytest.raises(NotImplementedError):
-        ts.apply_mode(1, q)
+    sig = 4 * (1 + 0.5 * np.sin(2 * np.pi * g.nodes_x) * np.cos(3 * g.nodes_y))
+    js.set_coeff(sig, sig + 0.3)
+    ts.set_coeff(sig, sig + 0.3)
+    return js, ts
+
+
+def test_precond_and_higher_modes_raise():
+    """What used to raise now runs: the N = 2 solver builds, its modes
+    0..2 match JAX's, and a solve with the identity as preconditioner is
+    the plain solve.  A mode outside 0..2N-2 still raises."""
+    js, ts = _pair_n2()
+    g = ts.grid
+    assert ts.n_modes == 3 and len(ts._mode_statics) == 3
+    u = np.random.default_rng(5).standard_normal(g.nodes_x.shape)
+    for m in range(3):
+        want = np.asarray(js.apply_mode(m, jnp.asarray(u)))
+        got = ts.apply_mode(m, u).numpy()
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-12
+    with pytest.raises(ValueError):
+        ts.apply_mode(3, u)
+    q = np.stack([np.exp(-25 * ((g.nodes_x - 0.5) ** 2
+                                + (g.nodes_y - 0.5) ** 2)),
+                  np.zeros(g.nodes_x.shape)])
+    plain = ts.solve(q)
+    same = ts.solve(q, precond=lambda v: v)
+    assert plain.converged and same.iterations == plain.iterations
+    assert torch.equal(same.x, plain.x)
+
+
+def test_n2_solve_matches_jax():
+    """The coupled two-mode solve: the same iteration count and x to
+    1e-10."""
+    js, ts = _pair_n2()
+    g = ts.grid
+    q = np.random.default_rng(6).standard_normal((2,) + g.nodes_x.shape)
+    ref = js.solve(jnp.asarray(q))
+    got = ts.solve(q)
+    assert got.converged and got.iterations == int(ref.iterations)
+    x_ref = np.asarray(ref.x)
+    assert got.x.shape == x_ref.shape == (2, 8, 8, 4)
+    assert np.abs(got.x.numpy() - x_ref).max() / np.abs(x_ref).max() < 1e-10
+
+
+@pytest.mark.parametrize("restart", [5, 40])
+def test_preconditioned_gmres_matches_jax(restart):
+    """Left-preconditioned GMRES: the same iterations, x and (the
+    preconditioned) residual as JAX's."""
+    rng = np.random.default_rng(restart)
+    n = 30
+    A = rng.standard_normal((n, n)) / np.sqrt(n) * 0.8 + 2 * np.eye(n)
+    P = np.linalg.inv(np.diag(np.diag(A)) + 0.1 * np.tril(A, -1))
+    b = rng.standard_normal(n)
+    ref = j_gmres(lambda v: jnp.asarray(A) @ v, jnp.asarray(b),
+                  restart=restart, max_iter=200, tol=1e-12,
+                  precond=lambda v: jnp.asarray(P) @ v)
+    At, Pt = torch.as_tensor(A), torch.as_tensor(P)
+    got = t_gmres(lambda v: At @ v, torch.as_tensor(b), restart=restart,
+                  max_iter=200, tol=1e-12, precond=lambda v: Pt @ v)
+    assert got.converged and got.iterations == int(ref.iterations)
+    x_ref = np.asarray(ref.x)
+    assert np.abs(got.x.numpy() - x_ref).max() / np.abs(x_ref).max() < 1e-12
+    assert abs(got.residual - float(ref.residual)) <= 1e-3 * float(ref.residual)
