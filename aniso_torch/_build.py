@@ -3,8 +3,8 @@
 Two kinds, both with a plain C interface loaded by ctypes:
 
   * CUDA kernels (K1 m2l_translate.cu, K2 near_contract.cu, K3
-    offsets_translate.cu, K9d diffusion_apply.cu; each with a float32 and a
-    float64 entry): one nvcc
+    offsets_translate.cu, K9d diffusion_apply.cu, each with a float32 and a
+    float64 entry; K7 line_integral.cu, float64): one nvcc
     per source, ``-gencode arch=compute_90a,code=sm_90a -O3 -shared``, no fast
     math (E feeds exp/expm1; ``--use_fast_math`` would turn them into the
     approximate intrinsics and expm1 of a small E into exp - 1);
@@ -30,7 +30,8 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 CUDA_SOURCES = ("m2l_translate.cu", "near_contract.cu",
-                "offsets_translate.cu", "diffusion_apply.cu")
+                "offsets_translate.cu", "diffusion_apply.cu",
+                "line_integral.cu")
 HOST_SOURCE = "aniso_host.cpp"
 
 NVCC_FLAGS = (

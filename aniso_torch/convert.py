@@ -17,6 +17,7 @@ solver/operator.py:150-152):
              dx folded in) and coeffs in place of near_E
   m2l_cosr   {level: (4, r*27*r)};  near_cosrw, near_static (3, 3, nq_t, nq_s);
   duffy      (nq_t, nq_s, sz, sz)
+  dense      k_smooth, k_real: lists of (n, n) per mode (ops/dense.py)
 """
 
 from __future__ import annotations
@@ -76,6 +77,16 @@ def caches_from_jax_numpy(caches_np: dict, grid, tcfg, device, dtype) -> dict:
         out["near_E"] = near_E_from_weights(t(caches_np["near_W"]),
                                             out["coeffs"])
     return out
+
+
+def dense_from_jax_numpy(k_smooth, k_real, device, dtype):
+    """aniso_tpu's dense matrices, per-mode lists of (n, n) (numpy), ->
+    the port's (D, n, n) smooth and real tensors on `device` in `dtype`."""
+    def t(mats):
+        return torch.tensor(np.stack([np.asarray(k) for k in mats]),
+                            dtype=dtype, device=device)
+
+    return t(k_smooth), t(k_real)
 
 
 def mode_static_from_jax_numpy(ms_np: dict, device, dtype) -> dict:

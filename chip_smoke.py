@@ -9,7 +9,7 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
 
   device   first the nvidia-smi name and power limit line as nvidia-smi
            prints it, then torch / CUDA versions and the TF32 pins
-  build    nvcc of K1, K2, K3 and K9d and g++ of the host engine, in
+  build    nvcc of K1, K2, K3, K9d and K7 and g++ of the host engine, in
            parallel
   kernels_vs_plain  at every size solved below, each kernel at the shapes
            the paths give it, against its plain version on inputs from a
@@ -27,7 +27,13 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
              (compat off, on), K3-D f64 at both fine levels;
              64^2 deg 2 (dsa64): K1-D and K2-D f64 at D = 5, less than one
              chunk of modes, and the one-mode K2 f64 at 4 nodes per square;
-           K9d (the DSA diffusion stencil) f32/f64 at 64^2, 128^2, 512^2.
+           K9d (the DSA diffusion stencil) f32/f64 at 64^2, 128^2, 512^2;
+           K7 (the exact line integral, f64) at 16^2 (all 2304^2 pairs) and
+           64^2 (512 target rows x all 36,864 sources): the dense-build
+           form and the pair-list form, the basis at local coordinates on
+           the compat-transformed coefficients and at global ones on the
+           raw coefficients, with its operation bound on the FP64 CUDA
+           cores from the sub-segments of these pairs.
            Gates: max|kernel - plain| <= 1e-5 max|plain| in f32 (sums of
            432 to 729 terms, or K3's 27 atomic adds, in another order) and
            1e-12 max|plain| in f64
@@ -57,6 +63,21 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            iterations +- 1
   f64_64   the oracle64 problem in float64 to tol 1e-10: K1/K2 f64, true
            residual < 1e-9, relative Linf error < 1e-3 against oracle_64
+  oracle16_dense  the JAX package's dense gate (tests/test_golden_oracle.py
+           :86-105): benchmarks/oracle_16, compat on, f64, tol 1e-12,
+           backend "dense": relative Linf error < 1e-2 against oracle_16,
+           JAX's CPU iteration count +- 1 (ORACLE16_DENSE_ITERS), true
+           residual < 1e-10; K7 launches = the row chunks of set_coeff, no
+           other kernel of the port
+  dense64  the reference CLI's default problem on the dense backend
+           (benchmarks/oracle_64, compat on, f64, tol 1e-10): set_coeff
+           split into the real matrices, K7 (with its chunk copies) and the
+           rest, peak memory, the matvec against its byte bound (the two
+           f64 matrices read once), true residual < 1e-9, relative Linf
+           error < 1e-2 against oracle_64, distance from f64_64's FMM x,
+           and apply_mode(0, u) of the FMM against the dense one on a
+           seeded u < 6e-3 (the JAX property-test bound); K7 launches as
+           in oracle16_dense
   demo128  the reference's demo.m problem (examples/demo_torch.py): 128^2,
            deg 1, N = 5 coupled modes, g = 0.8, sigma_s = 20, sigma_a =
            0.2, Gaussian charge on mode 0, f32 inner GMRES(80) with f64
@@ -83,6 +104,12 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            residual < 1e-8, x's residual through the f32 path < 1e-5;
            forward() time, device time and busy share, time per mode pair,
            the twin forward's time, launches per forward
+  cli      `python -m aniso_torch run ...` in subprocesses in a temporary
+           directory: oracle_64 on the FMM backend to tol 1e-10 and
+           oracle_16 on the dense one, both with --compat-global-basis:
+           exit code 0, result.csv within 1e-3 / 1e-2 of the oracle, and a
+           second run warm-started from it in <= 1 iteration; oracle_16
+           also without the flag (its error reported, no gate)
 
 then the kernels line (times at each kernel's main-path shapes, launches
 counted in the run of that path) and last
@@ -108,6 +135,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 # float64 on the tensor cores (the card's fastest f64 rate; 34 TFLOP/s on
 # the CUDA cores)
 PEAK_FLOP_PER_S = {"f32": 67e12, "f64": 67e12}
+# float64 on the CUDA cores: K7's scalar multiply-adds (no matrix product
+# for the tensor cores)
+PEAK_F64_CUDA_CORES = 33.5e12
 TOL_KERNEL = {"f32": 1e-5, "f64": 1e-12}
 HOLD_CYCLES = 5_000_000          # GPU sleep before a kernel sample: ~2.5 ms
 SEED = 0
@@ -125,6 +155,10 @@ MODES = 5                        # N of demo128 and mm512: D = 9 kernel modes
 DEMO_ITERS = {"plain": 57, "dsa": 50}
 DSA64_ITERS = {(1, 0.0): {"plain": 18, "dsa": 7},
                (3, 0.9): {"plain": 28, "dsa": 19}}
+# the JAX package's dense solve of benchmarks/oracle_16 on the CPU
+# (tests/test_golden_oracle.py::test_solution_matches_reference_cli: compat
+# on, f64, tol 1e-12): 35 iterations, 4.18e-3 from the oracle
+ORACLE16_DENSE_ITERS = 35
 
 
 def emit(obj):
@@ -136,7 +170,7 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def event_ms(torch, fn, reps=21, flush=None):
+def event_ms(torch, fn, reps=21, flush=None, warmup=3):
     """Median CUDA-event time of fn() over reps runs after 3 warm-up runs.
 
     Without `flush` the events time what a caller waits for, host launch
@@ -145,7 +179,7 @@ def event_ms(torch, fn, reps=21, flush=None):
     inside a matvec, then holds the stream with a GPU sleep long enough for
     the host to queue all of fn's launches: the events then time the device
     work alone."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -163,11 +197,11 @@ def event_ms(torch, fn, reps=21, flush=None):
     return statistics.median(times)
 
 
-def bound_ms(nbytes, flops, inst="f32"):
+def bound_ms(nbytes, flops, inst="f32", peak=None):
     """The least time for the work: bytes at the memory rate or operations
-    at the type's peak, whichever is longer, and which of the two."""
+    at the type's peak (or `peak`), whichever is longer, and which."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOP_PER_S[inst]
+    t_ops = flops / (peak or PEAK_FLOP_PER_S[inst])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -189,23 +223,26 @@ class Kernels:
 
     def __init__(self, torch, flush):
         from aniso_torch.fmm.apply import parity_shift_table_np
-        from aniso_torch.kernels import diffusion, m2l, near, offsets
+        from aniso_torch.kernels import (
+            attenuation, diffusion, m2l, near, offsets,
+        )
 
         self.torch, self.flush = torch, flush
         self.m2l, self.near, self.offsets = m2l, near, offsets
-        self.diffusion = diffusion
+        self.diffusion, self.attenuation = diffusion, attenuation
         self.modules = (("k1", m2l), ("k2", near), ("k3", offsets),
-                        ("k9d", diffusion))
+                        ("k9d", diffusion), ("k7", attenuation))
         self.shift = torch.as_tensor(parity_shift_table_np(),
                                      dtype=torch.int32, device=DEVICE)
 
     def reset(self):
         for _, mod in self.modules:
-            mod.launches.update(f32=0, f64=0)
+            for inst in mod.launches:
+                mod.launches[inst] = 0
 
     def counts(self):
-        return {f"{k}_{inst}": mod.launches[inst]
-                for k, mod in self.modules for inst in ("f32", "f64")}
+        return {f"{k}_{inst}": n
+                for k, mod in self.modules for inst, n in mod.launches.items()}
 
     def rand(self, shape, inst, lo=0.0, hi=1.0, normal=False, seed=0):
         """Inputs made on the card from a seed (GBs at 512^2)."""
@@ -219,10 +256,12 @@ class Kernels:
                                            device=DEVICE)
 
     def compare(self, what, inst, fn, plain, nbytes, flops, per_mode=None,
-                reps=21):
+                reps=21, peak=None, plain_reps=None):
         """One kernel call against its plain version, then both timed.
         per_mode: the same result from one launch of the one-mode instance
-        per mode, held to the same gate and timed as well."""
+        per mode, held to the same gate and timed as well.  peak: the
+        operation rate of the bound (default: the type's); plain_reps:
+        fewer samples of a slow plain version, after one warm-up."""
         torch = self.torch
         got, want = fn(), plain()
         torch.cuda.synchronize()
@@ -231,11 +270,12 @@ class Kernels:
         check(err <= TOL_KERNEL[inst] * scale,
               f"{what}: max err {err} > {TOL_KERNEL[inst]} x {scale}")
         del want
-        bms, bby = bound_ms(nbytes, flops, inst)
+        bms, bby = bound_ms(nbytes, flops, inst, peak)
         out = {"max_abs_err": err, "max_abs_plain": scale,
                "ms": event_ms(torch, fn, reps=reps, flush=self.flush),
-               "plain_ms": event_ms(torch, plain, reps=reps,
-                                    flush=self.flush),
+               "plain_ms": event_ms(torch, plain, reps=plain_reps or reps,
+                                    flush=self.flush,
+                                    warmup=1 if plain_reps else 3),
                "bytes": nbytes, "flops": flops, "bound_ms": bms,
                "bound_by": bby}
         if per_mode is not None:
@@ -385,6 +425,68 @@ class Kernels:
             17 * z.numel())
         return [row]
 
+    def k7(self, sz, nrows, reps=5, plain_reps=None):
+        """K7 at sz^2, deg 3, on the oracle problem's sigma_t: the
+        dense-build form for target rows 0..nrows-1 against every source,
+        one mode (D = 1, as oracle16_dense and dense64 build), against its
+        plain version; then the pair-list form on the same pairs.  Variant
+        m0: the coefficients the solver passes under the global-basis quirk
+        (to_local_equivalent) with the basis at local coordinates; compat:
+        the raw coefficients with the basis at global coordinates (the same
+        E, by another path).  Bound: operations on the FP64 CUDA cores, the
+        sub-segments counted exactly from this run's pairs."""
+        torch, k7 = self.torch, self.attenuation
+        from aniso_torch.core.geometry import make_grid, project_field
+        from aniso_torch.ops.attenuation import make_line_integral
+        from aniso_torch.ops.compat import to_local_equivalent
+        from aniso_torch.ops.fields import evaluate_at_nodes_np
+
+        grid = make_grid(sz, 3)
+        n = grid.n_nodes
+        raw = project_field(grid, bench_sigma(grid) + 0.2)
+        local = to_local_equivalent(grid, raw)
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                   device=DEVICE)
+
+        pts_np = grid.flat_nodes()
+        pts, w = dev(pts_np).contiguous(), dev(grid.weights.reshape(-1))
+        diag = dev(evaluate_at_nodes_np(grid, local).reshape(-1))
+        nsub = k7.subsegments(grid, pts_np[:nrows], pts_np)
+        p0 = pts[:nrows, None, :].expand(nrows, n, 2).reshape(-1, 2)
+        p1 = pts[None].expand(nrows, n, 2).reshape(-1, 2)
+        rows = []
+        for name, compat, cf in (("m0", False, dev(local)),
+                                 ("compat", True, dev(raw))):
+            flops = nsub * k7.flops_per_subsegment(3, compat)
+            row = self.compare(
+                f"K7 {sz}^2 rows {nrows} {name}", "f64",
+                lambda: k7.dense_smooth_rows(grid, cf, pts, w, diag, 0, nrows,
+                                             [0], compat),
+                lambda: k7.dense_smooth_rows_plain(grid, cf, pts, w, diag, 0,
+                                                   nrows, [0], compat),
+                8 * (nrows * n + 4 * n + cf.numel()), flops, reps=reps,
+                peak=PEAK_F64_CUDA_CORES, plain_reps=plain_reps)
+            got = k7.line_integral_pairs(grid, cf, p0, p1, compat)
+            want = make_line_integral(grid, sz, compat)(
+                cf, p0[:, 0], p0[:, 1], p1[:, 0], p1[:, 1])
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(err <= TOL_KERNEL["f64"] * scale,
+                  f"K7 pairs {sz}^2 {name}: max err {err} > 1e-12 x {scale}")
+            pbms, _ = bound_ms(8 * 5 * p0.shape[0], flops, "f64",
+                               PEAK_F64_CUDA_CORES)
+            rows.append({"variant": name, "pairs": nrows * n,
+                         "subsegments": nsub, **row,
+                         "pairs_max_abs_err": err,
+                         "pairs_ms": event_ms(torch, lambda: k7.line_integral_pairs(
+                             grid, cf, p0, p1, compat), reps=reps,
+                             flush=self.flush),
+                         "pairs_bound_ms": pbms})
+            del got, want
+        return rows
+
 
 def bench_coeffs(sz):
     """The bench sigma_t field's Legendre coefficients at sz^2 (compat
@@ -524,7 +626,7 @@ def torch_op_rows(torch, s):
 
 
 def make_solver(torch, sz, g, compat, dtype="float32", tol=1e-7,
-                refine=False, **changes):
+                refine=False, backend="fmm", **changes):
     from aniso_torch.core.config import SolverConfig
     from aniso_torch.solver.operator import TransportSolver
 
@@ -532,7 +634,7 @@ def make_solver(torch, sz, g, compat, dtype="float32", tol=1e-7,
               np_cheb=4, dtype=dtype, tol=tol, restart=80, max_iter=400,
               compat_global_basis=compat, refine=refine)
     kw.update(changes)
-    return TransportSolver(SolverConfig(**kw), backend="fmm", device=DEVICE)
+    return TransportSolver(SolverConfig(**kw), backend=backend, device=DEVICE)
 
 
 def timed_set_coeff(torch, s):
@@ -707,12 +809,7 @@ def run_problem(torch, kern, name, sz, g, compat, oracle=None,
         "finite": bool(np.isfinite(x).all()),
     })
     if oracle is not None:
-        ref = np.loadtxt(os.path.join(ROOT, "benchmarks", oracle, "result.csv"))
-        pts = np.loadtxt(os.path.join(ROOT, "benchmarks", oracle, "points.csv"))
-        perm = node_permutation(grid, pts)
-        out["oracle_rel_linf"] = float(
-            np.abs(x - ref[perm]).max() / np.abs(ref).max()
-        )
+        out["oracle_rel_linf"] = oracle_error(grid, oracle, x)
     emit(out)
 
     check(out["finite"] and x.shape == (grid.n_nodes,), f"{name}: bad x")
@@ -727,6 +824,175 @@ def run_problem(torch, kern, name, sz, g, compat, oracle=None,
     if oracle is not None:
         check(out["oracle_rel_linf"] < 1e-3,
               f"{name}: {out['oracle_rel_linf']} vs {oracle}")
+    return out, x
+
+
+def oracle_error(grid, oracle, x):
+    """Relative Linf distance of x from the reference CLI's result.csv."""
+    ref = np.loadtxt(os.path.join(ROOT, "benchmarks", oracle, "result.csv"))
+    pts = np.loadtxt(os.path.join(ROOT, "benchmarks", oracle, "points.csv"))
+    perm = node_permutation(grid, pts)
+    return float(np.abs(x - ref[perm]).max() / np.abs(ref).max())
+
+
+def dense_run(torch, kern, s):
+    """set_coeff and the solve of the oracle problem on a dense solver, the
+    counters set to 0 before set_coeff and read after the solve: the path
+    launches K7 in set_coeff (one launch per row chunk) and no other kernel
+    of the port (its GEMVs are torch.matmul)."""
+    from aniso_torch.ops.dense import _row_chunks
+
+    grid = s.grid
+    q = bench_charge(grid)
+    kern.reset()
+    out = {"set_coeff_s": timed_set_coeff(torch, s),
+           "set_coeff_phases_s": s.set_coeff_phases,
+           "cache_report_bytes": s.cache_report()}
+    n0 = s.n_matvecs
+    t0 = time.perf_counter()
+    res = s.solve(q)
+    torch.cuda.synchronize()
+    out.update({"solve_s": time.perf_counter() - t0,
+                "matvecs": s.n_matvecs - n0, "launches": kern.counts()})
+    x = res.x.cpu().numpy().reshape(-1)
+    out.update({
+        "iterations": res.iterations, "converged": res.converged,
+        "givens_estimate": res.residual,
+        "true_relative_residual": true_residual(torch, s, q, res.x),
+        "finite": bool(np.isfinite(x).all()),
+        "k7_launches_expected": len(list(_row_chunks(grid.n_nodes,
+                                                     grid.n_nodes))),
+    })
+    return res, out, x
+
+
+def run_oracle16_dense(torch, kern):
+    """The JAX package's dense gate (tests/test_golden_oracle.py:86-105) on
+    the card: benchmarks/oracle_16, compat on, f64, tol 1e-12."""
+    s = make_solver(torch, 16, 0.95, True, dtype="float64", tol=1e-12,
+                    backend="dense")
+    res, out, x = dense_run(torch, kern, s)
+    out = {"phase": "oracle16_dense", "sz": 16, "g": 0.95,
+           "compat_global_basis": True, "dtype": "float64", "tol": 1e-12,
+           "backend": "dense", **out,
+           "expected_iterations": ORACLE16_DENSE_ITERS,
+           "oracle_rel_linf": oracle_error(s.grid, "oracle_16", x)}
+    emit(out)
+    check(out["finite"] and x.shape == (s.grid.n_nodes,),
+          "oracle16_dense: bad x")
+    check(res.converged, "oracle16_dense: GMRES did not converge")
+    check(out["true_relative_residual"] < 1e-10,
+          f"oracle16_dense: true residual {out['true_relative_residual']}")
+    check(abs(res.iterations - ORACLE16_DENSE_ITERS) <= 1,
+          f"oracle16_dense: {res.iterations} iterations, expected "
+          f"{ORACLE16_DENSE_ITERS} +- 1")
+    check(out["oracle_rel_linf"] < 1e-2,
+          f"oracle16_dense: {out['oracle_rel_linf']} vs oracle_16")
+    check_launches("oracle16_dense", out,
+                   {"k7_f64": out["k7_launches_expected"]})
+    return out
+
+
+def run_dense64(torch, kern, x_fmm):
+    """The reference CLI's default problem (benchmarks/oracle_64, compat
+    on, f64, tol 1e-10) on the dense backend: the exact operator at full
+    CLI size, held against the oracle, the f64 FMM solve's x (f64_64) and
+    the FMM's apply_mode on one seeded u."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s = make_solver(torch, 64, 0.95, True, dtype="float64", tol=1e-10,
+                    backend="dense")
+    grid = s.grid
+    n = grid.n_nodes
+    res, run, x = dense_run(torch, kern, s)
+    phases = run["set_coeff_phases_s"]
+    out = {"phase": "dense64", "sz": 64, "g": 0.95,
+           "compat_global_basis": True, "dtype": "float64", "tol": 1e-10,
+           "backend": "dense", **run,
+           "set_coeff_k7_s": phases["dense_smooth_s"],
+           "set_coeff_rest_s": run["set_coeff_s"] - phases["dense_smooth_s"],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "oracle_rel_linf": oracle_error(grid, "oracle_64", x),
+           "x_rel_linf_vs_fmm_f64_64": float(
+               np.abs(x - x_fmm).max() / np.abs(x_fmm).max())}
+    u = torch.as_tensor(fields_from_seed(grid, 1)[0], device=DEVICE)
+    out["apply_ms"] = event_ms(torch, lambda: s.apply_mode(0, u), reps=11)
+    # the bytes a matvec must move: the two (n, n) f64 matrices, once
+    out["apply_bound_ms"] = 1e3 * 2 * n * n * 8 / HBM_BYTES_PER_S
+    dense_u = s.apply_mode(0, u)
+    fmm = make_solver(torch, 64, 0.95, True, dtype="float64", tol=1e-10)
+    timed_set_coeff(torch, fmm)
+    fmm_u = fmm.apply_mode(0, u)
+    out["fmm_vs_dense_apply_rel_err"] = float(
+        (fmm_u - dense_u).abs().max() / dense_u.abs().max())
+    emit(out)
+    check(out["finite"] and x.shape == (n,), "dense64: bad x")
+    check(res.converged and out["true_relative_residual"] < 1e-9,
+          f"dense64: true residual {out['true_relative_residual']}")
+    check(out["oracle_rel_linf"] < 1e-2,
+          f"dense64: {out['oracle_rel_linf']} vs oracle_64")
+    check(out["fmm_vs_dense_apply_rel_err"] < 6e-3,
+          f"dense64: FMM apply_mode differs from the dense one by "
+          f"{out['fmm_vs_dense_apply_rel_err']}")
+    check_launches("dense64", out, {"k7_f64": out["k7_launches_expected"]})
+    return out
+
+
+def run_cli(torch):
+    """The CLI as its users run it, in subprocesses in a temporary
+    directory: the reference CLI's default problem on the FMM backend and
+    oracle_16 on the dense one, each with the reference's basis quirk
+    (--compat-global-basis) against its oracle, then again, warm-started
+    from the result.csv it wrote; oracle_16 also without the quirk (the
+    mathematically consistent solution, which misses the oracle)."""
+    import tempfile
+
+    from aniso_torch.core.geometry import make_grid
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    cases = (("oracle_64", "fmm", ["--tol", "1e-10", "--compat-global-basis"],
+              1e-3),
+             ("oracle_16", "dense", ["--compat-global-basis"], 1e-2),
+             ("oracle_16", "dense", [], None))
+    out = {"phase": "cli", "runs": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, (oracle, backend, extra, gate) in enumerate(cases):
+            cwd = os.path.join(tmp, str(k))
+            os.makedirs(cwd)
+            cmd = [sys.executable, "-m", "aniso_torch", "run",
+                   os.path.join(ROOT, "benchmarks", oracle, "data.cfg"),
+                   "--backend", backend, *extra]
+            for warm in ((False, True) if gate else (False,)):
+                t0 = time.perf_counter()
+                proc = subprocess.run(cmd, cwd=cwd, env=env,
+                                      capture_output=True, text=True,
+                                      timeout=600)
+                seconds = time.perf_counter() - t0
+                check(proc.returncode == 0,
+                      f"cli {oracle} {backend}: exit {proc.returncode}\n"
+                      f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+                line = [ln for ln in proc.stdout.splitlines()
+                        if ln.startswith("GMRES ")][-1]
+                sz = 64 if oracle == "oracle_64" else 16
+                x = np.loadtxt(os.path.join(cwd, "result.csv"))
+                run = {"oracle": oracle, "backend": backend, "args": extra,
+                       "warm": warm, "seconds": seconds, "gmres": line,
+                       "iterations": int(line.rsplit("iters=", 1)[1]),
+                       "oracle_rel_linf": oracle_error(make_grid(sz, 3),
+                                                       oracle, x)}
+                out["runs"].append(run)
+                if gate is not None:
+                    check(run["oracle_rel_linf"] < gate,
+                          f"cli {oracle} {backend}: "
+                          f"{run['oracle_rel_linf']} vs the oracle")
+                if warm:
+                    check(run["iterations"] <= 1,
+                          f"cli {oracle} {backend}: the warm run took "
+                          f"{run['iterations']} iterations")
+    emit(out)
     return out
 
 
@@ -1234,12 +1500,17 @@ def main():
     for sz in (DSA_SZ, DEMO, NORTH):
         for inst in ("f32", "f64"):
             chk[sz, f"k9d_{inst}"] = kern.k9d(sz, inst)
-    for sz in sorted({64, 128, DSA_SZ, DEMO, NORTH}):
+    # K7 at oracle16_dense's shapes (all 2304^2 pairs: its whole build) and
+    # at dense64's (512 target rows x all 36,864 sources)
+    chk[16, "k7"] = kern.k7(16, 16 * 16 * NQ)
+    chk[64, "k7"] = kern.k7(64, 512, plain_reps=1)
+    torch.cuda.empty_cache()
+    for sz in sorted({16, 64, 128, DSA_SZ, DEMO, NORTH}):
         emit({"phase": "kernels_vs_plain", "sz": sz,
               **{k: rows for (z, k), rows in chk.items() if z == sz}})
 
-    bench = run_problem(torch, kern, "bench", 64, 0.95, False,
-                        expect_iters=14, timing=True)
+    bench, _ = run_problem(torch, kern, "bench", 64, 0.95, False,
+                           expect_iters=14, timing=True)
     run_problem(torch, kern, "oracle64", 64, 0.95, True,
                 oracle="oracle_64", expect_iters=18)
     run_problem(torch, kern, "oracle128", 128, 0.5, True,
@@ -1248,14 +1519,19 @@ def main():
     torch.cuda.empty_cache()
     _, leaf512 = run_f32_512(torch, kern, x_refined)
     torch.cuda.empty_cache()
-    f64 = run_problem(torch, kern, "f64_64", 64, 0.95, True,
-                      oracle="oracle_64", dtype="float64", tol=1e-10,
-                      max_true_res=1e-9)
+    f64, x_f64 = run_problem(torch, kern, "f64_64", 64, 0.95, True,
+                             oracle="oracle_64", dtype="float64", tol=1e-10,
+                             max_true_res=1e-9)
+    run_oracle16_dense(torch, kern)
+    dense64 = run_dense64(torch, kern, x_f64)
+    torch.cuda.empty_cache()
     demo = run_demo128(torch, kern)
     torch.cuda.empty_cache()
     dsa64 = run_dsa64(torch, kern)
     torch.cuda.empty_cache()
     mm = run_mm512(torch, kern)
+    torch.cuda.empty_cache()
+    run_cli(torch)
 
     # times and bounds at each kernel's main-path shapes (summed over the
     # levels one matvec or twin sweep runs); errors the worst over every
@@ -1360,6 +1636,19 @@ def main():
                     chk[DSA_SZ, "k9d_f64"], id="K9d f64",
                     shapes=f"dsa64 DSA, {DSA_SZ}^2 cells",
                     max_abs_err_all_sizes=worst("k9d_f64")),
+        # K7: times of one launch at dense64's shapes (512 rows; its
+        # set_coeff launches 82 of up to 455 rows), the bound on the FP64
+        # CUDA cores; the whole 16^2 build and the pair-list form beside
+        kernel_line("line_integral", "aniso_torch/csrc/line_integral.cu",
+                    "aniso_tpu/ops/attenuation.py:112",
+                    dense64["launches"]["k7_f64"], chk[64, "k7"][:1],
+                    id="K7", shapes="dense64 64^2: 512 target rows x 36864 "
+                    "sources, one mode",
+                    ms_16=chk[16, "k7"][0]["ms"],
+                    plain_ms_16=chk[16, "k7"][0]["plain_ms"],
+                    bound_ms_16=chk[16, "k7"][0]["bound_ms"],
+                    pairs_ms=chk[64, "k7"][0]["pairs_ms"],
+                    max_abs_err_all_sizes=worst("k7")),
     ]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr, flush=True)

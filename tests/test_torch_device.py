@@ -23,7 +23,10 @@ from aniso_torch.fmm.apply import parity_shift_table_np
 from aniso_torch.core.geometry import make_grid, project_field
 from aniso_torch.fmm.smooth import build_m2l_offsets_fine
 from aniso_torch.fmm.structure import tree_config
-from aniso_torch.kernels import _cuda, diffusion, m2l, near, offsets
+from aniso_torch.kernels import (
+    _cuda, attenuation, diffusion, m2l, near, offsets,
+)
+from aniso_torch.ops.attenuation import make_line_integral
 from aniso_torch.solver.dsa import _face_coeffs
 from aniso_torch.solver.operator import TransportSolver, resolve_device
 
@@ -51,6 +54,8 @@ def test_port_imports_neither_jax_nor_aniso_tpu():
         "import aniso_torch.kernels.near, aniso_torch.kernels.offsets\n"
         "import aniso_torch.solver.refine, aniso_torch.solver.dsa\n"
         "import aniso_torch.kernels.diffusion, chip_smoke\n"
+        "import aniso_torch.cli, aniso_torch.ops.dense, aniso_torch.utils\n"
+        "import aniso_torch.kernels.attenuation\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m.startswith('aniso_tpu')]\n"
         "assert not bad, bad\n"
@@ -70,7 +75,7 @@ def test_default_device_raises_without_cuda(no_cuda):
 def test_cpu_runs_only_when_asked():
     assert resolve_device("cpu") == torch.device("cpu")
     s = TransportSolver(SolverConfig(domain_size=8, quad_rule=2, np_cheb=3),
-                        device="cpu")
+                        backend="fmm", device="cpu")
     assert s.device.type == "cpu" and s._fmm_static["m2m"].device.type == "cpu"
 
 
@@ -141,10 +146,28 @@ def test_wrappers_refuse_other_dtypes(kernel):
         fn(*args)
 
 
-@pytest.mark.parametrize("kernel", [m2l, near, offsets, diffusion])
+@pytest.mark.parametrize("kernel", [m2l, near, offsets, diffusion,
+                                    attenuation])
 def test_kernel_load_raises_without_cuda(no_cuda, kernel):
     with pytest.raises(RuntimeError):
-        _cuda.load(kernel.SOURCE, kernel.SYMBOLS["f64"], ())
+        _cuda.load(kernel.SOURCE, next(iter(kernel.SYMBOLS.values())), ())
+
+
+def test_k7_wrappers_refuse_tensors_off_the_cpu_without_a_kernel():
+    """K7 takes float64 CUDA tensors only: a meta tensor is refused, as is
+    float32, before any launch."""
+    g = make_grid(4, 2)
+    f64 = dict(dtype=torch.float64, device="meta")
+    c, p = torch.zeros((4, 4, 4), **f64), torch.zeros((5, 2), **f64)
+    with pytest.raises(ValueError):
+        attenuation.line_integral_pairs(g, c, p, p)
+    with pytest.raises(TypeError):
+        attenuation.line_integral_pairs(g, c.float(), p.float(), p.float())
+    pts, w = torch.zeros((64, 2), **f64), torch.zeros(64, **f64)
+    with pytest.raises(ValueError):
+        attenuation.dense_smooth_rows(g, c, pts, w, w, 0, 8, [0, 1])
+    with pytest.raises(ValueError):
+        attenuation.dense_smooth_rows(g, c, pts, w, w, 0, 8, [0, 2])
 
 
 def test_cuda_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -305,3 +328,66 @@ def test_diffusion_kernel_matches_plain_on_card(cuda_device, dtype, sz):
     assert diffusion.launches[inst] == n0 + 1
     _gate(got, diffusion.diffusion_apply_plain(z, Dx, Dy, robin, sa, dx),
           dtype)
+
+
+def _k7_pairs(rng, sz, n):
+    """Random pairs, then axis-aligned ones, pairs through grid corners,
+    endpoints on grid lines and zero-length ones."""
+    h = 1.0 / sz
+    odd = np.array([
+        [(0.3, 0.2), (0.3, 0.9)], [(0.8, 0.55), (0.1, 0.55)],
+        [(0.5 * h, 0.5 * h), (2.5 * h, 2.5 * h)], [(0.0, 0.0), (1.0, 1.0)],
+        [(1.0, 0.0), (0.0, 1.0)], [(h, 0.3), (3 * h, 0.7)],
+        [(0.0, 0.4), (1.0, 0.4)], [(0.37, 0.61), (0.37, 0.61)],
+    ])
+    return (np.concatenate([rng.random((n, 2)), odd[:, 0]]),
+            np.concatenate([rng.random((n, 2)), odd[:, 1]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("sz,deg", [(16, 3), (8, 2), (5, 1)])
+def test_line_integral_kernel_matches_plain_on_card(cuda_device, compat, sz,
+                                                    deg):
+    """K7's pair-list form against its plain version (JAX's padded form,
+    one piece of sz crossings per axis) on the same card."""
+    rng = np.random.default_rng(sz)
+    g = make_grid(sz, deg)
+    coeffs = torch.as_tensor(rng.standard_normal((sz, sz, deg * deg)) + 3.0,
+                             device=cuda_device)
+    p0, p1 = (torch.as_tensor(p, device=cuda_device)
+              for p in _k7_pairs(rng, sz, 3000))
+    n0 = attenuation.launches["f64"]
+    got = attenuation.line_integral_pairs(g, coeffs, p0, p1, compat)
+    assert attenuation.launches["f64"] == n0 + 1
+    want = make_line_integral(g, sz, compat)(coeffs, p0[:, 0], p0[:, 1],
+                                             p1[:, 0], p1[:, 1])
+    _gate(got, want, torch.float64)
+    assert float(got[-1]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("modes", [[0, 1, 2], [1, 2], [0]])
+def test_dense_smooth_kernel_matches_plain_on_card(cuda_device, compat,
+                                                   modes):
+    """K7's dense-build form (E fused with the mode factors, the diagonal
+    and the weights) against its plain version, rows 100..299 of 576."""
+    rng = np.random.default_rng(len(modes))
+    g = make_grid(8, 3)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=cuda_device)
+
+    coeffs = t(rng.standard_normal((8, 8, 9)) + 3.0)
+    pts, w = t(g.flat_nodes()).contiguous(), t(g.weights.reshape(-1))
+    diag = t(rng.random(g.n_nodes))
+    n0 = attenuation.launches["f64"]
+    got = attenuation.dense_smooth_rows(g, coeffs, pts, w, diag, 100, 200,
+                                        modes, compat)
+    assert attenuation.launches["f64"] == n0 + 1
+    want = attenuation.dense_smooth_rows_plain(g, coeffs, pts, w, diag, 100,
+                                               200, modes, compat)
+    assert got.shape == (len(modes), 200, g.n_nodes)
+    _gate(got, want, torch.float64)

@@ -142,7 +142,8 @@ def _pair(sz, N, g, sigma_s_val=20.0, **kw):
                max_iter=300)
     cfg.update(kw)
     js = JSolver(JConfig(**cfg), backend="fmm")
-    ts = TransportSolver(SolverConfig(**cfg), device="cpu")
+    ts = TransportSolver(SolverConfig(**cfg), backend="fmm",
+                         device="cpu")
     sig = np.full_like(ts.grid.nodes_x, sigma_s_val)
     js.set_coeff(sig, sig + 0.2)
     ts.set_coeff(sig, sig + 0.2)
@@ -177,7 +178,7 @@ def test_dsa_call_matches_jax(sz, N, damping):
 
 def test_dsa_needs_coefficients():
     ts = TransportSolver(SolverConfig(domain_size=8, quad_rule=2, np_cheb=3),
-                         device="cpu")
+                         backend="fmm", device="cpu")
     with pytest.raises(RuntimeError):
         t_dsa.DsaPreconditioner(ts)
 

@@ -56,7 +56,8 @@ def pair(sz, compat):
               sing_rule=8, np_cheb=4, dtype="float64",
               compat_global_basis=compat)
     js = JSolver(JConfig(**kw), backend="fmm")
-    ts = TransportSolver(SolverConfig(**kw), device="cpu")
+    ts = TransportSolver(SolverConfig(**kw), backend="fmm",
+                         device="cpu")
     js.set_coeff(*sigma(js.grid))
     ts.set_coeff(*sigma(ts.grid))
     return js, ts

@@ -24,7 +24,7 @@ from aniso_tpu.solver.operator import TransportSolver as JSolver
 from aniso_tpu.solver.operator import _mode_coupling as j_mode_coupling
 
 from aniso_torch.convert import (
-    caches_from_jax_numpy, mode_stack_from_jax_numpy,
+    _m2l_level_from_jax, caches_from_jax_numpy, mode_stack_from_jax_numpy,
 )
 from aniso_torch.core.config import SolverConfig
 from aniso_torch.fmm import apply as t_apply
@@ -60,7 +60,8 @@ def pair(N, compat=False, g=0.8):
               np_cheb=4, dtype="float64", tol=1e-10, restart=60,
               max_iter=300, compat_global_basis=compat)
     js = JSolver(JConfig(**kw), backend="fmm")
-    ts = TransportSolver(SolverConfig(**kw), device="cpu")
+    ts = TransportSolver(SolverConfig(**kw), backend="fmm",
+                         device="cpu")
     js.set_coeff(*sigma(js.grid))
     ts.set_coeff(*sigma(ts.grid))
     return js, ts
@@ -138,14 +139,21 @@ def test_mode_tables_match_jax():
 @pytest.mark.parametrize("level", [2, 3, 4])
 def test_m2l_all_modes_plain_matches_jax_per_mode(level):
     """K1's plain version with the mode axis against JAX's _m2l_translate
-    called once per mode."""
+    called once per mode, both on JAX's E of the level carried across by
+    convert: the translates alone are compared.  (Level 2 at 16^2 is a
+    per-pair coarse level, which JAX builds with the reference's native
+    library when it loads; that library's build races between test
+    workers, and the E it gives a worker is not this test's subject.)"""
     js, ts = pair(3)
     m = 1 << level
     M = np.random.default_rng(level).standard_normal((m, m, 16))
     gsel = j_apply._vlist_gather(jnp.asarray(M))
+    E = torch.tensor(_m2l_level_from_jax(
+        jax_caches_np(js._caches)["m2l_E"][level]), dtype=F64)
+    assert E.shape == ts._caches["m2l_E"][level].shape
     got = m2l_translate_plain(
-        ts._caches["m2l_E"][level], ts._mode_stack["m2l_cosr"][level],
-        torch.as_tensor(M), ts._fmm_static["shift"])
+        E, ts._mode_stack["m2l_cosr"][level], torch.as_tensor(M),
+        ts._fmm_static["shift"])
     assert got.shape == (5, m, m, 16)
     for d in range(5):
         want = j_apply._m2l_translate(
@@ -154,8 +162,8 @@ def test_m2l_all_modes_plain_matches_jax_per_mode(level):
         assert rel(got[d].numpy(), np.asarray(want)) < 1e-12
     # one mode of the stack is the D = 1 form
     one = m2l_translate_plain(
-        ts._caches["m2l_E"][level], ts._mode_statics[3]["m2l_cosr"][level],
-        torch.as_tensor(M), ts._fmm_static["shift"])
+        E, ts._mode_statics[3]["m2l_cosr"][level], torch.as_tensor(M),
+        ts._fmm_static["shift"])
     assert torch.equal(one, got[3])
 
 

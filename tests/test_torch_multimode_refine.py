@@ -38,7 +38,8 @@ def refine_pair():
               sing_rule=8, np_cheb=4, dtype="float32", refine=True,
               tol=1e-11, restart=60, max_iter=300)
     js = JSolver(JConfig(**kw), backend="fmm")
-    ts = TransportSolver(SolverConfig(**kw), device="cpu")
+    ts = TransportSolver(SolverConfig(**kw), backend="fmm",
+                         device="cpu")
     js.set_coeff(*sigma(js.grid))
     ts.set_coeff(*sigma(ts.grid))
     g = ts.grid

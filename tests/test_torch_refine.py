@@ -49,7 +49,8 @@ def refine_pair():
               sing_rule=8, np_cheb=4, dtype="float32", refine=True,
               tol=1e-11, restart=60, max_iter=300)
     js = JSolver(JConfig(**kw), backend="fmm")
-    ts = TransportSolver(SolverConfig(**kw), device="cpu")
+    ts = TransportSolver(SolverConfig(**kw), backend="fmm",
+                         device="cpu")
     sig, q = problem(ts.grid)
     js.set_coeff(sig, sig + 0.2)
     ts.set_coeff(sig, sig + 0.2)
@@ -164,7 +165,8 @@ def test_float64_solve_with_per_offset_levels_matches_jax():
               sing_rule=8, np_cheb=4, dtype="float64", tol=1e-10,
               restart=80, max_iter=400)
     js = JSolver(JConfig(**kw), backend="fmm")
-    ts = TransportSolver(SolverConfig(**kw), device="cpu")
+    ts = TransportSolver(SolverConfig(**kw), backend="fmm",
+                         device="cpu")
     sig, q = problem(ts.grid)
     js.set_coeff(sig, sig + 0.2)
     ts.set_coeff(sig, sig + 0.2)
@@ -182,7 +184,7 @@ def test_float64_solve_with_per_offset_levels_matches_jax():
 
 def test_twin_apply_needs_refine():
     ts = TransportSolver(SolverConfig(domain_size=8, quad_rule=2, np_cheb=3),
-                         device="cpu")
+                         backend="fmm", device="cpu")
     g = ts.grid
     ts.set_coeff(np.ones(g.nodes_x.shape), 2 * np.ones(g.nodes_x.shape))
     assert ts._caches64 is None and "f64_twin" not in ts.cache_report()

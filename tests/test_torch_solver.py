@@ -40,7 +40,8 @@ def test_fmm_solve_16_matches_jax(compat):
               sing_rule=8, np_cheb=4, dtype="float64", tol=1e-10,
               restart=80, max_iter=400, compat_global_basis=compat)
     js = JSolver(JConfig(**kw), backend="fmm")
-    ts = TransportSolver(SolverConfig(**kw), device="cpu")
+    ts = TransportSolver(SolverConfig(**kw), backend="fmm",
+                         device="cpu")
     g = ts.grid
     sig = 16 * 0.5 * (1 - np.cos(2 * np.pi * g.nodes_x))
     q = np.exp(-25 * ((g.nodes_x - 0.5) ** 2 + (g.nodes_y - 0.5) ** 2))
@@ -62,7 +63,7 @@ def test_fmm_solve_16_matches_jax(compat):
 @pytest.mark.parametrize("change,backend", [
     ({}, "sparse"),
     ({"refine": True, "dtype": "float32", "refine_twin": "host"}, "fmm"),
-    ({}, "dense"),
+    ({"refine": True, "dtype": "float32"}, "dense"),
 ])
 def test_later_slices_raise(change, backend):
     cfg = SolverConfig(domain_size=8, quad_rule=2, **change)
@@ -74,7 +75,8 @@ def _pair_n2():
     kw = dict(domain_size=8, quad_rule=2, kernel_size=2, g=0.7, np_cheb=3,
               sing_rule=6, tol=1e-10)
     js = JSolver(JConfig(**kw), backend="fmm")
-    ts = TransportSolver(SolverConfig(**kw), device="cpu")
+    ts = TransportSolver(SolverConfig(**kw), backend="fmm",
+                         device="cpu")
     g = ts.grid
     sig = 4 * (1 + 0.5 * np.sin(2 * np.pi * g.nodes_x) * np.cos(3 * g.nodes_y))
     js.set_coeff(sig, sig + 0.3)
