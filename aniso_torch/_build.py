@@ -10,8 +10,9 @@ Two kinds, both with a plain C interface loaded by ctypes:
     approximate intrinsics and expm1 of a small E into exp - 1);
   * the host engine (aniso_host.cpp): g++ -O3 -fopenmp.
 
-Libraries go into aniso_torch/_build/ (listed in .gitignore) at first use
-and are rebuilt when their source is newer.  A build writes a private file
+Libraries go into aniso_torch/_build/ (listed in .gitignore) at first use,
+each with its compiler output beside it (lib*.so.log: ptxas's registers and
+spills), and are rebuilt when their source is newer.  A build writes a private file
 and renames it into place, so concurrent processes never load a
 half-written library.  A missing compiler or a failed build raises; nothing
 falls back.
@@ -41,7 +42,8 @@ NVCC_FLAGS = (
 GXX_FLAGS = ("-O3", "-fopenmp", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()
-# compiler output of the builds made by this process, by source name
+# compiler output (ptxas -v for the CUDA sources) of each library built or
+# found up to date by this process, by source name; kept beside the library
 build_logs: dict = {}
 
 
@@ -68,6 +70,9 @@ def _compile(source: str) -> str:
     src = os.path.join(CSRC, source)
     out = lib_path(source)
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+        if os.path.exists(out + ".log"):      # the build's compiler output
+            with open(out + ".log") as f:
+                build_logs[source] = f.read()
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
@@ -86,6 +91,9 @@ def _compile(source: str) -> str:
             f"building {source} failed ({proc.returncode}):\n{proc.stderr}"
         )
     build_logs[source] = proc.stdout + proc.stderr
+    with open(f"{tmp}.log", "w") as f:
+        f.write(build_logs[source])
+    os.replace(f"{tmp}.log", out + ".log")
     os.replace(tmp, out)
     return out
 

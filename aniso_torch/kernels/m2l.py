@@ -5,7 +5,9 @@ Replaces aniso_tpu/fmm/apply.py:_m2l_translate, dense branch (:317-372),
 with its producer _vlist_gather (:158) and _interleave_classes (:230), and
 the per-mode loop around it in fmm_apply_all_modes (:745-750).  The CUDA
 kernel is csrc/m2l_translate.cu; its header states the bound (bytes: E is
-read once per charge whatever D is, 150.8 MB at 64^2) and the design.
+read once per charge whatever D is, 150.8 MB at 64^2) and the design.  The
+all-modes kernel (D > 1) is built for r = np^2 with np 2-5, and np 6-7 in
+float32 (MODES_R).
 
     L[d, 2x+px, 2y+py, a] = sum_{o,b} exp(-E[c,x,y,a,o,b]) * cosr[d,c,a,o,b]
                                       * M[2(x+shx)+sx, 2(y+shy)+sy, b]
@@ -40,6 +42,9 @@ SYMBOLS = {"f32": "aniso_m2l_translate_f32", "f64": "aniso_m2l_translate_f64"}
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 launches = {"f32": 0, "f64": 0}
+
+# the r the all-modes kernel is built for, per instance
+MODES_R = {"f32": (4, 9, 16, 25, 36, 49), "f64": (4, 9, 16, 25)}
 
 
 def vlist_gather(M: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -91,10 +96,12 @@ def m2l_translate(E, cosr, M, shift) -> torch.Tensor:
     _cuda.check("cosr", cosr, (D, 4, r, ob), E.dtype)
     _cuda.check("M", M, (2 * m2, 2 * m2, r), E.dtype)
     _cuda.check("shift", shift, (4, 27, 4), torch.int32)
-    # shared memory: one box's multipoles (one mode) or a tile of 8 boxes'
-    rows = 1 if D == 1 else 8
-    if rows * ob * E.element_size() > 48 * 1024:
-        raise ValueError(f"r = {r}: {rows} rows of 27 r values exceed 48 KB")
+    # shared memory: one box's multipoles (one mode)
+    if D == 1 and ob * E.element_size() > 48 * 1024:
+        raise ValueError(f"r = {r}: a row of 27 r values exceeds 48 KB")
+    if D > 1 and r not in MODES_R[inst]:
+        raise ValueError(f"r = {r}: the all-modes {inst} kernel takes r in "
+                         f"{MODES_R[inst]}")
     symbol = SYMBOLS[inst]
     fn = _cuda.load(SOURCE, symbol, _ARGTYPES)
     L = torch.empty((D,) + tuple(M.shape), dtype=M.dtype, device=M.device)

@@ -7,7 +7,7 @@ _m2l_translate_offsets_multi (:427, all modes) for every fine level of the
 f64 refinement twin and for f32 fine levels that the dense budget evicts.
 The CUDA kernel is csrc/offsets_translate.cu; its
 header states the bound (operations: 120.8 GFLOP of window GEMM per level
-at 512^2) and the design.
+at 512^2, on the FP64 tensor cores) and the design.
 
 A per-offset level stores no E.  For each canonical (class, offset) entry
 of _fine_offset_entries it re-forms the (m2, m2, r, r) block as a GEMM of
@@ -26,6 +26,9 @@ Layouts (the port's own, contiguous):
     shift   (4, 27, 4) int32   parity_shift_table_np
 returns L (D, 2m2, 2m2, r), the interleaved locals K1 returns.  A cosr
 without the mode axis, (4, r, 27r), is one mode and returns L (2m2, 2m2, r).
+The kernel adds into a class-major scratch (D, 4, m2, r, m2), boxes along
+y last, so that a warp's atomic adds are contiguous; interleave_class_major
+turns it into L.  The kernel is built for r = np^2 with np 2-5 (KERNEL_R).
 
 offsets_translate takes offsets_translate_plain for CPU tensors and launches
 the kernel for CUDA tensors (float32 or float64); `launches` counts kernel
@@ -52,6 +55,9 @@ _ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_void_p)
              + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
 
 launches = {"f32": 0, "f64": 0}
+
+# the r the kernel is built for
+KERNEL_R = (4, 9, 16, 25)
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,6 +134,16 @@ def offsets_translate_plain(Wo, coeffs, cosr, M, shift) -> torch.Tensor:
     )
 
 
+def interleave_class_major(Lc: torch.Tensor) -> torch.Tensor:
+    """(D, 4, m2, r, m2) per class c = 2px+py, box row x, point a, box
+    column y -> L (D, 2m2, 2m2, r) with L[d, 2x+px, 2y+py, a]."""
+    D, _, m2, r, _ = Lc.shape
+    return (
+        Lc.reshape(D, 2, 2, m2, r, m2).permute(0, 3, 1, 5, 2, 4)
+        .reshape(D, 2 * m2, 2 * m2, r)
+    )
+
+
 @functools.lru_cache(maxsize=None)
 def _plan_device(np_cheb: int, B: int, nq: int, device: torch.device):
     return torch.as_tensor(offset_plan_np(np_cheb, B, nq), device=device)
@@ -143,8 +159,8 @@ def offsets_translate(Wo, coeffs, cosr, M, shift) -> torch.Tensor:
     m2 = m // 2
     sz, nq = coeffs.shape[0], coeffs.shape[-1]
     np_cheb = math.isqrt(r)
-    if np_cheb * np_cheb != r or r * r > 1024:
-        raise ValueError(f"r = {r}: needs a square r with r^2 <= 1024")
+    if r not in KERNEL_R:
+        raise ValueError(f"r = {r}: the kernel takes r in {KERNEL_R}")
     if m < 4 or sz % m:
         raise ValueError(f"M {tuple(M.shape)} does not tile a {sz}^2 field")
     B = sz // m
@@ -160,10 +176,10 @@ def offsets_translate(Wo, coeffs, cosr, M, shift) -> torch.Tensor:
     plan = _plan_device(np_cheb, B, nq, Wo.device)
     symbol = SYMBOLS[inst]
     fn = _cuda.load(SOURCE, symbol, _ARGTYPES)
-    L = torch.zeros((D,) + tuple(M.shape), dtype=dtype, device=M.device)
+    Lc = torch.zeros((D, 4, m2, r, m2), dtype=dtype, device=M.device)
     rc = fn(_cuda.ptr(Wo), _cuda.ptr(coeffs), _cuda.ptr(cosr), _cuda.ptr(M),
-            _cuda.ptr(shift), _cuda.ptr(plan), plan.shape[0], _cuda.ptr(L),
+            _cuda.ptr(shift), _cuda.ptr(plan), plan.shape[0], _cuda.ptr(Lc),
             sz, nq, m2, B, r, D, _cuda.stream(Wo.device))
     _cuda.raise_on_error(symbol, rc)
     launches[inst] += 1
-    return L
+    return interleave_class_major(Lc)

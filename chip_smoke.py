@@ -10,7 +10,11 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
   device   first the nvidia-smi name and power limit line as nvidia-smi
            prints it, then torch / CUDA versions and the TF32 pins
   build    nvcc of K1, K2, K3, K9d and K7 and g++ of the host engine, in
-           parallel
+           parallel; per library the entry functions ptxas compiled, their
+           most registers and any spill
+  redesigned_kernels  ptxas's registers, spills and static shared memory
+           of the r = 16 (np 4) instances of K1's all-modes kernel and of
+           K3 (K3's dynamic shared memory is in PERF.md)
   kernels_vs_plain  at every size solved below, each kernel at the shapes
            the paths give it, against its plain version on inputs from a
            seed (random E, M, cosr; the sigma field's coefficients of the
@@ -123,6 +127,7 @@ kernel builds included.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1403,6 +1408,28 @@ def run_mm512(torch, kern):
     return out
 
 
+def ptxas_usage(log, names):
+    """Per entry function of an nvcc -Xptxas -v log whose mangled name
+    holds one of `names`: the function, its registers, its spill line and
+    its static shared memory, as ptxas reports them."""
+    out, row = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            row = ({"function": m.group(1)}
+                   if any(n in m.group(1) for n in names) else None)
+        elif row is not None and "spill" in ln:
+            row["spill"] = ln.strip()
+        elif row is not None and "registers" in ln:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            row["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+            row["static_smem"] = int(smem.group(1)) if smem else 0
+            out.append(row)
+            row = None
+    return out
+
+
 def kernel_line(name, source, replaces, launches, rows, **extra):
     t = Kernels.total(rows)
     return {"name": name, "route": "cuda", "source": source,
@@ -1438,11 +1465,26 @@ def main():
 
     t0 = time.perf_counter()
     libs = _build.build_all()
+    usage = {k: ptxas_usage(v, ("",)) for k, v in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
-          "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
-                        or "smem" in ln]
-                    for k, v in _build.build_logs.items()}})
+          "ptxas": {k: {"functions": len(rows),
+                        "max_registers": max(
+                            (row["registers"] for row in rows), default=0),
+                        "spills": [row for row in rows
+                                   if re.search(r"[1-9]\d* bytes spill",
+                                                row.get("spill", ""))]}
+                    for k, rows in usage.items()}})
+
+    # the two kernels redesigned for the card, at r = 16 (np 4): registers,
+    # spills and static shared memory, per instance
+    from aniso_torch.kernels import m2l, offsets
+    emit({"phase": "redesigned_kernels",
+          "ptxas": [row for src in (m2l.SOURCE, offsets.SOURCE)
+                    for row in usage.get(src, [])
+                    if "Li16E" in row["function"]
+                    and ("m2l_translate_modes_kernel" in row["function"]
+                         or "offsets_translate_kernel" in row["function"])]})
 
     scratch = torch.empty(96 * 1024 * 1024 // 4, device=DEVICE)
 

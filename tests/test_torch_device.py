@@ -102,7 +102,7 @@ def _k2_inputs(device, dtype=torch.float32, sz=4, nq=9):
             t((sz, sz, nq, nq)))
 
 
-def _k3_inputs(device, dtype=torch.float32, sz=16, level=4):
+def _k3_inputs(device, dtype=torch.float32, sz=16, level=4, np_cheb=4):
     """K3 at a fine level of sz^2: the real weight blocks and a smooth
     coefficient field, random cosr and multipoles."""
     rng = np.random.default_rng(3)
@@ -113,10 +113,12 @@ def _k3_inputs(device, dtype=torch.float32, sz=16, level=4):
     def t(a, dt=dtype):
         return torch.as_tensor(a, dtype=dt).to(device)
 
-    Wo = build_m2l_offsets_fine(g, tree_config(sz), level, 4, dtype, "cpu")
+    r = np_cheb * np_cheb
+    Wo = build_m2l_offsets_fine(g, tree_config(sz), level, np_cheb, dtype,
+                                "cpu")
     return (Wo["Wo"].to(device), t(project_field(g, sig)),
-            t(rng.standard_normal((4, 16, 432))),
-            t(rng.standard_normal((m, m, 16))),
+            t(rng.standard_normal((4, r, 27 * r))),
+            t(rng.standard_normal((m, m, r))),
             t(parity_shift_table_np(), torch.int32))
 
 
@@ -217,11 +219,14 @@ def test_near_kernel_matches_plain_on_card(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("sz,level", [(16, 3), (16, 4), (32, 5)])
+@pytest.mark.parametrize("sz,level", [(16, 3), (16, 4), (32, 5), (16, 2),
+                                      (64, 5), (64, 6)])
 def test_offsets_kernel_matches_plain_on_card(cuda_device, dtype, sz, level):
     """K3 against its plain version at fine levels where mirror slices are
-    empty or partial (m2 = 4, 8, 16).  Its atomic sums change order from
-    run to run, which the gates cover (27 terms per output)."""
+    empty or partial (m2 = 2, 4, 8, 16, 32: below, at and past one tile of
+    32 boxes) with windows of B = 4, 2 and 1 squares.  Its atomic sums
+    change order from run to run, which the gates cover (27 terms per
+    output)."""
     args = _k3_inputs(cuda_device, dtype, sz, level)
     inst = _cuda.INSTANCES[dtype]
     n0 = offsets.launches[inst]
@@ -246,15 +251,28 @@ def _mode_tables(shape, D, device, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("D,m2", [(2, 8), (9, 8), (11, 8), (9, 2), (3, 3)])
+@pytest.mark.parametrize("D,m2,np_cheb", [
+    (2, 8, 4), (9, 8, 4), (11, 8, 4), (9, 2, 4), (3, 3, 4), (1, 3, 4),
+    (5, 5, 4), (13, 5, 4), (1, 12, 4), (3, 12, 4), (5, 12, 4), (9, 12, 4),
+    (13, 12, 4), (13, 8, 4),
+] + [(D, m2, n) for n in (2, 3, 5, 6, 7)
+     for (D, m2) in ((3, 5), (9, 12), (13, 3))])
 def test_m2l_all_modes_kernel_matches_plain_on_card(cuda_device, dtype, D,
-                                                    m2):
-    """K1 with the mode axis (D = 11 takes two chunks of modes; m2 = 2 and
-    3 leave the last tile of boxes ragged) against its plain version and
-    against D launches of the one-mode instance."""
-    E, _, M, shift = _k1_inputs(cuda_device, dtype, m2=m2)
-    cosr = _mode_tables((4, 16, 432), D, cuda_device, dtype, 11)
+                                                    m2, np_cheb):
+    """K1 with the mode axis (D = 11 and 13 take two chunks of modes, the
+    last of 2 and 4; m2 = 2, 3 and 5 leave the last tile of boxes ragged:
+    16 boxes a tile in f32, 8 in f64 and for np 6-7; coarse planes split
+    their target points over two blocks; r = 9, 25 and 49 rows are not
+    whole 16-byte vectors; float64 refuses np 6-7) against its plain
+    version and against D launches of the one-mode instance."""
+    r = np_cheb * np_cheb
+    E, _, M, shift = _k1_inputs(cuda_device, dtype, m2=m2, r=r)
+    cosr = _mode_tables((4, r, 27 * r), D, cuda_device, dtype, 11)
     inst = _cuda.INSTANCES[dtype]
+    if D > 1 and r not in m2l.MODES_R[inst]:
+        with pytest.raises(ValueError):
+            m2l.m2l_translate(E, cosr, M, shift)
+        return
     n0 = m2l.launches[inst]
     got = m2l.m2l_translate(E, cosr, M, shift)
     assert m2l.launches[inst] == n0 + 1
@@ -290,11 +308,23 @@ def test_near_all_modes_kernel_matches_plain_on_card(cuda_device, dtype, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("sz,level,D", [(16, 3, 3), (16, 4, 9), (32, 5, 2)])
+@pytest.mark.parametrize("sz,level,D,np_cheb", [
+    (16, 3, 3, 4), (16, 4, 9, 4), (32, 5, 2, 4), (16, 2, 1, 4),
+    (16, 2, 13, 4), (16, 3, 5, 4), (32, 5, 13, 4), (64, 5, 5, 4),
+    (64, 6, 9, 4), (64, 6, 1, 4),
+] + [(sz, level, D, n) for n in (2, 3, 5)
+     for (sz, level, D) in ((16, 2, 3), (16, 3, 1), (32, 5, 9), (64, 6, 5))])
 def test_offsets_all_modes_kernel_matches_plain_on_card(cuda_device, dtype,
-                                                        sz, level, D):
-    Wo, coeffs, _, M, shift = _k3_inputs(cuda_device, dtype, sz, level)
-    cosr = _mode_tables((4, 16, 432), D, cuda_device, dtype, 15)
+                                                        sz, level, D,
+                                                        np_cheb):
+    """K3 with the mode axis at B = 4, 2 and 1, m2 = 2 to 32 (one tile of
+    32 boxes), D = 1 (one mode with the mode axis) to 13, and np 2, 3 and
+    5 (r^2 = 16, 81 and 625 pairs padded to 64, 128 and 640; rows of 9 and
+    25 values copied one value at a time)."""
+    Wo, coeffs, _, M, shift = _k3_inputs(cuda_device, dtype, sz, level,
+                                         np_cheb)
+    r = np_cheb * np_cheb
+    cosr = _mode_tables((4, r, 27 * r), D, cuda_device, dtype, 15)
     inst = _cuda.INSTANCES[dtype]
     n0 = offsets.launches[inst]
     got = offsets.offsets_translate(Wo, coeffs, cosr, M, shift)

@@ -31,7 +31,8 @@ from aniso_torch.fmm import smooth as t_smooth
 from aniso_torch.kernels.m2l import m2l_translate_plain
 from aniso_torch.kernels.near import near_contract_plain
 from aniso_torch.kernels.offsets import (
-    offset_plan_np, offsets_translate_plain, wo_numel,
+    interleave_class_major, offset_plan_np, offsets_translate_plain,
+    wo_numel,
 )
 from aniso_torch.solver.operator import TransportSolver
 
@@ -235,6 +236,20 @@ def test_offset_plan_covers_every_entry_once():
         assert woff == end
         end = woff + K * 256
     assert end == wo_numel(4, 2, 9)
+
+
+@pytest.mark.parametrize("m2,D", [(1, 1), (2, 3), (5, 9)])
+def test_interleave_class_major_matches_jax(m2, D):
+    """K3's kernel adds into a class-major scratch (D, 4, m2, r, m2); its
+    wrapper's interleave gives, per mode, JAX's _interleave_classes of the
+    four class planes (x, y, a), bit for bit."""
+    Lc = np.random.default_rng(m2).standard_normal((D, 4, m2, 16, m2))
+    got = interleave_class_major(torch.as_tensor(Lc)).numpy()
+    assert got.shape == (D, 2 * m2, 2 * m2, 16)
+    for d in range(D):
+        outs = [jnp.asarray(Lc[d, c].transpose(0, 2, 1)) for c in range(4)]
+        want = np.asarray(j_apply._interleave_classes(outs, m2, 16))
+        assert np.array_equal(got[d], want)
 
 
 @pytest.mark.parametrize("level", [2, 3, 4, 5])
