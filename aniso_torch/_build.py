@@ -3,8 +3,8 @@
 Two kinds, both with a plain C interface loaded by ctypes:
 
   * CUDA kernels (K1 m2l_translate.cu, K2 near_contract.cu, K3
-    offsets_translate.cu, K9d diffusion_apply.cu, each with a float32 and a
-    float64 entry; K7 line_integral.cu, float64): one nvcc
+    offsets_translate.cu, K9d diffusion_apply.cu, K9 pcg.cu, each with a
+    float32 and a float64 entry; K7 line_integral.cu, float64): one nvcc
     per source, ``-gencode arch=compute_90a,code=sm_90a -O3 -shared``, no fast
     math (E feeds exp/expm1; ``--use_fast_math`` would turn them into the
     approximate intrinsics and expm1 of a small E into exp - 1);
@@ -12,7 +12,8 @@ Two kinds, both with a plain C interface loaded by ctypes:
 
 Libraries go into aniso_torch/_build/ (listed in .gitignore) at first use,
 each with its compiler output beside it (lib*.so.log: ptxas's registers and
-spills), and are rebuilt when their source is newer.  A build writes a private file
+spills), and are rebuilt when their source (or, for a .cu, a .cuh header in
+csrc) is newer.  A build writes a private file
 and renames it into place, so concurrent processes never load a
 half-written library.  A missing compiler or a failed build raises; nothing
 falls back.
@@ -31,7 +32,7 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 CUDA_SOURCES = ("m2l_translate.cu", "near_contract.cu",
-                "offsets_translate.cu", "diffusion_apply.cu",
+                "offsets_translate.cu", "diffusion_apply.cu", "pcg.cu",
                 "line_integral.cu")
 HOST_SOURCE = "aniso_host.cpp"
 
@@ -69,7 +70,11 @@ def nvcc_path() -> str:
 def _compile(source: str) -> str:
     src = os.path.join(CSRC, source)
     out = lib_path(source)
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+    newest = max(os.path.getmtime(os.path.join(CSRC, f))
+                 for f in os.listdir(CSRC)
+                 if f == source
+                 or (source.endswith(".cu") and f.endswith(".cuh")))
+    if os.path.exists(out) and os.path.getmtime(out) >= newest:
         if os.path.exists(out + ".log"):      # the build's compiler output
             with open(out + ".log") as f:
                 build_logs[source] = f.read()

@@ -3,29 +3,20 @@
 //
 // Replaces the stencil of aniso_tpu/solver/dsa.py:make_diffusion_apply
 // (:85-99), which the JAX package runs as one fused program inside the
-// while_loop of its CG (:114-142).  For every cell (i, j) of the (sz, sz)
-// grid of squares:
-//
-//   out[i, j] = sigma_a[i, j] z[i, j]
-//             + Dx[i, j]   (z[i, j] - z[i+1, j]) / dx^2      (i < sz-1)
-//             - Dx[i-1, j] (z[i-1, j] - z[i, j]) / dx^2      (i > 0)
-//             + Dy[i, j]   (z[i, j] - z[i, j+1]) / dx^2      (j < sz-1)
-//             - Dy[i, j-1] (z[i, j-1] - z[i, j]) / dx^2      (j > 0)
-//             + robin[i, j] z[i, j] / dx   once per side of the domain the
-//                                          cell touches (Marshak outflux)
-//
-// in this order, which is the order of the JAX adds.  Dx (sz-1, sz) and
-// Dy (sz, sz-1) are the harmonic-mean face coefficients, robin (sz, sz) the
-// boundary factor 2D/(dx + 4D).
+// while_loop of its CG (:114-142).  The stencil and the order of its adds
+// are diffusion_stencil.cuh's apply_cell, which K9 (pcg.cu, the whole CG in
+// one launch) runs too; the DSA solve launches K9, and this kernel is the
+// stencil alone, held against its plain version.
 //
 // Bound on the H100: bytes, six fields of sz^2 values (z, Dx, Dy, robin,
 // sigma_a read once, out written once: 6.3 MB in f32 at 512^2, ~1.9 us at
 // 3.35 TB/s; at 128^2 the 0.4 MB sit in the cache and the launch itself
 // costs more).  One thread per cell; the neighbours of z come from the
-// cache.  In eager PyTorch the same stencil is about a dozen small
-// launches, up to 500 times per preconditioner call.
+// cache.
 
 #include <cuda_runtime.h>
+
+#include "diffusion_stencil.cuh"
 
 namespace {
 
@@ -44,36 +35,13 @@ __global__ void diffusion_apply_kernel(
     if (idx >= sz * sz) {
         return;
     }
-    const int i = idx / sz;
-    const int j = idx - i * sz;
-    const T zc = z[idx];
-    T acc = sigma_a[idx] * zc;
-    if (i < sz - 1) {
-        acc += Dx[idx] * (zc - z[idx + sz]) * inv_dx2;
-    }
-    if (i > 0) {
-        acc -= Dx[idx - sz] * (z[idx - sz] - zc) * inv_dx2;
-    }
-    if (j < sz - 1) {
-        acc += Dy[i * (sz - 1) + j] * (zc - z[idx + 1]) * inv_dx2;
-    }
-    if (j > 0) {
-        acc -= Dy[i * (sz - 1) + j - 1] * (z[idx - 1] - zc) * inv_dx2;
-    }
-    const T rb = robin[idx] * zc * inv_dx;
-    if (i == 0) {
-        acc += rb;
-    }
-    if (i == sz - 1) {
-        acc += rb;
-    }
-    if (j == 0) {
-        acc += rb;
-    }
-    if (j == sz - 1) {
-        acc += rb;
-    }
-    out[idx] = acc;
+    const aniso::Cell<T> c = aniso::load_cell(Dx, Dy, robin, sigma_a, idx,
+                                              sz);
+    const T zero = T(0);
+    out[idx] = aniso::apply_cell(
+        c, sz, z[idx], c.i < sz - 1 ? z[idx + sz] : zero,
+        c.i > 0 ? z[idx - sz] : zero, c.j < sz - 1 ? z[idx + 1] : zero,
+        c.j > 0 ? z[idx - 1] : zero, inv_dx2, inv_dx);
 }
 
 template <typename T>

@@ -42,7 +42,11 @@
 // their stores are coalesced.  The coefficients (sz^2 deg^2 values, 295 KB
 // at 64^2, divided by the basis norms by the wrapper) stay in L2 and are
 // read through __ldg.  The instances are templates on deg (1..8) so that
-// the Legendre values and a cell's coefficients live in registers.  E is
+// the Legendre values and a cell's coefficients live in registers; any
+// higher deg runs in one runtime-deg instance (DEG = 0) that reads the
+// cell's deg^2 coefficients and the Gauss rule through __ldg as it sums
+// them and takes each Legendre value by the same recurrence as it goes (no
+// array of deg values: simple, not tuned).  E is
 // symmetric, but every pair is computed: simple first.  Indices of the
 // output are 64-bit (D n^2 exceeds 2^31 at 64^2).
 
@@ -56,6 +60,7 @@ constexpr int kThreads = 256;
 
 struct Field {
     int sz;
+    int deg;               // the runtime-deg instance's degree
     int compat;            // basis at global coordinates (reference quirk)
     const double* gx;      // (deg) Gauss points on [-1, 1]
     const double* gw;      // (deg) Gauss weights
@@ -99,8 +104,40 @@ __device__ inline void legendre(double x, double* p) {
     }
 }
 
+// P_{n+1}(x) from P_n = p and P_{n-1} = pm (legendre's recurrence)
+__device__ inline double legendre_next(double x, int n, double p, double pm) {
+    if (n == 0) {
+        return x;
+    }
+    const int k = n + 1;
+    return ((2.0 * k - 1.0) * x * p - (k - 1.0) * pm) / k;
+}
+
+// sum over a, b of P_a(ex) c[a * deg + b] P_b(ey) at a runtime deg, in the
+// order of the compiled instances' sum
+__device__ inline double expansion(const double* c, int deg, double ex,
+                                   double ey) {
+    double v = 0.0;
+    double pa = 1.0, pa_m = 0.0;
+    for (int a = 0; a < deg; ++a) {
+        double row = 0.0;
+        double pb = 1.0, pb_m = 0.0;
+        for (int b = 0; b < deg; ++b) {
+            row += __ldg(c + a * deg + b) * pb;
+            const double next = legendre_next(ey, b, pb, pb_m);
+            pb_m = pb;
+            pb = next;
+        }
+        v += pa * row;
+        const double next = legendre_next(ex, a, pa, pa_m);
+        pa_m = pa;
+        pa = next;
+    }
+    return v;
+}
+
 // sum_g w_g sigma(t_g) over the Gauss points of [ta, tb], times the piece's
-// length |p1 - p0| (tb - ta)
+// length |p1 - p0| (tb - ta); DEG = 0: the runtime-deg instance
 template <int DEG>
 __device__ inline double piece(const Field& F, const double* gx,
                                const double* gw, double x0, double y0,
@@ -112,8 +149,26 @@ __device__ inline double piece(const Field& F, const double* gx,
     // the cell from the piece's midpoint (reference integral_helper:176)
     const int i = min(max((int)floor((x0 + tm * dx) * sz), 0), sz - 1);
     const int j = min(max((int)floor((y0 + tm * dy) * sz), 0), sz - 1);
+    if constexpr (DEG == 0) {
+        const int deg = F.deg;
+        const double* c = F.cn + (size_t)(i * sz + j) * (deg * deg);
+        double seg = 0.0;
+        for (int g = 0; g < deg; ++g) {
+            const double tg = tm + half * __ldg(F.gx + g);
+            const double xg = x0 + tg * dx;
+            const double yg = y0 + tg * dy;
+            double ex = xg, ey = yg;
+            if (!F.compat) {
+                ex = 2.0 * (xg * sz - i) - 1.0;
+                ey = 2.0 * (yg * sz - j) - 1.0;
+            }
+            seg += __ldg(F.gw + g) * expansion(c, deg, ex, ey);
+        }
+        return seg * (len * (tb - ta));
+    }
+    constexpr int NC = DEG > 0 ? DEG : 1;    // array sizes of the instance
     const double* c = F.cn + (size_t)(i * sz + j) * (DEG * DEG);
-    double cr[DEG * DEG];
+    double cr[NC * NC];
 #pragma unroll
     for (int q = 0; q < DEG * DEG; ++q) {
         cr[q] = __ldg(c + q);
@@ -129,7 +184,7 @@ __device__ inline double piece(const Field& F, const double* gx,
             ex = 2.0 * (xg * sz - i) - 1.0;
             ey = 2.0 * (yg * sz - j) - 1.0;
         }
-        double px[DEG], py[DEG];
+        double px[NC], py[NC];
         legendre<DEG>(ex, px);
         legendre<DEG>(ey, py);
         double v = 0.0;
@@ -184,6 +239,8 @@ __device__ double line_integral(const Field& F, const double* gx,
     return acc / 2.0;
 }
 
+// the Gauss rule into registers (the runtime-deg instance reads it as it
+// goes)
 template <int DEG>
 __device__ inline void load_rule(const Field& F, double* gx, double* gw) {
 #pragma unroll
@@ -201,7 +258,7 @@ __global__ void pairs_kernel(Field F, const double* __restrict__ p0,
     if (k >= n) {
         return;
     }
-    double gx[DEG], gw[DEG];
+    double gx[DEG > 0 ? DEG : 1], gw[DEG > 0 ? DEG : 1];
     load_rule<DEG>(F, gx, gw);
     out[k] = line_integral<DEG>(F, gx, gw, p0[2 * k], p0[2 * k + 1],
                                 p1[2 * k], p1[2 * k + 1]);
@@ -231,7 +288,7 @@ __global__ void dense_kernel(Field F, const double* __restrict__ pts,
         }
         return;
     }
-    double gx[DEG], gw[DEG];
+    double gx[DEG > 0 ? DEG : 1], gw[DEG > 0 ? DEG : 1];
     load_rule<DEG>(F, gx, gw);
     // E from the target to the source, as JAX's pure path
     const double E = line_integral<DEG>(F, gx, gw, xt, yt, xs, ys);
@@ -282,9 +339,12 @@ extern "C" int aniso_line_integral_pairs_f64(
     int sz, int deg, const void* gx, const void* gw, const void* cn,
     int compat, const void* p0, const void* p1, long long n, void* out,
     void* stream) {
-    const Field F{sz, compat, static_cast<const double*>(gx),
+    const Field F{sz, deg, compat, static_cast<const double*>(gx),
                   static_cast<const double*>(gw),
                   static_cast<const double*>(cn)};
+    if (deg < 1) {
+        return (int)cudaErrorInvalidValue;
+    }
     if (n <= 0) {
         return 0;
     }
@@ -300,7 +360,7 @@ extern "C" int aniso_line_integral_pairs_f64(
         ANISO_K7_DEGREES(ANISO_K7_CASE)
 #undef ANISO_K7_CASE
         default:
-            return (int)cudaErrorInvalidValue;
+            launch_pairs<0>(F, a, b, n, o, st);
     }
     return (int)cudaGetLastError();
 }
@@ -309,9 +369,12 @@ extern "C" int aniso_dense_smooth_rows_f64(
     int sz, int deg, const void* gx, const void* gw, const void* cn,
     int compat, const void* pts, const void* w, const void* diag, int n,
     int row0, int nrows, int m0, int D, void* out, void* stream) {
-    const Field F{sz, compat, static_cast<const double*>(gx),
+    const Field F{sz, deg, compat, static_cast<const double*>(gx),
                   static_cast<const double*>(gw),
                   static_cast<const double*>(cn)};
+    if (deg < 1) {
+        return (int)cudaErrorInvalidValue;
+    }
     const auto* p = static_cast<const double*>(pts);
     const auto* wp = static_cast<const double*>(w);
     const auto* dg = static_cast<const double*>(diag);
@@ -325,7 +388,7 @@ extern "C" int aniso_dense_smooth_rows_f64(
         ANISO_K7_DEGREES(ANISO_K7_CASE)
 #undef ANISO_K7_CASE
         default:
-            return (int)cudaErrorInvalidValue;
+            launch_dense<0>(F, p, wp, dg, n, row0, nrows, m0, D, o, st);
     }
     return (int)cudaGetLastError();
 }

@@ -32,13 +32,14 @@
 // ~60% of its byte bound at 512^2.
 //
 // All modes (m2l_translate_modes_kernel), r a compile-time parameter
-// (np 2-5 in both instances, and np 6-7 in float32).  For a fixed class c
+// (np 2-7 in both instances).  For a fixed class c
 // and target point a the sum is a product (boxes x 27r) @ (27r x D) whose
 // right-hand side, the table slice cosr[:, c, a, :], is the same for every
 // box of the class.  Eight lanes share a row of E, 16 bytes each where r
 // values are a multiple of 16 bytes (one value each otherwise), so that a
 // warp instruction reads four runs of 128 contiguous bytes, and a lane
-// holds NB boxes (4 in f32, 2 in f64 and for np 6-7):
+// holds NB boxes (np 2-5: 4 in f32, 2 in f64; np 6-7: 2 in f32, 1 in f64,
+// so that the tile's source rows fit 48 KB):
 //   * E is streamed with vector loads (ld.global.cs, read once), one vector
 //     of each of the lane's NB rows per step, loaded a step ahead; the last
 //     step of a row may be ragged;
@@ -61,8 +62,15 @@
 // multiply and ND multiply-adds, and ND / (8 NB) table loads; the sums over
 // the eight lanes of a box are three shuffle steps per (box, mode, a).
 // How the rows of E are cut into requests (128-byte runs) is what the leaf
-// level's time is most sensitive to (PERF.md).  expf / exp, not __expf:
-// the library is built without fast math.
+// level's time is most sensitive to (PERF.md).
+//
+// All modes at any other r (m2l_translate_modes_any_kernel): the one-mode
+// kernel's layout (a block per box, a warp per target point, lanes along
+// the row) with up to kModeChunk modes accumulated per pass over the row:
+// simple and not tuned, for the np no instance is compiled for.  Every r
+// whose 27 r-value row fits 48 KB of shared memory runs, as in the
+// one-mode kernel.  expf / exp, not __expf: the library is built without
+// fast math.
 
 #include <cuda_runtime.h>
 
@@ -142,6 +150,68 @@ __global__ void m2l_translate_kernel(
     }
 }
 
+// All D modes at a runtime r: one block per (c, x, y) as the one-mode
+// kernel, the modes in chunks of kModeChunk, one pass over the row each.
+template <typename T>
+__global__ void m2l_translate_modes_any_kernel(
+    const T* __restrict__ E,          // (4, m2, m2, r, 27 r)
+    const T* __restrict__ cosr,       // (D, 4, r, 27 r)
+    const T* __restrict__ M,          // (2 m2, 2 m2, r)
+    const int* __restrict__ shift,    // (4, 27, 4)
+    T* __restrict__ L,                // (D, 2 m2, 2 m2, r)
+    int m2, int r, int D) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    T* g = reinterpret_cast<T*>(smem);  // (27, r) source multipoles
+    const int ob = kOffsets * r;
+    const int blk = blockIdx.x;       // (c, x, y), y fastest
+    const int c = blk / (m2 * m2);
+    const int x = (blk / m2) % m2;
+    const int y = blk % m2;
+    const int m = 2 * m2;
+
+    gather_sources(g, M, shift, c, x, y, m2, r);
+    __syncthreads();
+
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int nwarps = blockDim.x >> 5;
+    const T* Eb = E + (size_t)blk * r * ob;
+    const size_t mode_stride = (size_t)4 * r * ob;
+    const size_t plane = (size_t)m * m * r;
+    T* Lb = L + ((size_t)(2 * x + (c >> 1)) * m + (2 * y + (c & 1))) * r;
+    for (int a = warp; a < r; a += nwarps) {
+        const T* Ea = Eb + (size_t)a * ob;
+        const T* ca = cosr + ((size_t)c * r + a) * ob;
+        for (int d0 = 0; d0 < D; d0 += kModeChunk) {
+            const int nd = min(kModeChunk, D - d0);
+            T acc[kModeChunk];
+#pragma unroll
+            for (int d = 0; d < kModeChunk; ++d) {
+                acc[d] = T(0);
+            }
+            for (int q = lane; q < ob; q += 32) {
+                const T v = exp_(-Ea[q]) * g[q];
+#pragma unroll
+                for (int d = 0; d < kModeChunk; ++d) {
+                    if (d < nd) {
+                        acc[d] += v * ca[(d0 + d) * mode_stride + q];
+                    }
+                }
+            }
+#pragma unroll
+            for (int d = 0; d < kModeChunk; ++d) {
+                T s = acc[d];
+                for (int off = 16; off > 0; off >>= 1) {
+                    s += __shfl_down_sync(0xffffffffu, s, off);
+                }
+                if (lane == 0 && d < nd) {
+                    Lb[(d0 + d) * plane + a] = s;
+                }
+            }
+        }
+    }
+}
+
 // The all-modes kernel's shapes by scalar type and r: a vector V of VW
 // values (16 bytes where r values fill whole vectors, else one value), NB
 // boxes per lane (TB = kSlots NB boxes per block), OB = 27 r values a row.
@@ -152,7 +222,8 @@ template <> struct Vec<double, 2> { using V = double2; };
 template <typename T, int R> struct Modes {
     static constexpr int VW = R * sizeof(T) % 16 == 0 ? 16 / sizeof(T) : 1;
     using V = typename Vec<T, VW>::V;
-    static constexpr int NB = sizeof(T) == 4 && R <= 25 ? 4 : 2;
+    static constexpr int NB =
+        (sizeof(T) == 4 ? 4 : 2) / (R <= 25 ? 1 : 2);
     static constexpr int TB = kSlots * NB;
     static constexpr int OB = kOffsets * R;
     static constexpr size_t smem_bytes = (size_t)TB * OB * sizeof(T);
@@ -416,8 +487,8 @@ int launch_modes_r(const void* E, const void* cosr, const void* M,
 #undef ANISO_K1D_ND
 }
 
-// The all-modes kernel takes r = np^2 for np 2-5, and np 6-7 in float32
-// (where 16 boxes' source rows still fit 48 KB of shared memory).
+// The all-modes kernel takes r = np^2 for np 2-7 at compile time and any
+// other r whose row fits 48 KB at run time.
 template <typename T>
 int launch(const void* E, const void* cosr, const void* M, const void* shift,
            void* L, int m2, int r, int D, void* stream) {
@@ -438,19 +509,21 @@ int launch(const void* E, const void* cosr, const void* M, const void* shift,
         ANISO_K1D_R(9)
         ANISO_K1D_R(16)
         ANISO_K1D_R(25)
+        ANISO_K1D_R(36)
+        ANISO_K1D_R(49)
         default:
             break;
     }
-    if constexpr (sizeof(T) == 4) {
-        switch (r) {
-            ANISO_K1D_R(36)
-            ANISO_K1D_R(49)
-            default:
-                break;
-        }
-    }
 #undef ANISO_K1D_R
-    return (int)cudaErrorInvalidValue;
+    const size_t row = (size_t)kOffsets * r * sizeof(T);
+    if (row > 48 * 1024) {
+        return (int)cudaErrorInvalidValue;
+    }
+    m2l_translate_modes_any_kernel<T><<<4 * m2 * m2, kThreads, row, st>>>(
+        static_cast<const T*>(E), static_cast<const T*>(cosr),
+        static_cast<const T*>(M), static_cast<const int*>(shift),
+        static_cast<T*>(L), m2, r, D);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace

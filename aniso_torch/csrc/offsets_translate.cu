@@ -37,7 +37,8 @@
 // coefficient field, the weights, the multipoles and L) take ~0.03 ms.
 //
 // Design: one block of eight warps per (entry, box row x, tile of 32 boxes
-// along y), with r a compile-time parameter (4, 9, 16, 25: np 2-5).
+// along y), with r a compile-time parameter (4, 9, 16, 25: np 2-5; the
+// split instances below take np 6-7 and any r).
 //   * The window GEMM (M = 32 boxes, N = r^2 pairs padded to a multiple of
 //     64, K = K_e) runs on the FP64 tensor cores, mma.sync.m16n8k4 f64
 //     (DMMA; wgmma takes no f64).  Warp w owns NT n-tiles of 8 pairs (NT = 4
@@ -64,6 +65,16 @@
 //   * The atomics go to a class-major scratch (D, 4, m2, r, m2), so a warp's
 //     32 boxes add into 32 consecutive values; the wrapper interleaves it
 //     into L (D, 2 m2, 2 m2, r).  Each (box, a, d) gets one add per entry.
+//   * np >= 6 (r >= 36): the pair axis is split across blocks instead of
+//     growing the per-thread tile (np 5 already holds ~250 registers at one
+//     block an SM).  A block takes 192 consecutive pairs p = a r + b of the
+//     entry (NT = 3), so the grid's z axis is (entry, chunk of pairs); the
+//     GEMM is the same, on Wo_e's columns [p0, p0 + 192).  Its direct sums
+//     then cover the b of its chunk and its mirror sums the a, so both are
+//     partial sums, added with the same atomics (one per (box, row, mode)
+//     a chunk touches), one mode at a time: simple, not tuned.  r = 36 and
+//     49 are compile-time instances; other r one runtime-r instance (R = 0),
+//     up to the r whose 27 r-value row fits 48 KB, as K1 takes.
 // atomicAdd is native for f32 and f64 on sm_90; an L value receives the 27
 // offsets' contributions in an order that changes from run to run, so two
 // runs agree to rounding (about 27 ulp of the largest term), not bitwise.
@@ -81,25 +92,33 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kAS = kNB + 4;    // row stride of the window chunk (doubles)
 
-// The shapes of one instance: r target points a box, P = r^2 pairs, NT
-// n-tiles of 8 pairs a warp (PP = 64 NT pairs, padded), the row strides BS
-// of the Wo chunk (PP + 32 bytes of pad) and XS of X (pair, box), the width
-// CW of a weight copy in values, and the blocks an SM is built to hold.
+// The shapes of one instance: r target points a box (R = 0: r at run
+// time), P = r^2 pairs, NT n-tiles of 8 pairs a warp (PP = 64 NT pairs a
+// block, padded), the row strides BS of the Wo chunk (PP + 32 bytes of pad)
+// and XS of X (pair, box), the width CW of a weight copy in values, and the
+// blocks an SM is built to hold.  kSplit: the r^2 pairs are cut into
+// chunks of PP, one a block.
 template <typename T, int R> struct Shape {
+    static constexpr bool kSplit = R == 0 || R > 25;
     static constexpr int P = R * R;
-    static constexpr int NT = ((P + 7) / 8 + kWarps - 1) / kWarps;
+    static constexpr int NT =
+        kSplit ? 3 : ((P + 7) / 8 + kWarps - 1) / kWarps;
     static constexpr int PP = 8 * kWarps * NT;
     static constexpr int BS = PP + 32 / (int)sizeof(T);
     static constexpr int XS = kNB + (sizeof(T) == 4 ? 4 : 2);
-    static constexpr int CW = P * sizeof(T) % 16 == 0 ? 16 / sizeof(T) : 1;
+    static constexpr int CW =
+        R > 0 && P * sizeof(T) % 16 == 0 ? 16 / sizeof(T) : 1;
     static constexpr int VW = R * sizeof(T) % 16 == 0 ? 16 / sizeof(T) : 1;
     static constexpr int kMinBlocks = NT <= 4 ? 2 : 1;
     static constexpr size_t ring_bytes =
         2 * (kKC * kAS * sizeof(double) + kKC * BS * sizeof(T));
     static constexpr size_t x_bytes = (size_t)PP * XS * sizeof(T);
-    static constexpr size_t smem_bytes =
-        (ring_bytes > x_bytes ? ring_bytes : x_bytes)
-        + 2 * R * kNB * sizeof(T);
+    // the ring, or X over it; then the tile's source multipoles
+    static constexpr size_t main_bytes =
+        ring_bytes > x_bytes ? ring_bytes : x_bytes;
+    static size_t smem_bytes(int r) {
+        return main_bytes + 2 * (size_t)r * kNB * sizeof(T);
+    }
 };
 
 __device__ __forceinline__ float exp_(float v) { return expf(v); }
@@ -137,16 +156,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // M at the V-list source of (class c, offset o) for target box (x, y), or 0
 // off the parity plane.
-template <typename T, int R>
+template <typename T>
 __device__ __forceinline__ T source(const T* M, const int* shift, int c,
-                                    int o, int x, int y, int m2, int k) {
+                                    int o, int x, int y, int m2, int r,
+                                    int k) {
     const int* t = shift + (c * kOffsets + o) * 4;
     const int bx = x + t[2] - 1;
     const int by = y + t[3] - 1;
     if (bx < 0 || bx >= m2 || by < 0 || by >= m2) {
         return T(0);
     }
-    return M[((size_t)(2 * bx + t[0]) * (2 * m2) + (2 * by + t[1])) * R + k];
+    return M[((size_t)(2 * bx + t[0]) * (2 * m2) + (2 * by + t[1])) * r + k];
 }
 
 // VW values of one load: a 16-byte vector, or one value.
@@ -189,18 +209,22 @@ offsets_translate_kernel(
     const int* __restrict__ shift,    // (4, 27, 4)
     const int* __restrict__ plan,     // (entries, kPlanCols)
     T* __restrict__ Lc,               // (D, 4, m2, r, m2), zeroed
-    int sz, int nq, int m2, int B, int D) {
+    int sz, int nq, int m2, int B, int D, int r_rt, int pair_chunks) {
     using S = Shape<T, R>;
-    constexpr int P = S::P, NT = S::NT, PP = S::PP, BS = S::BS, XS = S::XS;
+    constexpr int NT = S::NT, PP = S::PP, BS = S::BS, XS = S::XS;
+    const int r = R > 0 ? R : r_rt;
+    const int P = r * r;
     extern __shared__ __align__(16) unsigned char smem[];
     double* As = reinterpret_cast<double*>(smem);           // 2 x (kKC, kAS)
     T* Bs = reinterpret_cast<T*>(As + 2 * kKC * kAS);       // 2 x (kKC, BS)
     T* Xs = reinterpret_cast<T*>(smem);                     // (PP, XS)
-    T* Md = reinterpret_cast<T*>(smem + (S::smem_bytes
-                                         - 2 * R * kNB * sizeof(T)));
-    T* Mm = Md + R * kNB;                                   // (R, kNB) each
+    T* Md = reinterpret_cast<T*>(smem + S::main_bytes);
+    T* Mm = Md + r * kNB;                                   // (r, kNB) each
 
-    const int* e = plan + blockIdx.z * kPlanCols;
+    // the block's entry and, split, its chunk of pairs [p0, p0 + PP)
+    const int entry = S::kSplit ? blockIdx.z / pair_chunks : blockIdx.z;
+    const int p0 = S::kSplit ? (blockIdx.z - entry * pair_chunks) * PP : 0;
+    const int* e = plan + entry * kPlanCols;
     const int c = e[0], o = e[1], px = e[2], py = e[3], di = e[4], dj = e[5];
     const int c2 = e[6], o2 = e[7], sx = e[8], sy = e[9];
     const T* W = Wo + (size_t)(unsigned)e[10];
@@ -219,17 +243,17 @@ offsets_translate_kernel(
 
     // the direct and mirror source multipoles of the tile: Md[b][n],
     // Mm[a][n], zero off the plane and past the last box
-    for (int i = tid; i < 2 * R * kNB; i += kThreads) {
-        const int mirror = i >= R * kNB;
-        const int k = (i / kNB) % R;
+    for (int i = tid; i < 2 * r * kNB; i += kThreads) {
+        const int mirror = i >= r * kNB;
+        const int k = (i / kNB) % r;
         const int n = i % kNB;
         const int y = y0 + n;
         T v = T(0);
         if (y < m2) {
             if (!mirror) {
-                v = source<T, R>(M, shift, c, o, x, y, m2, k);
+                v = source<T>(M, shift, c, o, x, y, m2, r, k);
             } else if (xt >= 0 && xt < m2 && y + sy >= 0 && y + sy < m2) {
-                v = source<T, R>(M, shift, c2, o2, xt, y + sy, m2, k);
+                v = source<T>(M, shift, c2, o2, xt, y + sy, m2, r, k);
             }
         }
         (mirror ? Mm : Md)[k * kNB + n] = v;
@@ -271,9 +295,10 @@ offsets_translate_kernel(
             A[(i - n * kKC) * kAS + n] = v[s];
         }
     };
-    // Wo_e rows k0..k0+15 into a ring slot, CW values a copy, zero past K
-    // and past the r^2 pairs.  Where a row's copies divide the block, the
-    // thread copies the same column of rows wr, wr + kPass, ...
+    // Wo_e rows k0..k0+15, columns p0.., into a ring slot, CW values a
+    // copy, zero past K and past the r^2 pairs.  Where a row's copies
+    // divide the block, the thread copies the same column of rows wr,
+    // wr + kPass, ...
     constexpr int CW = S::CW;
     constexpr int kBytes = CW * sizeof(T);
     constexpr int kPerRow = PP / CW;
@@ -282,11 +307,12 @@ offsets_translate_kernel(
             constexpr int kPass = kThreads / kPerRow;   // rows a pass copies
             const int wr = tid / kPerRow;
             const int wc = (tid % kPerRow) * CW;
-            const T* src = W + (size_t)(k0 + wr) * P + wc;
+            const T* src = W + (size_t)(k0 + wr) * P + p0 + wc;
 #pragma unroll
             for (int p = 0; p < kKC / kPass; ++p) {
-                const bool in =
-                    k0 + wr + p * kPass < K && (PP == P || wc < P);
+                const bool in = k0 + wr + p * kPass < K
+                                && ((!S::kSplit && PP == S::P)
+                                    || p0 + wc < P);
                 cp_async<kBytes>(dst + (wr + p * kPass) * BS + wc,
                                  in ? src + p * kPass * P : W,
                                  in ? kBytes : 0);
@@ -296,9 +322,10 @@ offsets_translate_kernel(
             for (int i = tid; i < kKC * kPerRow; i += kThreads) {
                 const int row = i / kPerRow;
                 const int wc = (i - row * kPerRow) * CW;
-                const bool in = k0 + row < K && wc < P;
+                const bool in = k0 + row < K && p0 + wc < P;
                 cp_async<kBytes>(dst + row * BS + wc,
-                                 in ? W + (size_t)(k0 + row) * P + wc : W,
+                                 in ? W + (size_t)(k0 + row) * P + p0 + wc
+                                    : W,
                                  in ? kBytes : 0);
             }
         }
@@ -380,47 +407,103 @@ offsets_translate_kernel(
     if (y >= m2) {
         return;
     }
-    const size_t mode_stride = (size_t)4 * R * kOffsets * R;
-    const size_t out_stride = (size_t)4 * m2 * R * m2;
-    const int ob = kOffsets * R;
-    // direct: Lc[d, c, x, a, y] += sum_b X[a, b] Md[b] cosr[d, c, a, o, b]
-#pragma unroll 1
-    for (int a = warp; a < R; a += kWarps) {
-        T yv[R];
-#pragma unroll
-        for (int b = 0; b < R; ++b) {
-            yv[b] = Xs[(a * R + b) * XS + n] * Md[b * kNB + n];
-        }
-        contract_row<T, R>(yv, cosr + ((size_t)c * R + a) * ob + o * R,
-                           mode_stride, D,
-                           Lc + (((size_t)c * m2 + x) * R + a) * m2 + y,
-                           out_stride);
-    }
-    // mirror: Lc[d, c2, xt, b, yt] += sum_a X[a, b] Mm[a] cosr[d, c2, b, o2, a]
+    const size_t mode_stride = (size_t)4 * r * kOffsets * r;
+    const size_t out_stride = (size_t)4 * m2 * r * m2;
+    const int ob = kOffsets * r;
     const int yt = y + sy;
-    if (xt < 0 || xt >= m2 || yt < 0 || yt >= m2) {
-        return;
-    }
+    const bool on_plane = xt >= 0 && xt < m2 && yt >= 0 && yt < m2;
+    if constexpr (S::kSplit) {
+        // the chunk's pairs p0 <= a r + b < p0 + pn: partial sums over the
+        // chunk's b (direct) and a (mirror), one mode at a time
+        const int pn = min(PP, P - p0);
+        const int a_lo = p0 / r;
+        const int a_hi = (p0 + pn - 1) / r;
 #pragma unroll 1
-    for (int b = warp; b < R; b += kWarps) {
-        T yv[R];
-#pragma unroll
-        for (int a = 0; a < R; ++a) {
-            yv[a] = Xs[(a * R + b) * XS + n] * Mm[a * kNB + n];
+        for (int a = a_lo + warp; a <= a_hi; a += kWarps) {
+            const int b_lo = max(0, p0 - a * r);
+            const int b_hi = min(r, p0 + pn - a * r);
+            const T* tab = cosr + ((size_t)c * r + a) * ob + o * r;
+            T* out = Lc + (((size_t)c * m2 + x) * r + a) * m2 + y;
+#pragma unroll 1
+            for (int d = 0; d < D; ++d) {
+                T s = T(0);
+                for (int b = b_lo; b < b_hi; ++b) {
+                    s += Xs[(a * r + b - p0) * XS + n] * Md[b * kNB + n]
+                         * __ldg(tab + d * mode_stride + b);
+                }
+                atomicAdd(out + d * out_stride, s);
+            }
         }
-        contract_row<T, R>(yv, cosr + ((size_t)c2 * R + b) * ob + o2 * R,
-                           mode_stride, D,
-                           Lc + (((size_t)c2 * m2 + xt) * R + b) * m2 + yt,
-                           out_stride);
+        if (!on_plane) {
+            return;
+        }
+#pragma unroll 1
+        for (int b = warp; b < r; b += kWarps) {
+            const int last = p0 + pn - 1 - b;
+            if (last < 0) {
+                continue;
+            }
+            const int a0 = (p0 - b + r - 1) / r;   // p0 - b > -r
+            const int a1 = last / r;
+            if (a0 > a1) {
+                continue;
+            }
+            const T* tab = cosr + ((size_t)c2 * r + b) * ob + o2 * r;
+            T* out = Lc + (((size_t)c2 * m2 + xt) * r + b) * m2 + yt;
+#pragma unroll 1
+            for (int d = 0; d < D; ++d) {
+                T s = T(0);
+                for (int a = a0; a <= a1; ++a) {
+                    s += Xs[(a * r + b - p0) * XS + n] * Mm[a * kNB + n]
+                         * __ldg(tab + d * mode_stride + a);
+                }
+                atomicAdd(out + d * out_stride, s);
+            }
+        }
+    } else {
+        // direct: Lc[d, c, x, a, y] += sum_b X[a, b] Md[b] cosr[d, c, a, o, b]
+#pragma unroll 1
+        for (int a = warp; a < R; a += kWarps) {
+            T yv[R];
+#pragma unroll
+            for (int b = 0; b < R; ++b) {
+                yv[b] = Xs[(a * R + b) * XS + n] * Md[b * kNB + n];
+            }
+            contract_row<T, R>(yv, cosr + ((size_t)c * R + a) * ob + o * R,
+                               mode_stride, D,
+                               Lc + (((size_t)c * m2 + x) * R + a) * m2 + y,
+                               out_stride);
+        }
+        // mirror: Lc[d, c2, xt, b, yt]
+        //     += sum_a X[a, b] Mm[a] cosr[d, c2, b, o2, a]
+        if (!on_plane) {
+            return;
+        }
+#pragma unroll 1
+        for (int b = warp; b < R; b += kWarps) {
+            T yv[R];
+#pragma unroll
+            for (int a = 0; a < R; ++a) {
+                yv[a] = Xs[(a * R + b) * XS + n] * Mm[a * kNB + n];
+            }
+            contract_row<T, R>(
+                yv, cosr + ((size_t)c2 * R + b) * ob + o2 * R, mode_stride, D,
+                Lc + (((size_t)c2 * m2 + xt) * R + b) * m2 + yt, out_stride);
+        }
     }
 }
 
 template <typename T, int R>
 int launch_r(const void* Wo, const void* coeffs, const void* cosr,
              const void* M, const void* shift, const void* plan,
-             int n_entries, void* L, int sz, int nq, int m2, int B, int D,
-             cudaStream_t stream) {
-    constexpr size_t smem = Shape<T, R>::smem_bytes;
+             int n_entries, void* L, int sz, int nq, int m2, int B, int r,
+             int D, cudaStream_t stream) {
+    using S = Shape<T, R>;
+    const size_t smem = S::smem_bytes(r);
+    const int pair_chunks = S::kSplit ? (r * r + S::PP - 1) / S::PP : 1;
+    if ((long long)n_entries * pair_chunks > 65535) {
+        return (int)cudaErrorInvalidValue;
+    }
     auto kernel = offsets_translate_kernel<T, R>;
     // the attribute belongs to the current device: set it every launch
     const cudaError_t err = cudaFuncSetAttribute(
@@ -428,16 +511,17 @@ int launch_r(const void* Wo, const void* coeffs, const void* cosr,
     if (err != cudaSuccess) {
         return (int)err;
     }
-    const dim3 grid((m2 + kNB - 1) / kNB, m2, n_entries);
+    const dim3 grid((m2 + kNB - 1) / kNB, m2, n_entries * pair_chunks);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(Wo), static_cast<const T*>(coeffs),
         static_cast<const T*>(cosr), static_cast<const T*>(M),
         static_cast<const int*>(shift), static_cast<const int*>(plan),
-        static_cast<T*>(L), sz, nq, m2, B, D);
+        static_cast<T*>(L), sz, nq, m2, B, D, r, pair_chunks);
     return (int)cudaGetLastError();
 }
 
-// r = np^2 for np 2-5
+// r = np^2: np 2-7 compiled for their r, any other r at run time up to the
+// r whose row of 27 r values fits 48 KB (as K1)
 template <typename T>
 int launch(const void* Wo, const void* coeffs, const void* cosr,
            const void* M, const void* shift, const void* plan,
@@ -447,16 +531,23 @@ int launch(const void* Wo, const void* coeffs, const void* cosr,
 #define ANISO_K3_R(RV)                                                    \
     case RV:                                                              \
         return launch_r<T, RV>(Wo, coeffs, cosr, M, shift, plan,          \
-                               n_entries, L, sz, nq, m2, B, D, st);
+                               n_entries, L, sz, nq, m2, B, r, D, st);
     switch (r) {
         ANISO_K3_R(4)
         ANISO_K3_R(9)
         ANISO_K3_R(16)
         ANISO_K3_R(25)
+        ANISO_K3_R(36)
+        ANISO_K3_R(49)
         default:
-            return (int)cudaErrorInvalidValue;
+            break;
     }
 #undef ANISO_K3_R
+    if (r < 1 || (size_t)kOffsets * r * sizeof(T) > 48 * 1024) {
+        return (int)cudaErrorInvalidValue;
+    }
+    return launch_r<T, 0>(Wo, coeffs, cosr, M, shift, plan, n_entries, L, sz,
+                          nq, m2, B, r, D, st);
 }
 
 }  // namespace

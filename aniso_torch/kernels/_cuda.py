@@ -44,16 +44,34 @@ def instance(name: str, t: torch.Tensor) -> str:
         ) from None
 
 
-def check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.float32):
-    """Raise unless t is a contiguous CUDA tensor of `shape` and `dtype`."""
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+def _check_layout(name: str, t: torch.Tensor, shape: tuple, dtype):
     if t.dtype != dtype:
         raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_device(name: str, t: torch.Tensor):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+
+
+def check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.float32):
+    """Raise unless t is a contiguous CUDA tensor of `shape` and `dtype`
+    (TypeError for the dtype, ValueError for the rest)."""
+    _check_layout(name, t, shape, dtype)
+    _check_device(name, t)
+
+
+def check_all(dtype, *specs):
+    """check() of every (name, tensor, shape) in specs, the dtypes, shapes
+    and layouts of all before any device."""
+    for name, t, shape in specs:
+        _check_layout(name, t, shape, dtype)
+    for name, t, _ in specs:
+        _check_device(name, t)
 
 
 def ptr(t) -> ctypes.c_void_p:

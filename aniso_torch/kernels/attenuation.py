@@ -18,7 +18,8 @@ f32 solve casts the finished matrices):
                        for m = 0, else 0 (theta = atan2 of src - tgt)
 
 Layouts: coeffs (sz, sz, deg^2) normalized-Legendre coefficients of
-sigma_t; p0, p1, pts (n, 2); w, diag (n,); all float64.
+sigma_t; p0, p1, pts (n, 2); w, diag (n,); all float64.  The kernel is
+compiled for deg 1-8 and takes any higher deg in one runtime-deg instance.
 
 Both take their plain versions (ops.attenuation's transcription of the JAX
 function, and JAX's build_dense_smooth_all epilogue) for CPU tensors and
@@ -47,7 +48,6 @@ _ARGTYPES = {
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p),
 }
-MAX_DEG = 8                     # the kernel's instances: deg 1..8
 
 launches = {"f64": 0}
 
@@ -55,8 +55,6 @@ launches = {"f64": 0}
 def _field_args(grid, coeffs: torch.Tensor, compat: bool):
     """The kernel's view of sigma_t: Gauss points and weights, and the
     coefficients divided by the basis norms; kept alive by the caller."""
-    if not 1 <= grid.deg <= MAX_DEG:
-        raise ValueError(f"K7 takes deg 1..{MAX_DEG}, got {grid.deg}")
     dev = coeffs.device
     _cuda.check("coeffs", coeffs, (grid.sz, grid.sz, grid.nq), torch.float64)
     gx = torch.as_tensor(grid.rule.points, dtype=torch.float64, device=dev)

@@ -28,7 +28,9 @@ returns L (D, 2m2, 2m2, r), the interleaved locals K1 returns.  A cosr
 without the mode axis, (4, r, 27r), is one mode and returns L (2m2, 2m2, r).
 The kernel adds into a class-major scratch (D, 4, m2, r, m2), boxes along
 y last, so that a warp's atomic adds are contiguous; interleave_class_major
-turns it into L.  The kernel is built for r = np^2 with np 2-5 (KERNEL_R).
+turns it into L.  The kernel is built for r = np^2 with np 2-7; any other r
+runs in its runtime-r instance, up to the r whose row of 27 r values fits
+48 KB (as K1): np 15 in float64, 21 in float32.
 
 offsets_translate takes offsets_translate_plain for CPU tensors and launches
 the kernel for CUDA tensors (float32 or float64); `launches` counts kernel
@@ -55,9 +57,6 @@ _ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_void_p)
              + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
 
 launches = {"f32": 0, "f64": 0}
-
-# the r the kernel is built for
-KERNEL_R = (4, 9, 16, 25)
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,8 +158,8 @@ def offsets_translate(Wo, coeffs, cosr, M, shift) -> torch.Tensor:
     m2 = m // 2
     sz, nq = coeffs.shape[0], coeffs.shape[-1]
     np_cheb = math.isqrt(r)
-    if r not in KERNEL_R:
-        raise ValueError(f"r = {r}: the kernel takes r in {KERNEL_R}")
+    if 27 * r * Wo.element_size() > 48 * 1024:
+        raise ValueError(f"r = {r}: a row of 27 r values exceeds 48 KB")
     if m < 4 or sz % m:
         raise ValueError(f"M {tuple(M.shape)} does not tile a {sz}^2 field")
     B = sz // m

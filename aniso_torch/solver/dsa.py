@@ -11,16 +11,16 @@ edge term (aniso.m:89-90).
 
 As in the JAX package, the diffusion operator lives on the solver's own
 sz x sz grid of squares, cell-centered finite-volume with harmonic-mean
-face coefficients: a 5-point stencil (the CUDA kernel K9d,
-kernels.diffusion), solved by Jacobi-preconditioned CG on the device.  The
-restriction is the quadrature-weighted square average and the prolongation
-constant per square.
+face coefficients: a 5-point stencil (K9d, kernels.diffusion), solved by
+Jacobi-preconditioned CG on the device.  The restriction is the
+quadrature-weighted square average and the prolongation constant per
+square.
 
-The CG's vector updates and dot products are torch operations, and its
-stopping test reads one scalar back per iteration (JAX runs the loop as one
-device while_loop; a device-side test or a CUDA graph of the iteration is
-later work).  The stopping rule is JAX's (dsa.py:126-128), so iteration
-counts and z agree.
+On the card the whole CG, stencil and stopping test included, is one launch
+of the CUDA kernel K9 (kernels.pcg), as JAX runs it as one device
+while_loop: nothing is read back inside a call, and the iteration count
+stays on the card until it is read.  The stopping rule is JAX's
+(dsa.py:126-128), so iteration counts and z agree.
 
 Multi-mode: the diffusion limit approximates the angular mean; the
 preconditioner corrects Fourier mode 0 and passes higher modes through.
@@ -43,12 +43,23 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import pcg as k9
 from ..kernels.diffusion import diffusion_apply
+from ..kernels.pcg import PcgResult
 
 
-class PcgResult(NamedTuple):
-    x: torch.Tensor
-    iterations: int
+class Stencil(NamedTuple):
+    """A z = sigma_a z - div(D grad z) on (sz, sz) cell values: the face
+    coefficients, absorption and cell width that K9d and K9 take; calling
+    it applies the stencil (K9d)."""
+    Dx: torch.Tensor
+    Dy: torch.Tensor
+    robin: torch.Tensor
+    sigma_a: torch.Tensor
+    dx: float
+
+    def __call__(self, z: torch.Tensor) -> torch.Tensor:
+        return diffusion_apply(z, *self)
 
 
 def cell_average(grid, nodal: torch.Tensor) -> torch.Tensor:
@@ -72,15 +83,13 @@ def _face_coeffs(D: torch.Tensor, dx: float):
 
 def make_diffusion_apply(D: torch.Tensor, sigma_a: torch.Tensor, dx: float):
     """A z = sigma_a z - div(D grad z), Robin z/2 + D dz/dn = 0, as a
-    5-point stencil on (sz, sz) cell values (K9d); returns (apply, the
+    5-point stencil on (sz, sz) cell values; returns (the Stencil, the
     Jacobi diagonal of A)."""
     Dx, Dy, robin = _face_coeffs(D, dx)
     sigma_a = (sigma_a + torch.zeros_like(D)).contiguous()
     inv_dx2 = 1.0 / (dx * dx)
     inv_dx = 1.0 / dx
-
-    def apply(z: torch.Tensor) -> torch.Tensor:
-        return diffusion_apply(z, Dx, Dy, robin, sigma_a, dx)
+    apply = Stencil(Dx, Dy, robin, sigma_a, dx)
 
     diag = sigma_a.clone()
     diag[:-1, :] += Dx * inv_dx2
@@ -94,32 +103,12 @@ def make_diffusion_apply(D: torch.Tensor, sigma_a: torch.Tensor, dx: float):
     return apply, diag
 
 
-def pcg(apply, diag, b, *, tol: float = 1e-8,
+def pcg(apply: Stencil, diag, b, *, tol: float = 1e-8,
         max_iter: int = 500) -> PcgResult:
-    """Jacobi-preconditioned CG from x = 0; stops when k = max_iter or
-    |r|^2 <= tol^2 |b|^2."""
-    inv_diag = 1.0 / diag
-    bnorm2 = float((b * b).sum())
-    bnorm2 = 1.0 if bnorm2 == 0.0 else bnorm2
-    stop = tol * tol * bnorm2
-
-    x = torch.zeros_like(b)
-    r = b
-    z = inv_diag * r
-    p = z
-    rz = (r * z).sum()
-    k = 0
-    while k < max_iter and float((r * r).sum()) > stop:
-        ap = apply(p)
-        alpha = rz / (p * ap).sum()
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = inv_diag * r
-        rz_new = (r * z).sum()
-        p = z + (rz_new / rz) * p
-        rz = rz_new
-        k += 1
-    return PcgResult(x, k)
+    """Jacobi-preconditioned CG from x = 0 on the stencil `apply`; stops
+    when k = max_iter or |r|^2 <= tol^2 |b|^2 (K9 on the card, its plain
+    version on the CPU)."""
+    return k9.pcg(b, diag, *apply, tol=tol, max_iter=max_iter)
 
 
 class DsaPreconditioner:
@@ -128,7 +117,8 @@ class DsaPreconditioner:
     h (N, sz, sz, nq) -> h with mode 0 replaced by h0 + prolong(theta z),
     where  (sigma_a - div D grad) z = sigma_s_bar * mean(h0).  It works in
     the solver's dtype on the solver's device.  `cg_iterations` lists the CG
-    iterations of every call.
+    iterations of every call: ints on the CPU, 0-d int32 tensors on the
+    card (read by int(), after the solve).
     """
 
     def __init__(self, solver, *, tol: float = 1e-8, max_iter: int = 500,

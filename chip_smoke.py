@@ -9,8 +9,8 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
 
   device   first the nvidia-smi name and power limit line as nvidia-smi
            prints it, then torch / CUDA versions and the TF32 pins
-  build    nvcc of K1, K2, K3, K9d and K7 and g++ of the host engine, in
-           parallel; per library the entry functions ptxas compiled, their
+  build    nvcc of K1, K2, K3, K9d, K9 and K7 and g++ of the host engine,
+           in parallel; per library the entry functions ptxas compiled, their
            most registers and any spill
   redesigned_kernels  ptxas's registers, spills and static shared memory
            of the r = 16 (np 4) instances of K1's all-modes kernel and of
@@ -32,12 +32,19 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
              64^2 deg 2 (dsa64): K1-D and K2-D f64 at D = 5, less than one
              chunk of modes, and the one-mode K2 f64 at 4 nodes per square;
            K9d (the DSA diffusion stencil) f32/f64 at 64^2, 128^2, 512^2;
+           K9 (the DSA CG, one launch a call) at dsa64's, demo128's and
+           dsa512's grids and dtypes on their medium and first right-hand
+           side, against pcg_plain (counts within 1, x within K9_TOL of
+           |x|), with its time per CG iteration and the barrier floor of
+           its loop; np 6 and 7: K3 f32/f64 at the np6 phase's fine levels,
+           K1-D f64 and K3-D f64 at demo128's twin shapes;
            K7 (the exact line integral, f64) at 16^2 (all 2304^2 pairs) and
            64^2 (512 target rows x all 36,864 sources): the dense-build
            form and the pair-list form, the basis at local coordinates on
            the compat-transformed coefficients and at global ones on the
            raw coefficients, with its operation bound on the FP64 CUDA
-           cores from the sub-segments of these pairs.
+           cores from the sub-segments of these pairs; its runtime-deg
+           instance at deg 9, 10 and 12 on 8^2 (128 target rows).
            Gates: max|kernel - plain| <= 1e-5 max|plain| in f32 (sums of
            432 to 729 terms, or K3's 27 atomic adds, in another order) and
            1e-12 max|plain| in f64
@@ -91,14 +98,26 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            package's on the CPU for the same command (DEMO_ITERS), fewer
            with DSA than without; the two x within 1e-8 relative; K1/K2/K3
            launches = launches per sweep x sweeps (N sweeps per forward);
-           K9d launches = the CG iterations counted; CG iterations per
-           preconditioner call and its share of the solve time
+           K9 launches = the preconditioner calls, K9d launches 0; CG
+           iterations per preconditioner call, its time per CG iteration
+           and its share of the solve time
   dsa64    benchmarks/dsa_bench.py's 64^2 cases in float64 on the card (deg
            2, tol 1e-8, sigma_s = 20): (N = 1, g = 0) and (N = 3, g = 0.9),
            plain and DSA: the JAX package's CPU iteration counts +- 1
            (DSA64_ITERS), DSA never above plain, true residual < 1e-7
            (< 1e-6 with DSA, which stops on the preconditioned residual),
-           the two x within 1e-6 relative
+           the two x within 1e-6 relative; K9 launches = the
+           preconditioner calls, K9d launches 0
+  dsa512   dsa64's first case (N = 1, g = 0, sigma_s = 20) on the 512^2
+           grid at deg 2, f32 inner GMRES(80) refined to tol 1e-8, plain
+           and with DsaPreconditioner(max_iter=4000): both converged with
+           a true f64 residual < 1e-8, fewer inner iterations with DSA, K9
+           launches = the preconditioner calls, K9d launches 0, no call at
+           max_iter; CG iterations per call, time per CG iteration, the
+           preconditioner's share of the solve
+  np6      np_cheb 6 (r = 36) on 32^2, deg 2, refined to tol 1e-8: the
+           twin's fine levels through K3's split-pair instance; converged
+           with a true f64 residual < 1e-8, launches per sweep x sweeps
   mm512    the multi-mode system at the north-star grid: 512^2, deg 3, N =
            5, g = 0.8, the bench sigma, its charge on mode 0, refined to
            tol 1e-8: forward(u) on a seeded u within 1e-5 of its maximum of
@@ -144,6 +163,13 @@ PEAK_FLOP_PER_S = {"f32": 67e12, "f64": 67e12}
 # for the tensor cores)
 PEAK_F64_CUDA_CORES = 33.5e12
 TOL_KERNEL = {"f32": 1e-5, "f64": 1e-12}
+# K9 against pcg_plain: |x - x_plain| / |x_plain|, and the iteration
+# counts within K9_COUNTS (f64: 1; f32: 15% of plain's, since at tol 1e-8
+# the loop stops on a residual below float32's resolution, where the two
+# orders of the dot products' sums part: 237 against 258 at 128^2 on an
+# NVIDIA H100)
+K9_TOL = {"f32": 1e-4, "f64": 1e-10}
+K9_COUNTS = {"f32": 0.15, "f64": 0.0}
 HOLD_CYCLES = 5_000_000          # GPU sleep before a kernel sample: ~2.5 ms
 SEED = 0
 DEVICE = "cuda"
@@ -229,14 +255,14 @@ class Kernels:
     def __init__(self, torch, flush):
         from aniso_torch.fmm.apply import parity_shift_table_np
         from aniso_torch.kernels import (
-            attenuation, diffusion, m2l, near, offsets,
+            attenuation, diffusion, m2l, near, offsets, pcg,
         )
 
         self.torch, self.flush = torch, flush
         self.m2l, self.near, self.offsets = m2l, near, offsets
-        self.diffusion, self.attenuation = diffusion, attenuation
+        self.diffusion, self.attenuation, self.pcg = diffusion, attenuation, pcg
         self.modules = (("k1", m2l), ("k2", near), ("k3", offsets),
-                        ("k9d", diffusion), ("k7", attenuation))
+                        ("k9d", diffusion), ("k9", pcg), ("k7", attenuation))
         self.shift = torch.as_tensor(parity_shift_table_np(),
                                      dtype=torch.int32, device=DEVICE)
 
@@ -302,23 +328,24 @@ class Kernels:
         out["bound_by"] = rows[-1]["bound_by"]
         return out
 
-    def k1(self, sz, inst, levels, D=None):
+    def k1(self, sz, inst, levels, D=None, np_cheb=4):
         """K1 at the given levels of a sz^2 solve: E in [0, 3).  D: the
         all-modes instance with D mode tables (None: one mode)."""
         torch, m2l = self.torch, self.m2l
+        r = np_cheb * np_cheb
         rows = []
         for level in levels:
             m2 = (1 << level) // 2
             seed = 1000 * level + sz
-            E = self.rand((4, m2, m2, R, 27 * R), inst, 0.0, 3.0, seed=seed)
-            cosr = self.rand(((D,) if D else ()) + (4, R, 27 * R), inst,
+            E = self.rand((4, m2, m2, r, 27 * r), inst, 0.0, 3.0, seed=seed)
+            cosr = self.rand(((D,) if D else ()) + (4, r, 27 * r), inst,
                              normal=True, seed=seed + 1)
-            M = self.rand((2 * m2, 2 * m2, R), inst, normal=True,
+            M = self.rand((2 * m2, 2 * m2, r), inst, normal=True,
                           seed=seed + 2)
             item = E.element_size()
             nd = D or 1
             row = self.compare(
-                f"K1 {inst} {sz}^2 level {level} D {D}", inst,
+                f"K1 {inst} {sz}^2 level {level} D {D} np {np_cheb}", inst,
                 lambda: m2l.m2l_translate(E, cosr, M, self.shift),
                 lambda: m2l.m2l_translate_plain(E, cosr, M, self.shift),
                 item * (E.numel() + cosr.numel() + (1 + nd) * M.numel())
@@ -368,7 +395,7 @@ class Kernels:
             rows.append({"variant": name, **row})
         return rows
 
-    def k3(self, sz, inst, levels, coeffs_np, D=None, deg=3):
+    def k3(self, sz, inst, levels, coeffs_np, D=None, deg=3, np_cheb=4):
         """K3 at the given fine levels of a sz^2 solve at degree deg, on the
         coefficient field of the problem solved there and its real weight
         blocks.  D: the all-modes instance."""
@@ -381,27 +408,28 @@ class Kernels:
         grid, tcfg = make_grid(sz, deg), tree_config(sz)
         coeffs = torch.as_tensor(coeffs_np, dtype=dtype, device=DEVICE)
         nd = D or 1
+        r = np_cheb * np_cheb
         rows = []
         for level in levels:
             m2 = (1 << level) // 2
             B = sz >> level
-            Wo = build_m2l_offsets_fine(grid, tcfg, level, 4, dtype,
+            Wo = build_m2l_offsets_fine(grid, tcfg, level, np_cheb, dtype,
                                         DEVICE)["Wo"]
             seed = 2000 * level + sz
-            cosr = self.rand(((D,) if D else ()) + (4, R, 27 * R), inst,
+            cosr = self.rand(((D,) if D else ()) + (4, r, 27 * r), inst,
                              normal=True, seed=seed)
-            M = self.rand((2 * m2, 2 * m2, R), inst, normal=True,
+            M = self.rand((2 * m2, 2 * m2, r), inst, normal=True,
                           seed=seed + 1)
             item = coeffs.element_size()
             row = self.compare(
-                f"K3 {inst} {sz}^2 level {level} D {D}", inst,
+                f"K3 {inst} {sz}^2 level {level} D {D} np {np_cheb}", inst,
                 lambda: offsets.offsets_translate(Wo, coeffs, cosr, M,
                                                   self.shift),
                 lambda: offsets.offsets_translate_plain(Wo, coeffs, cosr, M,
                                                         self.shift),
                 item * (Wo.numel() + coeffs.numel() + cosr.numel()
                         + (1 + nd) * M.numel()) + 4 * self.shift.numel(),
-                offsets.translate_flops(4, B, grid.nq, m2, nd),
+                offsets.translate_flops(np_cheb, B, grid.nq, m2, nd),
                 per_mode=D and (lambda: torch.stack(
                     [offsets.offsets_translate(Wo, coeffs, cosr[d], M,
                                                self.shift)
@@ -430,8 +458,66 @@ class Kernels:
             17 * z.numel())
         return [row]
 
-    def k7(self, sz, nrows, reps=5, plain_reps=None):
-        """K7 at sz^2, deg 3, on the oracle problem's sigma_t: the
+    def k9(self, sz, inst, max_iter=4000):
+        """K9, the whole CG of one preconditioner call, on a sz^2 grid of
+        cells with the DSA phases' medium (sigma_t 20.2, sigma_a 0.2, so D
+        = 0.5 / 20.2) and their first right-hand side (sigma_s times the
+        cell means of the Gaussian charge), at the preconditioner's tol
+        1e-8, against pcg_plain.  Gate: iteration
+        counts within 1 (f32: within K9_COUNTS of plain's), |x - x_plain|
+        <= K9_TOL |x_plain| (the same recurrences, each operation rounded
+        alike, over hundreds of iterations; only the dot products are
+        summed in another order).  Bound, for this run's k iterations: bytes (the six
+        input fields read once, x written once, p written and read once an
+        iteration) against operations (30 a cell an iteration: the stencil
+        17, three dot products 6, the four vector updates 7) at the type's
+        peak; beside it the loop's barrier floor (kernels.pcg.barrier_loop
+        for the same k on the same grid)."""
+        from aniso_torch.solver.dsa import make_diffusion_apply
+
+        torch, pcg = self.torch, self.pcg
+        dtype = torch.float32 if inst == "f32" else torch.float64
+        full = torch.full((sz, sz), 0.5 / 20.2, dtype=dtype, device=DEVICE)
+        st, diag = make_diffusion_apply(full, 0.2 + 0 * full, 1.0 / sz)
+        c = (torch.arange(sz, dtype=dtype, device=DEVICE) + 0.5) / sz - 0.5
+        b = 20.0 * torch.exp(-25 * (c[:, None] ** 2 + c[None, :] ** 2))
+        args = (b, diag, *st)
+
+        def run():
+            return pcg.pcg(*args, tol=1e-8, max_iter=max_iter)
+
+        def plain():
+            return pcg.pcg_plain(*args, tol=1e-8, max_iter=max_iter)
+
+        got, want = run(), plain()
+        k, k_plain = int(got.iterations), want.iterations
+        err = float(torch.linalg.vector_norm(got.x - want.x)
+                    / torch.linalg.vector_norm(want.x))
+        what = f"K9 {inst} {sz}^2"
+        check(abs(k - k_plain) <= max(1, K9_COUNTS[inst] * k_plain),
+              f"{what}: {k} iterations, plain {k_plain}")
+        check(0 < k < max_iter, f"{what}: {k} iterations of {max_iter}")
+        check(err <= K9_TOL[inst], f"{what}: x differs by {err}")
+        n, item = sz * sz, b.element_size()
+        nbytes = item * (7 * n + 2 * n * k)
+        flops = 30 * n * k
+        bms, bby = bound_ms(nbytes, flops, inst)
+        ms = event_ms(torch, run, reps=7, flush=self.flush)
+        floor = event_ms(torch, lambda: pcg.barrier_loop(n, k, dtype,
+                                                         DEVICE),
+                         reps=7, flush=self.flush)
+        return [{"max_abs_err": err, "max_abs_err_is": "relative 2-norm",
+                 "iterations": k, "iterations_plain": k_plain,
+                 "max_iter": max_iter, "ms": ms,
+                 "ms_per_cg_iteration": ms / k,
+                 "plain_ms": event_ms(torch, plain, reps=3, flush=self.flush,
+                                      warmup=1),
+                 "bytes": nbytes, "flops": flops, "bound_ms": bms,
+                 "bound_by": bby, "barrier_floor_ms": floor,
+                 "barrier_floor_ms_per_iteration": floor / k}]
+
+    def k7(self, sz, nrows, reps=5, plain_reps=None, deg=3):
+        """K7 at sz^2, degree deg, on the oracle problem's sigma_t: the
         dense-build form for target rows 0..nrows-1 against every source,
         one mode (D = 1, as oracle16_dense and dense64 build), against its
         plain version; then the pair-list form on the same pairs.  Variant
@@ -446,7 +532,7 @@ class Kernels:
         from aniso_torch.ops.compat import to_local_equivalent
         from aniso_torch.ops.fields import evaluate_at_nodes_np
 
-        grid = make_grid(sz, 3)
+        grid = make_grid(sz, deg)
         n = grid.n_nodes
         raw = project_field(grid, bench_sigma(grid) + 0.2)
         local = to_local_equivalent(grid, raw)
@@ -464,9 +550,9 @@ class Kernels:
         rows = []
         for name, compat, cf in (("m0", False, dev(local)),
                                  ("compat", True, dev(raw))):
-            flops = nsub * k7.flops_per_subsegment(3, compat)
+            flops = nsub * k7.flops_per_subsegment(deg, compat)
             row = self.compare(
-                f"K7 {sz}^2 rows {nrows} {name}", "f64",
+                f"K7 {sz}^2 deg {deg} rows {nrows} {name}", "f64",
                 lambda: k7.dense_smooth_rows(grid, cf, pts, w, diag, 0, nrows,
                                              [0], compat),
                 lambda: k7.dense_smooth_rows_plain(grid, cf, pts, w, diag, 0,
@@ -493,12 +579,12 @@ class Kernels:
         return rows
 
 
-def bench_coeffs(sz):
+def bench_coeffs(sz, deg=3):
     """The bench sigma_t field's Legendre coefficients at sz^2 (compat
     off): what K3 reads on that grid."""
     from aniso_torch.core.geometry import make_grid, project_field
 
-    grid = make_grid(sz, 3)
+    grid = make_grid(sz, deg)
     return project_field(grid, bench_sigma(grid) + 0.2)
 
 
@@ -741,7 +827,9 @@ def fields_from_seed(grid, N, seed=SEED):
 
 
 def dsa_stats(pre, timed, solve_s):
-    calls = pre.cg_iterations
+    """The preconditioner's calls, their CG iterations (read from the card
+    after the solve) and its time."""
+    calls = [int(k) for k in pre.cg_iterations]
     return {"precond_calls": len(calls), "cg_iterations_total": sum(calls),
             "cg_iterations_per_call": sum(calls) / max(len(calls), 1),
             "cg_iterations_max": max(calls, default=0),
@@ -1227,7 +1315,7 @@ def run_demo128(torch, kern):
             "k1_f32": n_levels * fast, "k2_f32": fast,
             "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
             "k3_f64": n_fine * sweeps,
-            "k9d_f32": run.get("cg_iterations_total", 0)})
+            "k9_f32": run.get("precond_calls", 0)})
     check(res_dsa.iterations < runs["plain"][0].iterations,
           "demo128: DSA did not cut the iterations")
     check(run_dsa["cg_iterations_total"] > 0, "demo128: no CG iteration")
@@ -1287,7 +1375,7 @@ def run_dsa64(torch, kern):
             check_launches(what, run, {
                 "k1_f64": n_levels * run["matvecs"],
                 "k2_f64": run["matvecs"],
-                "k9d_f64": run.get("cg_iterations_total", 0)})
+                "k9_f64": run.get("precond_calls", 0)})
         check(out["dsa"]["iterations"] <= out["plain"]["iterations"],
               f"dsa64 N={N}: DSA above plain")
         check(out["dsa"]["cg_iterations_total"] > 0,
@@ -1297,6 +1385,106 @@ def run_dsa64(torch, kern):
               f"{out['x_rel_diff_dsa_vs_plain']}")
         outs.append(out)
     return outs
+
+
+def run_dsa512(torch, kern):
+    """dsa64's first case (N = 1, g = 0, sigma_s = 20, sigma_a = 0.2, the
+    mode-0 Gaussian) on the north star's 512^2 grid at deg 2, f32 inner
+    GMRES(80) refined to tol 1e-8: plain, then with DSA, whose CG may take
+    up to 4000 iterations a call; the first DSA run at 512^2 and the first
+    K9 grid across every SM."""
+    from aniso_torch.solver.dsa import DsaPreconditioner
+
+    torch.cuda.reset_peak_memory_stats()
+    s = make_solver(torch, NORTH, 0.0, False, tol=1e-8, refine=True,
+                    quad_rule=2)
+    grid = s.grid
+    sig_s = np.full_like(grid.nodes_x, 20.0)
+    t0 = time.perf_counter()
+    s.set_coeff(sig_s, sig_s + 0.2)
+    torch.cuda.synchronize()
+    out = {"phase": "dsa512", "sz": NORTH, "deg": 2, "modes": 1, "g": 0.0,
+           "sigma_s": 20.0, "sigma_a": 0.2, "tol": 1e-8, "cg_max_iter": 4000,
+           "set_coeff_s": time.perf_counter() - t0}
+    q = mode0_charge(grid, 1)
+    pre = DsaPreconditioner(s, max_iter=4000)
+    runs = {}
+    for name in ("plain", "dsa"):
+        # a first solve for the one-time costs, then the counted one, whose
+        # preconditioner calls are timed and whose CG iterations counted
+        t0 = time.perf_counter()
+        s.solve(q, precond=pre if name == "dsa" else None)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        pre.cg_iterations.clear()
+        timed = TimedPrecond(torch, pre) if name == "dsa" else None
+        res, run = counted_solve(torch, kern, s, q, precond=timed,
+                                 warm=False)
+        run.update({
+            "solve_first_s": first,
+            "converged": res.converged, "refinements": res.refinements,
+            "inner_iterations": res.iterations,
+            "inner_iterations_per_round": res.phases["inner_iters"],
+            "true_f64_residual": true_residual64(torch, s, q, res.x),
+            "finite": bool(torch.isfinite(res.x).all()),
+        })
+        if timed is not None:
+            run.update(dsa_stats(pre, timed, run["solve_s"]))
+        runs[name] = res
+        out[name] = run
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    n_levels = s._tcfg.leaf_level - 1
+    n_fine = len(fine_levels(s._tcfg))
+    for name, res in runs.items():
+        run, what = out[name], f"dsa512 {name}"
+        check(run["finite"] and tuple(res.x.shape) == (1, NORTH, NORTH, 4),
+              f"{what}: bad x")
+        check(res.converged and run["true_f64_residual"] < 1e-8,
+              f"{what}: true f64 residual {run['true_f64_residual']}")
+        sweeps, fast = run["twin_sweeps"], run["matvecs"]
+        check_launches(what, run, {
+            "k1_f32": n_levels * fast, "k2_f32": fast,
+            "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
+            "k3_f64": n_fine * sweeps,
+            "k9_f32": run.get("precond_calls", 0)})
+    dsa = out["dsa"]
+    check(runs["dsa"].iterations < runs["plain"].iterations,
+          "dsa512: DSA did not cut the inner iterations")
+    check(dsa["precond_calls"] > 0 and dsa["cg_iterations_max"] < 4000,
+          f"dsa512: a CG call reached max_iter ({dsa['cg_iterations_max']})")
+    return out
+
+
+def run_np6(torch, kern):
+    """np_cheb = 6 (r = 36) with refine=True on 32^2, deg 2, f32 inner to
+    tol 1e-8: the twin's fine levels through K3's r = 36 instance (the
+    split pair axis), its coarse ones through K1 f64; converged with a true
+    f64 residual below the tol."""
+    s = make_solver(torch, 32, 0.5, False, tol=1e-8, refine=True,
+                    quad_rule=2, sing_rule=6, np_cheb=6)
+    t0 = time.perf_counter()
+    timed_set_coeff(torch, s)
+    out = {"phase": "np6", "sz": 32, "deg": 2, "np_cheb": 6, "g": 0.5,
+           "tol": 1e-8, "set_coeff_s": time.perf_counter() - t0}
+    q = bench_charge(s.grid)
+    res, run = counted_solve(torch, kern, s, q)
+    out.update(run)
+    out.update({"converged": res.converged, "refinements": res.refinements,
+                "inner_iterations": res.iterations,
+                "true_f64_residual": true_residual64(torch, s, q, res.x)})
+    emit(out)
+    check(res.converged and out["true_f64_residual"] < 1e-8,
+          f"np6: true f64 residual {out['true_f64_residual']}")
+    n_levels = s._tcfg.leaf_level - 1
+    n_fine = len(fine_levels(s._tcfg))
+    sweeps, fast = run["twin_sweeps"], run["matvecs"]
+    check(n_fine > 0 and sweeps > 0, "np6: no per-offset twin sweep")
+    check_launches("np6", out, {
+        "k1_f32": n_levels * fast, "k2_f32": fast,
+        "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
+        "k3_f64": n_fine * sweeps})
+    return out
 
 
 def composed_forward(torch, s, u, twin):
@@ -1430,6 +1618,14 @@ def ptxas_usage(log, names):
     return out
 
 
+def k9_extra(row):
+    """K9's own numbers for the kernels line: its call's CG iterations,
+    time per iteration and the barrier floor beside them."""
+    return {k: row[k] for k in ("iterations", "ms_per_cg_iteration",
+                                "barrier_floor_ms",
+                                "barrier_floor_ms_per_iteration")}
+
+
 def kernel_line(name, source, replaces, launches, rows, **extra):
     t = Kernels.total(rows)
     return {"name": name, "route": "cuda", "source": source,
@@ -1542,12 +1738,33 @@ def main():
     for sz in (DSA_SZ, DEMO, NORTH):
         for inst in ("f32", "f64"):
             chk[sz, f"k9d_{inst}"] = kern.k9d(sz, inst)
+    # K9, one preconditioner call, at the grids and dtypes of dsa64 (f64),
+    # demo128 and dsa512 (f32)
+    for sz, inst in ((DSA_SZ, "f64"), (DEMO, "f32"), (NORTH, "f32")):
+        chk[sz, f"k9_{inst}"] = kern.k9(sz, inst)
     # K7 at oracle16_dense's shapes (all 2304^2 pairs: its whole build) and
-    # at dense64's (512 target rows x all 36,864 sources)
+    # at dense64's (512 target rows x all 36,864 sources); its runtime-deg
+    # instance at deg 9, 10 and 12 (8^2, 128 target rows x every source)
     chk[16, "k7"] = kern.k7(16, 16 * 16 * NQ)
     chk[64, "k7"] = kern.k7(64, 512, plain_reps=1)
+    for deg in (9, 10, 12):
+        chk[8, f"k7_deg{deg}"] = kern.k7(8, 128, plain_reps=1, deg=deg)
+    # np 6 and 7: K3 at the np6 phase's fine levels (32^2, deg 2: the split
+    # pair axis, r = 36 and 49), K1-D f64 and K3-D f64 at demo128's twin
+    # shapes (D = 9; K1-D f64 one box a lane)
+    cf32 = bench_coeffs(32, deg=2)
+    for n in (6, 7):
+        for inst in ("f32", "f64"):
+            chk[32, f"k3_{inst}_deg2_np{n}"] = kern.k3(
+                32, inst, [4, 5], cf32, deg=2, np_cheb=n)
+        chk[DEMO, f"k1d_f64_deg1_np{n}"] = kern.k1(DEMO, "f64", lv[DEMO][:-2],
+                                                   D=D, np_cheb=n)
+        chk[DEMO, f"k3d_f64_deg1_np{n}"] = kern.k3(
+            DEMO, "f64", lv[DEMO][-2:], demo_coeffs(DEMO), D=D, deg=1,
+            np_cheb=n)
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    for sz in sorted({16, 64, 128, DSA_SZ, DEMO, NORTH}):
+    for sz in sorted({8, 16, 32, 64, 128, DSA_SZ, DEMO, NORTH}):
         emit({"phase": "kernels_vs_plain", "sz": sz,
               **{k: rows for (z, k), rows in chk.items() if z == sz}})
 
@@ -1570,6 +1787,10 @@ def main():
     demo = run_demo128(torch, kern)
     torch.cuda.empty_cache()
     dsa64 = run_dsa64(torch, kern)
+    torch.cuda.empty_cache()
+    dsa512 = run_dsa512(torch, kern)
+    torch.cuda.empty_cache()
+    np6 = run_np6(torch, kern)
     torch.cuda.empty_cache()
     mm = run_mm512(torch, kern)
     torch.cuda.empty_cache()
@@ -1609,6 +1830,12 @@ def main():
                     "aniso_tpu/fmm/apply.py:440", rl["k3_f64"],
                     chk[NORTH, "k3_f64"],
                     shapes="refined512 twin, fine levels 8-9",
+                    launches_np6=np6["launches"]["k3_f64"],
+                    ms_np6=Kernels.total(chk[32, "k3_f64_deg2_np6"])["ms"],
+                    ms_np7=Kernels.total(chk[32, "k3_f64_deg2_np7"])["ms"],
+                    bound_ms_np6=Kernels.total(
+                        chk[32, "k3_f64_deg2_np6"])["bound_ms"],
+                    shapes_np6="np6 twin 32^2, deg 2, fine levels 4-5",
                     max_abs_err_all_sizes=worst("k3_f64")),
         kernel_line("offsets_translate_f32",
                     "aniso_torch/csrc/offsets_translate.cu",
@@ -1638,6 +1865,8 @@ def main():
                                        for o in dsa64 if o["modes"] > 1
                                        for k in ("plain", "dsa")),
                     ms_dsa64=Kernels.total(chk[DSA_SZ, "k1d_f64_deg2"])["ms"],
+                    ms_np6=Kernels.total(chk[DEMO, "k1d_f64_deg1_np6"])["ms"],
+                    ms_np7=Kernels.total(chk[DEMO, "k1d_f64_deg1_np7"])["ms"],
                     max_abs_err_all_sizes=worst("k1d_f64")),
         kernel_line("near_contract_modes", "aniso_torch/csrc/near_contract.cu",
                     "aniso_tpu/fmm/apply.py:762", dl["k2_f32"],
@@ -1665,11 +1894,32 @@ def main():
                     shapes=f"demo128 twin, deg 1, D = {D}, fine levels 6-7",
                     launches_mm512=mm["launches"]["k3_f64"],
                     ms_mm512=Kernels.total(chk[NORTH, "k3d_f64_deg3"])["ms"],
+                    ms_np6=Kernels.total(chk[DEMO, "k3d_f64_deg1_np6"])["ms"],
+                    ms_np7=Kernels.total(chk[DEMO, "k3d_f64_deg1_np7"])["ms"],
                     max_abs_err_all_sizes=worst("k3d_f64")),
+        # K9: one launch per preconditioner call (times of one call at the
+        # phase's grid: its CG iterations, the barrier floor beside);
+        # K9d's stencil runs inside it, so K9d is launched on no path
+        kernel_line("pcg", "aniso_torch/csrc/pcg.cu",
+                    "aniso_tpu/solver/dsa.py:114",
+                    demo["dsa"]["launches"]["k9_f32"], chk[DEMO, "k9_f32"],
+                    id="K9", shapes=f"demo128 DSA, {DEMO}^2 cells, one call",
+                    **k9_extra(chk[DEMO, "k9_f32"][0]),
+                    launches_dsa512=dsa512["dsa"]["launches"]["k9_f32"],
+                    dsa512=k9_extra(chk[NORTH, "k9_f32"][0]),
+                    max_abs_err_all_sizes=worst("k9_f32")),
+        kernel_line("pcg_f64", "aniso_torch/csrc/pcg.cu",
+                    "aniso_tpu/solver/dsa.py:114",
+                    sum(o["dsa"]["launches"]["k9_f64"] for o in dsa64),
+                    chk[DSA_SZ, "k9_f64"], id="K9 f64",
+                    shapes=f"dsa64 DSA, {DSA_SZ}^2 cells, one call",
+                    **k9_extra(chk[DSA_SZ, "k9_f64"][0]),
+                    max_abs_err_all_sizes=worst("k9_f64")),
         kernel_line("diffusion_apply", "aniso_torch/csrc/diffusion_apply.cu",
                     "aniso_tpu/solver/dsa.py:85",
                     demo["dsa"]["launches"]["k9d_f32"], chk[DEMO, "k9d_f32"],
                     id="K9d", shapes=f"demo128 DSA, {DEMO}^2 cells",
+                    on_main_path=False,
                     max_abs_err_all_sizes=worst("k9d_f32")),
         kernel_line("diffusion_apply_f64",
                     "aniso_torch/csrc/diffusion_apply.cu",
@@ -1677,6 +1927,7 @@ def main():
                     sum(o["dsa"]["launches"]["k9d_f64"] for o in dsa64),
                     chk[DSA_SZ, "k9d_f64"], id="K9d f64",
                     shapes=f"dsa64 DSA, {DSA_SZ}^2 cells",
+                    on_main_path=False,
                     max_abs_err_all_sizes=worst("k9d_f64")),
         # K7: times of one launch at dense64's shapes (512 rows; its
         # set_coeff launches 82 of up to 455 rows), the bound on the FP64
@@ -1690,6 +1941,10 @@ def main():
                     plain_ms_16=chk[16, "k7"][0]["plain_ms"],
                     bound_ms_16=chk[16, "k7"][0]["bound_ms"],
                     pairs_ms=chk[64, "k7"][0]["pairs_ms"],
+                    **{f"ms_8_deg{d}": chk[8, f"k7_deg{d}"][0]["ms"]
+                       for d in (9, 10, 12)},
+                    **{f"bound_ms_8_deg{d}": chk[8, f"k7_deg{d}"][0]["bound_ms"]
+                       for d in (9, 10, 12)},
                     max_abs_err_all_sizes=worst("k7")),
     ]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",

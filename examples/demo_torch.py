@@ -117,8 +117,9 @@ def main(argv=None) -> int:
             "device": device,
         }
         if precond is not None:
-            rec["cg_iterations_per_call"] = (
-                sum(precond.cg_iterations) / max(len(precond.cg_iterations), 1))
+            # counts stay on the card until read (K9 reads nothing back)
+            calls = [int(k) for k in precond.cg_iterations]
+            rec["cg_iterations_per_call"] = sum(calls) / max(len(calls), 1)
         # append-or-replace into a list so the plain and --dsa runs
         # accumulate in one artifact
         recs = []

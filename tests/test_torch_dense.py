@@ -286,6 +286,31 @@ def test_dense_solve_matches_jax(N, compat):
     assert float(true_res) < 1e-11
 
 
+def test_dense_operator_deg9_matches_jax():
+    """deg 9, past K7's compiled degrees (1-8; the card takes it in K7's
+    runtime-deg instance): the port's dense smooth matrix (K7's plain
+    version) at 2^2 against JAX's, built with its pure line integral, to
+    1e-13, and the dense operator on a seeded field to 1e-10.  The operator
+    also holds the real (geometry) matrix, which at deg 9 came out 2.7e-11
+    from JAX's in 3 of 8 fresh processes of the same code on a loaded
+    8-core CPU host, and 1.2e-16 in the others.  (JAX's pure line integral holds a
+    chunk of 256 rows' pairs x crossings x Gauss points x deg^2 basis
+    values at once: 17 GB at 4^2, 2.4 GB here.)"""
+    kw = dict(domain_size=2, quad_rule=9, kernel_size=1, g=0.8,
+              sing_rule=10, np_cheb=4, dtype="float64")
+    js = JSolver(JConfig(**kw), backend="dense")
+    ts = TransportSolver(SolverConfig(**kw), backend="dense", device="cpu")
+    with pure_jax():
+        js.set_coeff(*sigma(js.grid))
+    ts.set_coeff(*sigma(ts.grid))
+    assert ts._k_smooth.shape == (1, 324, 324)
+    assert rel(ts._k_smooth[0].numpy(), js._k_smooth[0]) < 1e-13
+    u = np.random.default_rng(9).standard_normal(ts.grid.nodes_x.shape)
+    got = ts.apply_mode(0, u)
+    err = rel(got.numpy(), js.apply_mode(0, jnp.asarray(u)))
+    assert err < 1e-10, err
+
+
 @pytest.mark.parametrize("sz", [8, 16])
 def test_fmm_matches_dense(sz):
     """The counterpart of tests/test_fmm.py::test_fmm_matches_dense: FMM

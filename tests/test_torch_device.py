@@ -24,7 +24,7 @@ from aniso_torch.core.geometry import make_grid, project_field
 from aniso_torch.fmm.smooth import build_m2l_offsets_fine
 from aniso_torch.fmm.structure import tree_config
 from aniso_torch.kernels import (
-    _cuda, attenuation, diffusion, m2l, near, offsets,
+    _cuda, attenuation, diffusion, m2l, near, offsets, pcg,
 )
 from aniso_torch.ops.attenuation import make_line_integral
 from aniso_torch.solver.dsa import _face_coeffs
@@ -55,7 +55,7 @@ def test_port_imports_neither_jax_nor_aniso_tpu():
         "import aniso_torch.solver.refine, aniso_torch.solver.dsa\n"
         "import aniso_torch.kernels.diffusion, chip_smoke\n"
         "import aniso_torch.cli, aniso_torch.ops.dense, aniso_torch.utils\n"
-        "import aniso_torch.kernels.attenuation\n"
+        "import aniso_torch.kernels.attenuation, aniso_torch.kernels.pcg\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m.startswith('aniso_tpu')]\n"
         "assert not bad, bad\n"
@@ -149,7 +149,7 @@ def test_wrappers_refuse_other_dtypes(kernel):
 
 
 @pytest.mark.parametrize("kernel", [m2l, near, offsets, diffusion,
-                                    attenuation])
+                                    attenuation, pcg])
 def test_kernel_load_raises_without_cuda(no_cuda, kernel):
     with pytest.raises(RuntimeError):
         _cuda.load(kernel.SOURCE, next(iter(kernel.SYMBOLS.values())), ())
@@ -261,18 +261,14 @@ def test_m2l_all_modes_kernel_matches_plain_on_card(cuda_device, dtype, D,
                                                     m2, np_cheb):
     """K1 with the mode axis (D = 11 and 13 take two chunks of modes, the
     last of 2 and 4; m2 = 2, 3 and 5 leave the last tile of boxes ragged:
-    16 boxes a tile in f32, 8 in f64 and for np 6-7; coarse planes split
-    their target points over two blocks; r = 9, 25 and 49 rows are not
-    whole 16-byte vectors; float64 refuses np 6-7) against its plain
+    16 boxes a tile in f32, 8 in f64 and in f32 for np 6-7, 4 in f64 for
+    np 6-7; coarse planes split their target points over two blocks; r =
+    9, 25 and 49 rows are not whole 16-byte vectors) against its plain
     version and against D launches of the one-mode instance."""
     r = np_cheb * np_cheb
     E, _, M, shift = _k1_inputs(cuda_device, dtype, m2=m2, r=r)
     cosr = _mode_tables((4, r, 27 * r), D, cuda_device, dtype, 11)
     inst = _cuda.INSTANCES[dtype]
-    if D > 1 and r not in m2l.MODES_R[inst]:
-        with pytest.raises(ValueError):
-            m2l.m2l_translate(E, cosr, M, shift)
-        return
     n0 = m2l.launches[inst]
     got = m2l.m2l_translate(E, cosr, M, shift)
     assert m2l.launches[inst] == n0 + 1
@@ -360,6 +356,72 @@ def test_diffusion_kernel_matches_plain_on_card(cuda_device, dtype, sz):
           dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("np_cheb", [6, 7, 8])
+@pytest.mark.parametrize("D", [1, 5])
+def test_offsets_kernel_np6_to_8_matches_plain_on_card(cuda_device, dtype,
+                                                       np_cheb, D):
+    """K3 at np 6-8 (r^2 = 1296, 2401 and 4096 pairs cut into chunks of
+    192 across blocks: the compile-time r = 36 and 49 instances and the
+    runtime-r one) at B = 2 (16^2, level 3, m2 = 4) and B = 1 (32^2, level
+    5, m2 = 16), one mode and D = 5, against its plain version."""
+    r = np_cheb * np_cheb
+    inst = _cuda.INSTANCES[dtype]
+    for sz, level in ((16, 3), (32, 5)):
+        Wo, coeffs, _, M, shift = _k3_inputs(cuda_device, dtype, sz, level,
+                                             np_cheb)
+        cosr = _mode_tables((4, r, 27 * r), D, cuda_device, dtype, 16)
+        if D == 1:
+            cosr = cosr[0]
+        n0 = offsets.launches[inst]
+        got = offsets.offsets_translate(Wo, coeffs, cosr, M, shift)
+        assert offsets.launches[inst] == n0 + 1
+        _gate(got, offsets.offsets_translate_plain(Wo, coeffs, cosr, M,
+                                                   shift), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("np_cheb", [6, 7, 8])
+@pytest.mark.parametrize("D,m2", [(3, 5), (9, 12), (13, 3)])
+def test_m2l_all_modes_f64_np6_to_8_matches_plain_on_card(cuda_device,
+                                                          np_cheb, D, m2):
+    """K1-D in float64 at np 6-7 (one box a lane: the tile's source rows in
+    48 KB) and np 8 (the runtime-r instance) against its plain version and
+    D one-mode launches."""
+    r = np_cheb * np_cheb
+    E, _, M, shift = _k1_inputs(cuda_device, torch.float64, m2=m2, r=r)
+    cosr = _mode_tables((4, r, 27 * r), D, cuda_device, torch.float64, 17)
+    n0 = m2l.launches["f64"]
+    got = m2l.m2l_translate(E, cosr, M, shift)
+    assert m2l.launches["f64"] == n0 + 1
+    _gate(got, m2l.m2l_translate_plain(E, cosr, M, shift), torch.float64)
+    each = torch.stack([m2l.m2l_translate(E, cosr[d], M, shift)
+                        for d in range(D)])
+    _gate(got, each, torch.float64)
+
+
+@pytest.mark.cuda
+def test_refined_solve_np6_completes_on_card(cuda_device):
+    """32^2, np 6, refine=True: every twin sweep runs K3 at r = 36 and K1
+    f64, and the solve converges to its tol on the true f64 residual."""
+    cfg = SolverConfig(domain_size=32, quad_rule=2, kernel_size=1, g=0.5,
+                       sing_rule=6, np_cheb=6, dtype="float32", tol=1e-8,
+                       refine=True, restart=80, max_iter=400)
+    s = TransportSolver(cfg, backend="fmm", device=cuda_device)
+    g = s.grid
+    sig = 8 * (1 - np.cos(2 * np.pi * g.nodes_x))
+    s.set_coeff(sig, sig + 0.2)
+    q = np.exp(-25 * ((g.nodes_x - 0.5) ** 2 + (g.nodes_y - 0.5) ** 2))
+    n0 = offsets.launches["f64"]
+    res = s.solve(q)
+    assert res.converged and offsets.launches["f64"] > n0
+    b = s._rhs64(q)
+    true = torch.linalg.vector_norm(b - s._forward64(res.x)) \
+        / torch.linalg.vector_norm(b)
+    assert float(true) < 1e-8
+
+
 def _k7_pairs(rng, sz, n):
     """Random pairs, then axis-aligned ones, pairs through grid corners,
     endpoints on grid lines and zero-length ones."""
@@ -421,3 +483,35 @@ def test_dense_smooth_kernel_matches_plain_on_card(cuda_device, compat,
                                                200, modes, compat)
     assert got.shape == (len(modes), 200, g.n_nodes)
     _gate(got, want, torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [9, 10, 12])
+def test_line_integral_kernel_high_deg_matches_plain_on_card(cuda_device,
+                                                             deg):
+    """K7's runtime-deg instance (deg > 8) on an 8^2 grid: the pair-list
+    form against the plain line integral, and the dense-build form of rows
+    0..199 against its plain version, both bases."""
+    rng = np.random.default_rng(deg)
+    g = make_grid(8, deg)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=cuda_device)
+
+    coeffs = t(rng.standard_normal((8, 8, deg * deg)) + 3.0)
+    p0, p1 = (t(p) for p in _k7_pairs(rng, 8, 3000))
+    pts, w = t(g.flat_nodes()).contiguous(), t(g.weights.reshape(-1))
+    diag = t(rng.random(g.n_nodes))
+    for compat in (False, True):
+        n0 = attenuation.launches["f64"]
+        got = attenuation.line_integral_pairs(g, coeffs, p0, p1, compat)
+        assert attenuation.launches["f64"] == n0 + 1
+        want = make_line_integral(g, 8, compat)(coeffs, p0[:, 0], p0[:, 1],
+                                                p1[:, 0], p1[:, 1])
+        _gate(got, want, torch.float64)
+        got = attenuation.dense_smooth_rows(g, coeffs, pts, w, diag, 0, 200,
+                                            [0, 1], compat)
+        want = attenuation.dense_smooth_rows_plain(g, coeffs, pts, w, diag,
+                                                   0, 200, [0, 1], compat)
+        _gate(got, want, torch.float64)

@@ -27,6 +27,7 @@ from aniso_torch.convert import (
     _m2l_level_from_jax, caches_from_jax_numpy, mode_stack_from_jax_numpy,
 )
 from aniso_torch.core.config import SolverConfig
+from aniso_torch.core.geometry import project_field
 from aniso_torch.fmm import apply as t_apply
 from aniso_torch.fmm import smooth as t_smooth
 from aniso_torch.kernels.m2l import m2l_translate_plain
@@ -210,6 +211,45 @@ def test_offsets_all_modes_plain_matches_jax_multi(level):
         torch.as_tensor(M), ts._fmm_static["shift"])
     assert got.shape == (5, m, m, 16) and len(want) == 5
     for d in range(5):
+        assert rel(got[d].numpy(), np.asarray(want[d])) < 1e-12
+
+
+@pytest.mark.parametrize("level", [3, 4])
+def test_np6_translates_plain_match_jax(level):
+    """np 6 (r = 36), past the compiled all-modes r of earlier kernels:
+    K1's plain version with the mode axis against JAX's _m2l_translate per
+    mode on JAX's dense E of the level, and K3's plain version against
+    JAX's _m2l_translate_offsets_multi on JAX's weight blocks, both carried
+    across by convert (16^2, deg 2, N = 2: 3 modes; B = 2 and 1)."""
+    kw = dict(domain_size=16, quad_rule=2, kernel_size=2, g=0.8,
+              sing_rule=6, np_cheb=6, dtype="float64")
+    js = JSolver(JConfig(**kw), backend="fmm")
+    ts = TransportSolver(SolverConfig(**kw), backend="fmm", device="cpu")
+    coeffs = project_field(ts.grid, sigma(ts.grid)[1])
+    m, r = 1 << level, 36
+    M = np.random.default_rng(30 + level).standard_normal((m, m, r))
+    gsel = j_apply._vlist_gather(jnp.asarray(M))
+    shift = ts._fmm_static["shift"]
+    cosr = ts._mode_stack["m2l_cosr"][level]
+    assert cosr.shape == (3, 4, r, 27 * r)
+    E_j = j_smooth.build_m2l_E_fine(js.grid, js._tcfg, level, 6,
+                                    jnp.asarray(coeffs), jnp.float64)
+    E = torch.tensor(_m2l_level_from_jax(E_j))
+    got = m2l_translate_plain(E, cosr, torch.as_tensor(M), shift)
+    assert got.shape == (3, m, m, r)
+    for d in range(3):
+        want = j_apply._m2l_translate(
+            E_j, js._mode_statics[d]["m2l_cosr"][level], gsel)
+        assert rel(got[d].numpy(), np.asarray(want)) < 1e-12
+    Wo_j = j_smooth.build_m2l_offsets_fine(js.grid, js._tcfg, level, 6,
+                                           jnp.float64)
+    got = offsets_translate_plain(
+        torch.tensor(_m2l_level_from_jax(Wo_j)["Wo"]),
+        torch.as_tensor(coeffs), cosr, torch.as_tensor(M), shift)
+    want = j_apply._m2l_translate_offsets_multi(
+        {"Wo": Wo_j["Wo"], "coeffs": jnp.asarray(coeffs)},
+        [ms["m2l_cosr"][level] for ms in js._mode_statics], gsel)
+    for d in range(3):
         assert rel(got[d].numpy(), np.asarray(want[d])) < 1e-12
 
 
