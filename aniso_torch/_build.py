@@ -2,9 +2,10 @@
 
 Two kinds, both with a plain C interface loaded by ctypes:
 
-  * CUDA kernels (K1 m2l_translate.cu, K2 near_contract.cu, K3
-    offsets_translate.cu, K9d diffusion_apply.cu, K9 pcg.cu, each with a
-    float32 and a float64 entry; K7 line_integral.cu, float64): one nvcc
+  * CUDA kernels (K1 and K1-S m2l_translate.cu, K2 and K2-S
+    near_contract.cu, K3 offsets_translate.cu, K9d diffusion_apply.cu, K9
+    pcg.cu, K10 halo_fill.cu, each with a float32 and a float64 entry; K7
+    line_integral.cu, float64): one nvcc
     per source, ``-gencode arch=compute_90a,code=sm_90a -O3 -shared``, no fast
     math (E feeds exp/expm1; ``--use_fast_math`` would turn them into the
     approximate intrinsics and expm1 of a small E into exp - 1);
@@ -33,7 +34,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 CUDA_SOURCES = ("m2l_translate.cu", "near_contract.cu",
                 "offsets_translate.cu", "diffusion_apply.cu", "pcg.cu",
-                "line_integral.cu")
+                "line_integral.cu", "halo_fill.cu")
 HOST_SOURCE = "aniso_host.cpp"
 
 NVCC_FLAGS = (

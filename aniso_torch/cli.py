@@ -12,7 +12,11 @@ expansion at global coordinates as the reference binary does
 (KernelFactory.cpp:180-205; data.cfg has no key for it): with it the
 result matches the reference's result.csv (benchmarks/oracle_*), without
 it the solution is the mathematically consistent one, as aniso_tpu's CLI
-gives.  `--distributed` (multi-GPU) is not ported yet and raises.
+gives.  `--distributed [--coordinator host:port --num-processes N
+--process-id K]` first joins the processes' torch.distributed group
+(parallel.distributed.init: NCCL on the card, gloo with `--device cpu`), as
+aniso_tpu/cli.py:54-58 joins jax.distributed; each process then runs the
+solve, and only process 0 prints the banner and writes files.
 
 Extra subcommands the reference lacks:
   `info`        - torch's CUDA device report
@@ -48,7 +52,21 @@ def default_fields(grid):
 
 
 def cmd_run(args) -> int:
+    from .parallel import distributed
+
+    if args.distributed:
+        distributed.init(args.coordinator, args.num_processes,
+                         args.process_id,
+                         backend="gloo" if args.device == "cpu" else None)
+    try:
+        return _run(args)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args) -> int:
     from .core.config import load_cfg
+    from .parallel.distributed import process_index
     from .solver.operator import TransportSolver
     from .utils.io import (
         load_result_csv, save_checkpoint, write_points_csv, write_result_csv,
@@ -56,11 +74,7 @@ def cmd_run(args) -> int:
     from .utils.logging import log
     from .utils.profiler import Profiler
 
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: multi-GPU runs are not ported yet (ROADMAP "
-            "queue A item 14)"
-        )
+    lead = process_index() == 0
     cfg = load_cfg(args.config)
     if args.dtype:
         cfg.dtype = args.dtype
@@ -73,7 +87,8 @@ def cmd_run(args) -> int:
         cfg.max_iter = args.max_iter
     if args.compat_global_basis:
         cfg.compat_global_basis = True
-    print(_banner(cfg))
+    if lead:
+        print(_banner(cfg))
 
     timer = Profiler()
     timer.tic("build solver")
@@ -119,11 +134,11 @@ def cmd_run(args) -> int:
     )
 
     x = res.x.cpu().numpy()
-    if cfg.io:
+    if cfg.io and lead:
         write_points_csv(grid.nodes_x, grid.nodes_y, args.points)
         write_result_csv(x.reshape((N, -1))[0], args.result)
         print(f"wrote {args.points}, {args.result}")
-    if args.checkpoint:
+    if args.checkpoint and lead:
         save_checkpoint(
             args.checkpoint, x=x, config=cfg.to_dict(),
             sigma_s=sigma_s, sigma_t=sigma_t,
@@ -138,6 +153,8 @@ def cmd_run(args) -> int:
 def cmd_info(args) -> int:
     import torch
 
+    from .parallel.distributed import process_count, process_index
+
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     info = {
         "torch": torch.__version__,
@@ -145,6 +162,8 @@ def cmd_info(args) -> int:
         "cuda_available": torch.cuda.is_available(),
         "device_count": n,
         "devices": [torch.cuda.get_device_name(i) for i in range(n)],
+        "process_index": process_index(),
+        "process_count": process_count(),
     }
     print(json.dumps(info, indent=2))
     return 0
@@ -192,8 +211,12 @@ def main(argv=None) -> int:
     )
     run.add_argument(
         "--distributed", action="store_true",
-        help="multi-GPU run (not ported yet: raises)",
+        help="join a torch.distributed group first (multi-process runs)",
     )
+    run.add_argument("--coordinator", default=None,
+                     help="host:port of process 0 (with --distributed)")
+    run.add_argument("--num-processes", type=int, default=None)
+    run.add_argument("--process-id", type=int, default=None)
     run.set_defaults(fn=cmd_run)
 
     info = sub.add_parser("info", help="CUDA device report")

@@ -71,6 +71,20 @@
 // whose 27 r-value row fits 48 KB of shared memory runs, as in the
 // one-mode kernel.  expf / exp, not __expf: the library is built without
 // fast math.
+//
+// K1-S, K1 on one shard of a domain decomposition (the aniso_m2l_translate_
+// shard_* entries): replaces the translate of aniso_tpu/parallel/halo.py:
+// make_fine_translate_shardmap (:106, body :135-170).  The same kernels run
+// on the shard's (m2x, m2y) rectangle of each parity plane, with its
+// contiguous slice of E (4, m2x, m2y, r, 27r), and read the shard's
+// multipoles extended by two boxes on each side, (2 m2x + 4, 2 m2y + 4, r),
+// filled by K10 (csrc/halo_fill.cu): one parent box on each of the four
+// parity planes, the V list's reach, so every source lies inside the
+// extended plane and none is zeroed.  They write the shard's (2 m2x, 2 m2y,
+// r) block of L.  The plane's geometry is a kernel argument (Plane): the
+// whole-level launch is the case m2x = m2y = m2 with no extension, so K1
+// and K1-S share every compiled instance.  The bound is K1's on the
+// shard's slice of E.
 
 #include <cuda_runtime.h>
 
@@ -86,45 +100,68 @@ constexpr int kSlots = 32 / kLanes;  // box slots of a warp
 __device__ __forceinline__ float exp_(float v) { return expf(v); }
 __device__ __forceinline__ double exp_(double v) { return exp(v); }
 
+// The translated plane: (m2x, m2y) boxes of each parity plane (the whole
+// level's (m2, m2), or a shard's rectangle), and the multipoles M as an
+// (sx, sy) plane of fine boxes whose box (ext, ext) is the plane's first
+// (the whole level: (2 m2, 2 m2), ext 0; a shard: extended by ext = 2).
+struct Plane {
+    int m2x, m2y, sx, sy, ext;
+};
+
+// The row of M at the V-list source of (class c, offset o) for target box
+// (x, y), or null off the plane.
+template <typename T>
+__device__ __forceinline__ const T* source_row(
+    const T* __restrict__ M, const int* __restrict__ shift, int c, int o,
+    int x, int y, const Plane& P, int r) {
+    const int* t = shift + (c * kOffsets + o) * 4;
+    const int fx = 2 * (x + t[2] - 1) + t[0] + P.ext;
+    const int fy = 2 * (y + t[3] - 1) + t[1] + P.ext;
+    if (fx < 0 || fx >= P.sx || fy < 0 || fy >= P.sy) {
+        return nullptr;
+    }
+    return M + ((size_t)fx * P.sy + fy) * r;
+}
+
 // g[o, b] = M at the V-list source of (class c, offset o) for target box
-// (x, y), or 0 off the parity plane; by all threads of the block.
+// (x, y), or 0 off the plane; by all threads of the block.
 template <typename T>
 __device__ __forceinline__ void gather_sources(
     T* g, const T* __restrict__ M, const int* __restrict__ shift, int c,
-    int x, int y, int m2, int r) {
-    const int m = 2 * m2;
+    int x, int y, const Plane& P, int r) {
     for (int k = threadIdx.x; k < kOffsets * r; k += blockDim.x) {
         const int o = k / r;
         const int b = k - o * r;
-        const int* t = shift + (c * kOffsets + o) * 4;
-        const int bx = x + t[2] - 1;
-        const int by = y + t[3] - 1;
-        T v = 0;
-        if (bx >= 0 && bx < m2 && by >= 0 && by < m2) {
-            v = M[((size_t)(2 * bx + t[0]) * m + (2 * by + t[1])) * r + b];
-        }
-        g[k] = v;
+        const T* src = source_row(M, shift, c, o, x, y, P, r);
+        g[k] = src != nullptr ? src[b] : T(0);
     }
+}
+
+// L's row of target box (x, y) of class c: (2 m2x, 2 m2y, r) a mode.
+template <typename T>
+__device__ __forceinline__ T* target_row(T* L, int c, int x, int y,
+                                         const Plane& P, int r) {
+    return L + ((size_t)(2 * x + (c >> 1)) * (2 * P.m2y)
+                + (2 * y + (c & 1))) * r;
 }
 
 template <typename T>
 __global__ void m2l_translate_kernel(
-    const T* __restrict__ E,          // (4, m2, m2, r, 27 r)
+    const T* __restrict__ E,          // (4, m2x, m2y, r, 27 r)
     const T* __restrict__ cosr,       // (4, r, 27 r)
-    const T* __restrict__ M,          // (2 m2, 2 m2, r)
+    const T* __restrict__ M,          // (sx, sy, r)
     const int* __restrict__ shift,    // (4, 27, 4)
-    T* __restrict__ L,                // (2 m2, 2 m2, r)
-    int m2, int r) {
+    T* __restrict__ L,                // (2 m2x, 2 m2y, r)
+    const Plane P, int r) {
     extern __shared__ __align__(16) unsigned char smem[];
     T* g = reinterpret_cast<T*>(smem);  // (27, r) source multipoles
     const int ob = kOffsets * r;
     const int blk = blockIdx.x;       // (c, x, y), y fastest
-    const int c = blk / (m2 * m2);
-    const int x = (blk / m2) % m2;
-    const int y = blk % m2;
-    const int m = 2 * m2;
+    const int c = blk / (P.m2x * P.m2y);
+    const int x = (blk / P.m2y) % P.m2x;
+    const int y = blk % P.m2y;
 
-    gather_sources(g, M, shift, c, x, y, m2, r);
+    gather_sources(g, M, shift, c, x, y, P, r);
     __syncthreads();
 
     const int warp = threadIdx.x >> 5;
@@ -132,8 +169,7 @@ __global__ void m2l_translate_kernel(
     const int nwarps = blockDim.x >> 5;
     const T* Eb = E + (size_t)blk * r * ob;
     const T* cb = cosr + (size_t)c * r * ob;
-    const int px = c >> 1;
-    const int py = c & 1;
+    T* Lb = target_row(L, c, x, y, P, r);
     for (int a = warp; a < r; a += nwarps) {
         const T* Ea = Eb + (size_t)a * ob;
         const T* ca = cb + (size_t)a * ob;
@@ -145,7 +181,7 @@ __global__ void m2l_translate_kernel(
             acc += __shfl_down_sync(0xffffffffu, acc, off);
         }
         if (lane == 0) {
-            L[((size_t)(2 * x + px) * m + (2 * y + py)) * r + a] = acc;
+            Lb[a] = acc;
         }
     }
 }
@@ -154,22 +190,21 @@ __global__ void m2l_translate_kernel(
 // kernel, the modes in chunks of kModeChunk, one pass over the row each.
 template <typename T>
 __global__ void m2l_translate_modes_any_kernel(
-    const T* __restrict__ E,          // (4, m2, m2, r, 27 r)
+    const T* __restrict__ E,          // (4, m2x, m2y, r, 27 r)
     const T* __restrict__ cosr,       // (D, 4, r, 27 r)
-    const T* __restrict__ M,          // (2 m2, 2 m2, r)
+    const T* __restrict__ M,          // (sx, sy, r)
     const int* __restrict__ shift,    // (4, 27, 4)
-    T* __restrict__ L,                // (D, 2 m2, 2 m2, r)
-    int m2, int r, int D) {
+    T* __restrict__ L,                // (D, 2 m2x, 2 m2y, r)
+    const Plane P, int r, int D) {
     extern __shared__ __align__(16) unsigned char smem[];
     T* g = reinterpret_cast<T*>(smem);  // (27, r) source multipoles
     const int ob = kOffsets * r;
     const int blk = blockIdx.x;       // (c, x, y), y fastest
-    const int c = blk / (m2 * m2);
-    const int x = (blk / m2) % m2;
-    const int y = blk % m2;
-    const int m = 2 * m2;
+    const int c = blk / (P.m2x * P.m2y);
+    const int x = (blk / P.m2y) % P.m2x;
+    const int y = blk % P.m2y;
 
-    gather_sources(g, M, shift, c, x, y, m2, r);
+    gather_sources(g, M, shift, c, x, y, P, r);
     __syncthreads();
 
     const int warp = threadIdx.x >> 5;
@@ -177,8 +212,8 @@ __global__ void m2l_translate_modes_any_kernel(
     const int nwarps = blockDim.x >> 5;
     const T* Eb = E + (size_t)blk * r * ob;
     const size_t mode_stride = (size_t)4 * r * ob;
-    const size_t plane = (size_t)m * m * r;
-    T* Lb = L + ((size_t)(2 * x + (c >> 1)) * m + (2 * y + (c & 1))) * r;
+    const size_t plane = (size_t)4 * P.m2x * P.m2y * r;
+    T* Lb = target_row(L, c, x, y, P, r);
     for (int a = warp; a < r; a += nwarps) {
         const T* Ea = Eb + (size_t)a * ob;
         const T* ca = cosr + ((size_t)c * r + a) * ob;
@@ -341,38 +376,35 @@ __device__ __forceinline__ void modes_row(
 // of NDL.
 template <typename T, int R, int NDL>
 __global__ void __launch_bounds__(kThreads, 2) m2l_translate_modes_kernel(
-    const T* __restrict__ E,          // (4, m2, m2, r, 27 r)
+    const T* __restrict__ E,          // (4, m2x, m2y, r, 27 r)
     const T* __restrict__ cosr,       // (D, 4, r, 27 r)
-    const T* __restrict__ M,          // (2 m2, 2 m2, r)
+    const T* __restrict__ M,          // (sx, sy, r)
     const int* __restrict__ shift,    // (4, 27, 4)
-    T* __restrict__ L,                // (D, 2 m2, 2 m2, r)
-    int m2, int n_full, int a_per_block) {
+    T* __restrict__ L,                // (D, 2 m2x, 2 m2y, r)
+    const Plane P, int n_full, int a_per_block) {
     using S = Modes<T, R>;
     using V = typename S::V;
     constexpr int NB = S::NB, TB = S::TB, OB = S::OB;
     constexpr int kVecsPerRow = R / S::VW;
     __shared__ __align__(16) T g[TB * OB];  // the tile's source multipoles
-    const int nboxes = m2 * m2;
+    const int nboxes = P.m2x * P.m2y;
     const int tiles = (nboxes + TB - 1) / TB;
     const int c = blockIdx.x / tiles;
     const int box0 = (blockIdx.x - c * tiles) * TB;
-    const int m = 2 * m2;
 
     // the tile's source multipoles, one (box, offset) row of r values per
-    // job, zero off the parity plane and past the last box
+    // job, zero off the plane and past the last box
     for (int job = threadIdx.x; job < TB * kOffsets; job += blockDim.x) {
         const int tb = job / kOffsets;
         const int o = job - tb * kOffsets;
         const int box = box0 + tb;
-        const int x = box / m2;
-        const int y = box - x * m2;
-        const int* t = shift + (c * kOffsets + o) * 4;
-        const int bx = x + t[2] - 1;
-        const int by = y + t[3] - 1;
+        const int x = box / P.m2y;
+        const int y = box - x * P.m2y;
         V* dst = reinterpret_cast<V*>(g + tb * OB + o * R);
-        if (box < nboxes && bx >= 0 && bx < m2 && by >= 0 && by < m2) {
-            const V* src = reinterpret_cast<const V*>(
-                M + ((size_t)(2 * bx + t[0]) * m + (2 * by + t[1])) * R);
+        const T* row = box < nboxes
+            ? source_row(M, shift, c, o, x, y, P, R) : nullptr;
+        if (row != nullptr) {
+            const V* src = reinterpret_cast<const V*>(row);
 #pragma unroll
             for (int v = 0; v < kVecsPerRow; ++v) {
                 dst[v] = __ldg(src + v);
@@ -392,7 +424,7 @@ __global__ void __launch_bounds__(kThreads, 2) m2l_translate_modes_kernel(
     const int j = lane % kLanes;
     const int a0 = blockIdx.y * a_per_block;
     const int a1 = min(R, a0 + a_per_block);
-    const size_t plane = (size_t)m * m * R;
+    const size_t plane = (size_t)4 * nboxes * R;
     const size_t mode_stride = (size_t)4 * R * OB;
     const T* gk[NB];
     T* Lk[NB];
@@ -403,10 +435,10 @@ __global__ void __launch_bounds__(kThreads, 2) m2l_translate_modes_kernel(
         const int box = box0 + i + kSlots * k;
         valid[k] = box < nboxes;
         rowbox[k] = valid[k] ? box : box0;  // its g row is zero
-        const int x = rowbox[k] / m2;
-        const int y = rowbox[k] - x * m2;
+        const int x = rowbox[k] / P.m2y;
+        const int y = rowbox[k] - x * P.m2y;
         gk[k] = g + (i + kSlots * k) * OB;
-        Lk[k] = L + ((size_t)(2 * x + (c >> 1)) * m + (2 * y + (c & 1))) * R;
+        Lk[k] = target_row(L, c, x, y, P, R);
     }
     for (int a = a0 + warp; a < a1; a += kThreads / 32) {
         const T* Er[NB];
@@ -448,29 +480,29 @@ __global__ void __launch_bounds__(kThreads, 2) m2l_translate_modes_kernel(
 
 template <typename T, int R, int NDL>
 int launch_modes(const void* E, const void* cosr, const void* M,
-                 const void* shift, void* L, int m2, int n_full,
+                 const void* shift, void* L, const Plane& P, int n_full,
                  cudaStream_t stream) {
     constexpr int TB = Modes<T, R>::TB;
     // a coarse level has few tiles: its target points go to two blocks
-    const int tiles = (m2 * m2 + TB - 1) / TB;
+    const int tiles = (P.m2x * P.m2y + TB - 1) / TB;
     const int a_per_block = 4 * tiles < kMinBlocks ? (R + 1) / 2 : R;
     const dim3 grid(4 * tiles, (R + a_per_block - 1) / a_per_block);
     m2l_translate_modes_kernel<T, R, NDL><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(E), static_cast<const T*>(cosr),
         static_cast<const T*>(M), static_cast<const int*>(shift),
-        static_cast<T*>(L), m2, n_full, a_per_block);
+        static_cast<T*>(L), P, n_full, a_per_block);
     return (int)cudaGetLastError();
 }
 
 // chunks of kModeChunk modes, the last one of 1..kModeChunk
 template <typename T, int R>
 int launch_modes_r(const void* E, const void* cosr, const void* M,
-                   const void* shift, void* L, int m2, int D,
+                   const void* shift, void* L, const Plane& P, int D,
                    cudaStream_t st) {
     const int n_full = (D - 1) / kModeChunk;
 #define ANISO_K1D_ND(N)                                                   \
     case N:                                                               \
-        return launch_modes<T, R, N>(E, cosr, M, shift, L, m2, n_full, st);
+        return launch_modes<T, R, N>(E, cosr, M, shift, L, P, n_full, st);
     switch (D - n_full * kModeChunk) {
         ANISO_K1D_ND(1)
         ANISO_K1D_ND(2)
@@ -481,7 +513,7 @@ int launch_modes_r(const void* E, const void* cosr, const void* M,
         ANISO_K1D_ND(7)
         ANISO_K1D_ND(8)
         default:
-            return launch_modes<T, R, 9>(E, cosr, M, shift, L, m2, n_full,
+            return launch_modes<T, R, 9>(E, cosr, M, shift, L, P, n_full,
                                          st);
     }
 #undef ANISO_K1D_ND
@@ -491,19 +523,20 @@ int launch_modes_r(const void* E, const void* cosr, const void* M,
 // other r whose row fits 48 KB at run time.
 template <typename T>
 int launch(const void* E, const void* cosr, const void* M, const void* shift,
-           void* L, int m2, int r, int D, void* stream) {
+           void* L, const Plane& P, int r, int D, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
+    const int blocks = 4 * P.m2x * P.m2y;
     if (D == 1) {
         const size_t row = (size_t)kOffsets * r * sizeof(T);
-        m2l_translate_kernel<T><<<4 * m2 * m2, kThreads, row, st>>>(
+        m2l_translate_kernel<T><<<blocks, kThreads, row, st>>>(
             static_cast<const T*>(E), static_cast<const T*>(cosr),
             static_cast<const T*>(M), static_cast<const int*>(shift),
-            static_cast<T*>(L), m2, r);
+            static_cast<T*>(L), P, r);
         return (int)cudaGetLastError();
     }
 #define ANISO_K1D_R(RV)                                                   \
     case RV:                                                              \
-        return launch_modes_r<T, RV>(E, cosr, M, shift, L, m2, D, st);
+        return launch_modes_r<T, RV>(E, cosr, M, shift, L, P, D, st);
     switch (r) {
         ANISO_K1D_R(4)
         ANISO_K1D_R(9)
@@ -519,10 +552,10 @@ int launch(const void* E, const void* cosr, const void* M, const void* shift,
     if (row > 48 * 1024) {
         return (int)cudaErrorInvalidValue;
     }
-    m2l_translate_modes_any_kernel<T><<<4 * m2 * m2, kThreads, row, st>>>(
+    m2l_translate_modes_any_kernel<T><<<blocks, kThreads, row, st>>>(
         static_cast<const T*>(E), static_cast<const T*>(cosr),
         static_cast<const T*>(M), static_cast<const int*>(shift),
-        static_cast<T*>(L), m2, r, D);
+        static_cast<T*>(L), P, r, D);
     return (int)cudaGetLastError();
 }
 
@@ -531,11 +564,30 @@ int launch(const void* E, const void* cosr, const void* M, const void* shift,
 extern "C" int aniso_m2l_translate_f32(
     const void* E, const void* cosr, const void* M, const void* shift,
     void* L, int m2, int r, int D, void* stream) {
-    return launch<float>(E, cosr, M, shift, L, m2, r, D, stream);
+    return launch<float>(E, cosr, M, shift, L,
+                         Plane{m2, m2, 2 * m2, 2 * m2, 0}, r, D, stream);
 }
 
 extern "C" int aniso_m2l_translate_f64(
     const void* E, const void* cosr, const void* M, const void* shift,
     void* L, int m2, int r, int D, void* stream) {
-    return launch<double>(E, cosr, M, shift, L, m2, r, D, stream);
+    return launch<double>(E, cosr, M, shift, L,
+                          Plane{m2, m2, 2 * m2, 2 * m2, 0}, r, D, stream);
+}
+
+// K1-S: Mext is the shard's (2 m2x + 4, 2 m2y + 4, r) extended multipoles
+extern "C" int aniso_m2l_translate_shard_f32(
+    const void* E, const void* cosr, const void* Mext, const void* shift,
+    void* L, int m2x, int m2y, int r, int D, void* stream) {
+    return launch<float>(E, cosr, Mext, shift, L,
+                         Plane{m2x, m2y, 2 * m2x + 4, 2 * m2y + 4, 2}, r, D,
+                         stream);
+}
+
+extern "C" int aniso_m2l_translate_shard_f64(
+    const void* E, const void* cosr, const void* Mext, const void* shift,
+    void* L, int m2x, int m2y, int r, int D, void* stream) {
+    return launch<double>(E, cosr, Mext, shift, L,
+                          Plane{m2x, m2y, 2 * m2x + 4, 2 * m2y + 4, 2}, r, D,
+                          stream);
 }

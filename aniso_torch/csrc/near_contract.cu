@@ -28,6 +28,15 @@
 // diagonal and Duffy terms go into the epilogue.  expm1f / expm1, not
 // exp - 1: E is small on near pairs and the difference would cancel.  The
 // library is built without fast math.
+//
+// K2-S, K2 on one shard of a domain decomposition (the kShard instances):
+// replaces the contraction of aniso_tpu/parallel/halo.py:
+// make_near_apply_shardmap (:56, body :70-81).  The grid is the shard's
+// (lx, ly) block of squares, with its contiguous slices of E, sigma_w and
+// duffy, and u comes halo-extended by one square on each side, (lx + 2,
+// ly + 2, nq), filled by K10 (csrc/halo_fill.cu): the neighbourhood load
+// reads it with no bounds test.  Everything else is K2's code; the bound is
+// K2's on the shard's bytes (a 256 x 128 shard of 512^2 reads 1/8 of E).
 
 #include <cuda_runtime.h>
 
@@ -57,31 +66,39 @@ __device__ __forceinline__ T finish_row(T v, const T* __restrict__ duffy,
     return v;
 }
 
-template <typename T, int DC>
+// The grid is (nx, ny) squares: the whole (sz, sz) grid, u zero off it, or
+// with kShard a shard's block, u halo-extended to (nx + 2, ny + 2, nq).
+template <typename T, int DC, bool kShard>
 __global__ void near_contract_kernel(
-    const T* __restrict__ E,            // (sz, sz, nq, 3, 3, nq)
+    const T* __restrict__ E,            // (nx, ny, nq, 3, 3, nq)
     const T* __restrict__ cosrw,        // (D, nq, 3, 3, nq)
     const T* __restrict__ S,            // (D, nq, 3, 3, nq)
-    const T* __restrict__ u,            // (sz, sz, nq)
-    const T* __restrict__ sigma_w,      // (sz, sz, nq) or null
-    const T* __restrict__ duffy,        // (D, sz, sz, nq, nq) or null
-    T* __restrict__ out,                // (D, sz, sz, nq)
-    int sz, int nq, int D) {
+    const T* __restrict__ u,            // (nx, ny, nq), or extended
+    const T* __restrict__ sigma_w,      // (nx, ny, nq) or null
+    const T* __restrict__ duffy,        // (D, nx, ny, nq, nq) or null
+    T* __restrict__ out,                // (D, nx, ny, nq)
+    int nx, int ny, int nq, int D) {
     extern __shared__ __align__(16) unsigned char smem[];
     T* un = reinterpret_cast<T*>(smem);  // (3, 3, nq) neighbourhood of u
     const int K = 9 * nq;
-    const int i = blockIdx.x / sz;
-    const int j = blockIdx.x - i * sz;
+    const int i = blockIdx.x / ny;
+    const int j = blockIdx.x - i * ny;
     for (int k = threadIdx.x; k < K; k += blockDim.x) {
         const int ab = k / nq;
         const int s = k - ab * nq;
-        const int ii = i + ab / 3 - 1;
-        const int jj = j + ab % 3 - 1;
-        T v = 0;
-        if (ii >= 0 && ii < sz && jj >= 0 && jj < sz) {
-            v = u[((size_t)ii * sz + jj) * nq + s];
+        if constexpr (kShard) {
+            const int ii = i + ab / 3;
+            const int jj = j + ab % 3;
+            un[k] = u[((size_t)ii * (ny + 2) + jj) * nq + s];
+        } else {
+            const int ii = i + ab / 3 - 1;
+            const int jj = j + ab % 3 - 1;
+            T v = 0;
+            if (ii >= 0 && ii < nx && jj >= 0 && jj < ny) {
+                v = u[((size_t)ii * ny + jj) * nq + s];
+            }
+            un[k] = v;
         }
-        un[k] = v;
     }
     __syncthreads();
 
@@ -111,7 +128,7 @@ __global__ void near_contract_kernel(
             }
         }
     } else {
-        const size_t field = (size_t)sz * sz * nq;
+        const size_t field = (size_t)nx * ny * nq;
         const size_t table = (size_t)nq * K;
         for (int t = warp; t < nq; t += nwarps) {
             const T* Et = E + (sq * nq + t) * K;
@@ -153,20 +170,20 @@ __global__ void near_contract_kernel(
     }
 }
 
-template <typename T>
+template <typename T, bool kShard>
 int launch(const void* E, const void* cosrw, const void* S, const void* u,
-           const void* sigma_w, const void* duffy, void* out, int sz,
-           int nq, int D, void* stream) {
+           const void* sigma_w, const void* duffy, void* out, int nx,
+           int ny, int nq, int D, void* stream) {
     const int warps = nq < 32 ? nq : 32;
     const size_t smem = (size_t)9 * nq * sizeof(T);
     // one mode takes the single-accumulator instance
-    auto kernel = D == 1 ? near_contract_kernel<T, 1>
-                         : near_contract_kernel<T, kModeChunk>;
-    kernel<<<sz * sz, 32 * warps, smem, (cudaStream_t)stream>>>(
+    auto kernel = D == 1 ? near_contract_kernel<T, 1, kShard>
+                         : near_contract_kernel<T, kModeChunk, kShard>;
+    kernel<<<nx * ny, 32 * warps, smem, (cudaStream_t)stream>>>(
         static_cast<const T*>(E), static_cast<const T*>(cosrw),
         static_cast<const T*>(S), static_cast<const T*>(u),
         static_cast<const T*>(sigma_w), static_cast<const T*>(duffy),
-        static_cast<T*>(out), sz, nq, D);
+        static_cast<T*>(out), nx, ny, nq, D);
     return (int)cudaGetLastError();
 }
 
@@ -176,14 +193,31 @@ extern "C" int aniso_near_contract_f32(
     const void* E, const void* cosrw, const void* S, const void* u,
     const void* sigma_w, const void* duffy, void* out, int sz, int nq,
     int D, void* stream) {
-    return launch<float>(E, cosrw, S, u, sigma_w, duffy, out, sz, nq, D,
-                         stream);
+    return launch<float, false>(E, cosrw, S, u, sigma_w, duffy, out, sz, sz,
+                                nq, D, stream);
 }
 
 extern "C" int aniso_near_contract_f64(
     const void* E, const void* cosrw, const void* S, const void* u,
     const void* sigma_w, const void* duffy, void* out, int sz, int nq,
     int D, void* stream) {
-    return launch<double>(E, cosrw, S, u, sigma_w, duffy, out, sz, nq, D,
-                          stream);
+    return launch<double, false>(E, cosrw, S, u, sigma_w, duffy, out, sz, sz,
+                                 nq, D, stream);
+}
+
+// K2-S: ue is the shard's halo-extended (lx + 2, ly + 2, nq) block
+extern "C" int aniso_near_contract_shard_f32(
+    const void* E, const void* cosrw, const void* S, const void* ue,
+    const void* sigma_w, const void* duffy, void* out, int lx, int ly,
+    int nq, int D, void* stream) {
+    return launch<float, true>(E, cosrw, S, ue, sigma_w, duffy, out, lx, ly,
+                               nq, D, stream);
+}
+
+extern "C" int aniso_near_contract_shard_f64(
+    const void* E, const void* cosrw, const void* S, const void* ue,
+    const void* sigma_w, const void* duffy, void* out, int lx, int ly,
+    int nq, int D, void* stream) {
+    return launch<double, true>(E, cosrw, S, ue, sigma_w, duffy, out, lx, ly,
+                                nq, D, stream);
 }

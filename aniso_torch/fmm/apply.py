@@ -156,14 +156,14 @@ def parity_shift_table_np() -> np.ndarray:
 
 
 def _up_pass(static, leaf_level: int, u: torch.Tensor) -> dict:
-    """Leaf charges -> multipoles per level: {level: (m, m, r)}."""
+    """Leaf charges -> multipoles per level: {level: (m, m, r)}; on a
+    shard's (lx, ly) block of squares, the block's boxes at each level."""
     m2m = static["m2m"]
     M = {leaf_level: torch.einsum("ck,ijk->ijc", static["p2m_w"], u)}
     for level in range(leaf_level, coarsest_m2l_level(), -1):
         child = M[level]
-        m2 = child.shape[0] // 2
         r = child.shape[-1]
-        c4 = child.reshape(m2, 2, m2, 2, r)
+        c4 = child.reshape(child.shape[0] // 2, 2, child.shape[1] // 2, 2, r)
         M[level - 1] = torch.einsum("hgac,xhygc->xya", m2m, c4)
     return M
 
@@ -198,19 +198,27 @@ def mode_view(mode_stack: dict, d: int) -> dict:
 
 
 def _down_pass(static, leaf_level: int, M: dict, m2l_E: dict,
-               m2l_cosr: dict, coeffs=None) -> torch.Tensor:
+               m2l_cosr: dict, coeffs=None, translate_fn=None) -> torch.Tensor:
     """Per level K1 (a dense E tensor) or K3 (a per-offset level {'Wo'},
     re-formed from `coeffs`; aniso_tpu _level_E :411-424), then L2L into
     the next level (one einsum).  With cosr tables that carry a mode axis
-    the locals do too: (D, m, m, r)."""
+    the locals do too: (D, m, m, r).
+
+    translate_fn: the translate of one shard of a domain decomposition
+    (parallel.api, after aniso_tpu apply.py:524-547), called (level, E_l,
+    cosr_l, M_l) with the shard's M; it returns the shard's T, or None for
+    the level's own K1 / K3."""
     m2m = static["m2m"]
     L = None
     for level in range(coarsest_m2l_level(), leaf_level + 1):
         E_l = m2l_E[level]
-        if isinstance(E_l, dict):
+        T = None
+        if translate_fn is not None:
+            T = translate_fn(level, E_l, m2l_cosr[level], M[level])
+        if T is None and isinstance(E_l, dict):
             T = offsets_translate(E_l["Wo"], coeffs, m2l_cosr[level],
                                   M[level], static["shift"])
-        else:
+        elif T is None:
             T = m2l_translate(E_l, m2l_cosr[level], M[level], static["shift"])
         if L is None:
             L = T
@@ -233,7 +241,8 @@ def _near_apply(caches, mode_static, mode: int, u: torch.Tensor):
     )
 
 
-def fmm_apply_mode(leaf_level, static, caches, mode_static, mode, u):
+def fmm_apply_mode(leaf_level, static, caches, mode_static, mode, u,
+                   translate_fn=None, near_fn=None, multipoles=None):
     """Corrected mode matvec K_m u including the 1/2pi scaling.
 
     caches: {'near_E', 'm2l_E', 'sigma_w'[, 'coeffs']} (sigma-dependent,
@@ -243,12 +252,24 @@ def fmm_apply_mode(leaf_level, static, caches, mode_static, mode, u):
     tables stacked by stack_mode_statics (with mode = 0: slot 0 is mode 0
     and takes the diagonal) give every mode at once, (D, sz, sz, nq);
     fmm_apply_all_modes names that call.
+
+    One shard of a domain decomposition (parallel.api.sharded_solver, after
+    aniso_tpu apply.py:684-711) passes its block u, its slices of the
+    caches, its multipoles from _up_pass (`multipoles`: the sweep's up
+    passes run on every shard before any down pass, so that the halos of
+    a level exist when its first shard needs them), translate_fn (see
+    _down_pass) and near_fn, called (caches, mode_static, mode, u), which
+    returns the shard's near field or None for K2.
     """
-    M = _up_pass(static, leaf_level, u)
+    M = multipoles if multipoles is not None else _up_pass(
+        static, leaf_level, u)
     L = _down_pass(static, leaf_level, M, caches["m2l_E"],
-                   mode_static["m2l_cosr"], caches.get("coeffs"))
+                   mode_static["m2l_cosr"], caches.get("coeffs"),
+                   translate_fn)
     far = torch.einsum("kc,...ijc->...ijk", static["l2t"], L)
-    near = _near_apply(caches, mode_static, mode, u)
+    near = near_fn(caches, mode_static, mode, u) if near_fn else None
+    if near is None:
+        near = _near_apply(caches, mode_static, mode, u)
     return (far + near) / (2.0 * math.pi)
 
 

@@ -25,6 +25,13 @@ near_contract takes near_contract_plain for CPU tensors and launches the
 kernel for CUDA tensors: the float32 instance or the float64 one (the
 refinement twin and the plain f64 solve), by E's dtype; `launches` counts
 kernel launches per instance.
+
+K2-S, near_contract_shard (the contraction of aniso_tpu/parallel/halo.py:
+make_near_apply_shardmap, :56-103), is the same contraction on one shard of
+a domain decomposition: E, sigma_w and duffy are the shard's (lx, ly, ...)
+slices and u comes halo-extended, (lx + 2, ly + 2, nq)
+(parallel.halo.halo_exchange), so the kernel reads it with no bounds test.
+Its launches count under "shard_f32" / "shard_f64".
 """
 
 from __future__ import annotations
@@ -33,14 +40,18 @@ import ctypes
 
 import torch
 
-from ..ops.windows import patch_3x3
+from ..ops.windows import patch_3x3, patch_3x3_valid
 from . import _cuda
 
 SOURCE = "near_contract.cu"
 SYMBOLS = {"f32": "aniso_near_contract_f32", "f64": "aniso_near_contract_f64"}
+SHARD_SYMBOLS = {"f32": "aniso_near_contract_shard_f32",
+                 "f64": "aniso_near_contract_shard_f64"}
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+_SHARD_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4
+                   + (ctypes.c_void_p,))
 
-launches = {"f32": 0, "f64": 0}
+launches = {"f32": 0, "f64": 0, "shard_f32": 0, "shard_f64": 0}
 
 
 def _one_mode(fn, E, cosrw, S, u, sigma_w, duffy):
@@ -53,8 +64,22 @@ def near_contract_plain(E, cosrw, S, u, sigma_w=None, duffy=None):
     einsum and the Duffy term; the diagonal on slot 0)."""
     if cosrw.dim() == 4:
         return _one_mode(near_contract_plain, E, cosrw, S, u, sigma_w, duffy)
-    X = torch.expm1(-E)                                  # (sz, sz, t, a, b, s)
-    up = patch_3x3(u)
+    return _contract_windows(E, cosrw, S, u, patch_3x3(u), sigma_w, duffy)
+
+
+def near_contract_shard_plain(E, cosrw, S, ue, sigma_w=None, duffy=None):
+    """K2-S's plain version: the same steps on the halo-extended block's
+    windows (the local body of aniso_tpu make_near_apply_shardmap,
+    :70-81)."""
+    if cosrw.dim() == 4:
+        return _one_mode(near_contract_shard_plain, E, cosrw, S, ue, sigma_w,
+                         duffy)
+    return _contract_windows(E, cosrw, S, ue[1:-1, 1:-1], patch_3x3_valid(ue),
+                             sigma_w, duffy)
+
+
+def _contract_windows(E, cosrw, S, u, up, sigma_w, duffy):
+    X = torch.expm1(-E)                                  # (lx, ly, t, a, b, s)
     outs = []
     for d in range(cosrw.shape[0]):
         out = torch.einsum("ijtabs,ijabs->ijt", X * cosrw[d] + S[d], up)
@@ -91,4 +116,32 @@ def near_contract(E, cosrw, S, u, sigma_w=None, duffy=None) -> torch.Tensor:
             _cuda.stream(E.device))
     _cuda.raise_on_error(symbol, rc)
     launches[inst] += 1
+    return out
+
+
+def near_contract_shard(E, cosrw, S, ue, sigma_w=None, duffy=None):
+    """K2-S: (D, lx, ly, nq), or (lx, ly, nq) for one mode's tables."""
+    if cosrw.dim() == 4:
+        return _one_mode(near_contract_shard, E, cosrw, S, ue, sigma_w, duffy)
+    if E.device.type == "cpu":
+        return near_contract_shard_plain(E, cosrw, S, ue, sigma_w, duffy)
+    inst = _cuda.instance("E", E)
+    lx, ly, nq = E.shape[:3]
+    D = cosrw.shape[0]
+    specs = [("E", E, (lx, ly, nq, 3, 3, nq)),
+             ("cosrw", cosrw, (D, nq, 3, 3, nq)), ("S", S, (D, nq, 3, 3, nq)),
+             ("ue", ue, (lx + 2, ly + 2, nq))]
+    if sigma_w is not None:
+        specs.append(("sigma_w", sigma_w, (lx, ly, nq)))
+    if duffy is not None:
+        specs.append(("duffy", duffy, (D, lx, ly, nq, nq)))
+    _cuda.check_all(E.dtype, *specs)
+    symbol = SHARD_SYMBOLS[inst]
+    fn = _cuda.load(SOURCE, symbol, _SHARD_ARGTYPES)
+    out = torch.empty((D, lx, ly, nq), dtype=E.dtype, device=E.device)
+    rc = fn(_cuda.ptr(E), _cuda.ptr(cosrw), _cuda.ptr(S), _cuda.ptr(ue),
+            _cuda.ptr(sigma_w), _cuda.ptr(duffy), _cuda.ptr(out), lx, ly, nq,
+            D, _cuda.stream(E.device))
+    _cuda.raise_on_error(symbol, rc)
+    launches["shard_" + inst] += 1
     return out

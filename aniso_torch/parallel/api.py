@@ -1,0 +1,449 @@
+"""Domain decomposition of the FMM matvec and GMRES over a 2D mesh of shards.
+
+Counterpart of aniso_tpu/parallel/api.py.  JAX shards arrays over a
+jax.sharding.Mesh and lets GSPMD (or its shard_map path) place the halos;
+torch has no partitioner, so here the decomposition is written out:
+
+  * a Mesh is (mx, my) shards, shard k = ix * my + iy owning the contiguous
+    (sz / mx, sz / my) block of squares at (ix, iy), a device and, after
+    distributed.init, a process (rank);
+  * per-square and per-box caches and fields are Sharded: each shard holds
+    its block, made contiguous once at placement; small operators and
+    whatever does not divide the mesh are Replicated, one copy a device;
+  * a matvec runs the up pass, L2L and L2T per shard; the near field and the
+    fine dense M2L levels per shard on halo-extended blocks (K10, then K2-S
+    and K1-S, parallel.halo); the other levels (a level whose parity plane
+    does not divide the mesh, a per-offset level) on the whole level on each
+    device from the gathered M (K1 or K3), each shard keeping its block of T;
+  * GMRES runs on Sharded fields: the basis stays with each shard, CGS2 and
+    the norms sum per-shard contractions over the shards (solver.gmres).
+
+Shards that share a device are the port's counterpart of JAX's virtual host
+devices (tests/conftest.py): on one card, or on the CPU, every step above
+runs, and the halos are copies within the device.  Every mesh axis must
+divide 4, the boxes of level 2 along it, so that every level of the tree
+splits into whole blocks (at most 16 shards).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..fmm.apply import _up_pass, fmm_apply_mode
+from ..kernels.m2l import m2l_translate
+from ..kernels.offsets import offsets_translate
+from . import distributed
+from .halo import (
+    fine_translate_local, gather_full, halo_exchange, near_apply_local,
+    reduce_sum,
+)
+
+
+class Mesh:
+    """(mx, my) shards; per shard its device (None for another process's
+    shard) and its process."""
+
+    def __init__(self, shape, devices, ranks=None, rank=0, world=1,
+                 distributed=False):
+        self.shape = tuple(shape)
+        self.devices = tuple(devices)
+        self.size = self.shape[0] * self.shape[1]
+        self.ranks = tuple(ranks or [0] * self.size)
+        self.rank = rank
+        self.world = world
+        self.distributed = distributed      # a process group is up
+        self.local = [k for k in range(self.size) if self.ranks[k] == rank]
+
+    @property
+    def multiprocess(self) -> bool:
+        return self.world > 1
+
+    def coords(self, k: int) -> tuple:
+        return divmod(k, self.shape[1])
+
+    def neighbour(self, k: int, dx: int, dy: int) -> Optional[int]:
+        """The shard at (ix + dx, iy + dy), or None off the mesh."""
+        ix, iy = self.coords(k)
+        ix, iy = ix + dx, iy + dy
+        if 0 <= ix < self.shape[0] and 0 <= iy < self.shape[1]:
+            return ix * self.shape[1] + iy
+        return None
+
+    def local_groups(self) -> dict:
+        """{device: this process's shards on it, in shard order}."""
+        out = {}
+        for k in self.local:
+            out.setdefault(self.devices[k], []).append(k)
+        return out
+
+    def __repr__(self):
+        return (f"Mesh(shape={self.shape}, devices={self.devices}, "
+                f"ranks={self.ranks}, rank={self.rank})")
+
+
+def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
+    """A 2D mesh as square as possible (8 -> 2 x 4) over the given devices.
+
+    `devices`: this process's shards' devices, in shard order; a device may
+    appear more than once (shards that share it).  Default: every CUDA card
+    of the machine, or after distributed.init this process's device.
+    n_devices keeps the first n of them.  Across processes (after
+    distributed.init) every process names the same number of shards, and
+    process p holds the p-th run of them."""
+    world, rank = distributed.process_count(), distributed.process_index()
+    if devices is None:
+        if distributed.is_initialized():
+            devices = [distributed.local_device()]
+        else:
+            if not torch.cuda.is_available():
+                raise RuntimeError("make_mesh: CUDA is not available; name "
+                                   "the devices (e.g. ['cpu'] * 8)")
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if n_devices is not None:
+        devices = devices[:n_devices]
+    per = len(devices)
+    n = per * world
+    a = math.isqrt(n)
+    while n % a:
+        a -= 1
+    ranks = [k // per for k in range(n)]
+    devs = [devices[k % per] if ranks[k] == rank else None for k in range(n)]
+    if distributed.is_initialized() and world > 1:
+        # NCCL pairs P2P only once every rank has joined a collective
+        torch.distributed.barrier()
+    return Mesh((a, n // a), devs, ranks, rank, world,
+                distributed.is_initialized())
+
+
+class Sharded:
+    """An array cut into (mx, my) blocks along its dims `dims`: per shard
+    its block on its device (None for other processes' shards).  Fields
+    (dims (0, 1)) take elementwise arithmetic with Sharded fields and
+    scalars, so GMRES runs on them (krylov_space)."""
+
+    def __init__(self, mesh: Mesh, blocks, dims=(0, 1)):
+        self.mesh, self.blocks, self.dims = mesh, list(blocks), tuple(dims)
+
+    def local_blocks(self):
+        return [self.blocks[k] for k in self.mesh.local]
+
+    def map(self, fn, *others):
+        """fn on each local block (and the same shard's block of others)."""
+        out = [None] * self.mesh.size
+        for k in self.mesh.local:
+            out[k] = fn(self.blocks[k], *(
+                o.blocks[k] if isinstance(o, Sharded) else o for o in others))
+        return Sharded(self.mesh, out, self.dims)
+
+    def __add__(self, o):
+        return self.map(torch.add, o)
+
+    def __sub__(self, o):
+        return self.map(torch.sub, o)
+
+    def __mul__(self, o):
+        return self.map(torch.mul, o)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self.map(torch.div, o)
+
+    def clone(self):
+        return self.map(torch.clone)
+
+    def full(self) -> torch.Tensor:
+        """The whole array on the first local device (every process gets
+        it)."""
+        if self.dims != (0, 1):
+            raise ValueError("full() assembles fields (dims (0, 1))")
+        dev = self.blocks[self.mesh.local[0]].device
+        return gather_full(self.mesh, self.blocks, [dev])[dev]
+
+    def krylov_space(self):
+        return ShardedSpace(self.mesh)
+
+
+class Replicated:
+    """One copy of an array on each device of this process's shards."""
+
+    def __init__(self, per_device: dict):
+        self.per_device = per_device
+
+    def on(self, device):
+        return self.per_device[device]
+
+
+class ShardedBasis:
+    """A Krylov basis of Sharded fields: each shard's (n, lx, ly, nq) part
+    on its device."""
+
+    def __init__(self, mesh: Mesh, parts):
+        self.mesh, self.parts = mesh, parts
+
+    def __getitem__(self, i):
+        return Sharded(self.mesh, [None if p is None else p[i]
+                                   for p in self.parts])
+
+    def __setitem__(self, i, v: Sharded):
+        for k in self.mesh.local:
+            self.parts[k][i] = v.blocks[k]
+
+
+class ShardedSpace:
+    """GMRES's arithmetic on Sharded fields (solver.gmres.TensorSpace's
+    counterpart): every inner product and norm is a per-shard contraction
+    summed over the shards in shard order (parallel.halo.reduce_sum, one
+    all_reduce of the (i + 1)-vector across processes); no field is
+    gathered."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def shaped(self, v):
+        return v
+
+    def zeros(self, b):
+        return b.map(torch.zeros_like)
+
+    def _sum(self, parts):
+        return reduce_sum(self.mesh, parts)
+
+    def norm(self, v) -> float:
+        sq = self._sum([(blk * blk).sum() for blk in v.local_blocks()])
+        return float(torch.sqrt(sq))
+
+    def basis(self, b, n: int):
+        parts = [None] * self.mesh.size
+        for k in self.mesh.local:
+            blk = b.blocks[k]
+            parts[k] = torch.empty((n,) + tuple(blk.shape), dtype=blk.dtype,
+                                   device=blk.device)
+        return ShardedBasis(self.mesh, parts)
+
+    def arnoldi(self, V: ShardedBasis, i: int, w: Sharded) -> np.ndarray:
+        local = self.mesh.local
+        Vf = {k: V.parts[k].view(V.parts[k].shape[0], -1)[: i + 1]
+              for k in local}
+        wf = {k: w.blocks[k].reshape(-1) for k in local}
+
+        def project(wf):
+            h = self._sum([Vf[k] @ wf[k] for k in local])
+            return h, {k: wf[k] - h.to(wf[k].device) @ Vf[k] for k in local}
+
+        h1, wf = project(wf)
+        h2, wf = project(wf)
+        wnorm = torch.sqrt(self._sum([wf[k] @ wf[k] for k in local]))
+        scale = torch.where(wnorm == 0.0, 1.0, wnorm)
+        for k in local:
+            V.parts[k].view(V.parts[k].shape[0], -1)[i + 1] = (
+                wf[k] / scale.to(wf[k].device))
+        return torch.cat([h1 + h2, wnorm[None]]).cpu().numpy()
+
+    def combine(self, V: ShardedBasis, y: np.ndarray) -> Sharded:
+        out = [None] * self.mesh.size
+        for k in self.mesh.local:
+            P = V.parts[k]
+            yt = torch.as_tensor(y, dtype=P.dtype, device=P.device)
+            out[k] = torch.tensordot(yt, P[: len(y)], dims=1)
+        return Sharded(self.mesh, out)
+
+
+def _block(mesh: Mesh, x: torch.Tensor, k: int, dims) -> torch.Tensor:
+    d0, d1 = dims
+    bx, by = x.shape[d0] // mesh.shape[0], x.shape[d1] // mesh.shape[1]
+    ix, iy = mesh.coords(k)
+    blk = x.narrow(d0, ix * bx, bx).narrow(d1, iy * by, by)
+    return blk.to(mesh.devices[k]).contiguous()
+
+
+def _divisible(shape, mesh: Mesh, d0: int, d1: int) -> bool:
+    return (len(shape) > d1
+            and shape[d0] % mesh.shape[0] == 0
+            and shape[d1] % mesh.shape[1] == 0
+            and shape[d0] >= mesh.shape[0] and shape[d1] >= mesh.shape[1])
+
+
+def shard(mesh: Mesh, x: torch.Tensor, dims=(0, 1)) -> Sharded:
+    """x cut into the mesh's blocks along dims, each shard's block made
+    contiguous on its device."""
+    if not _divisible(x.shape, mesh, *dims):
+        raise ValueError(f"shape {tuple(x.shape)} does not divide the mesh "
+                         f"{mesh.shape} along dims {dims}")
+    blocks = [None] * mesh.size
+    for k in mesh.local:
+        blocks[k] = _block(mesh, x, k, dims)
+    return Sharded(mesh, blocks, dims)
+
+
+def shard_field(mesh: Mesh, arr) -> Sharded:
+    """Place an (sz, sz, ...) per-square array sharded over the mesh."""
+    return shard(mesh, torch.as_tensor(arr), (0, 1))
+
+
+def replicate(mesh: Mesh, arr) -> Replicated:
+    x = torch.as_tensor(arr)
+    return Replicated({d: x.to(d) for d in mesh.local_groups()})
+
+
+# per-mode tables: small, replicated whatever their shape
+_TABLES = ("m2l_cosr", "near_cosrw", "near_static", "shift", "p2m_w", "l2t",
+           "m2m")
+
+
+def shard_pytree(mesh: Mesh, tree):
+    """Place a solver cache / mode-static tree in the port's layouts
+    (aniso_tpu shard_pytree's counterpart; its dispatch is on the root key):
+
+      near_E       (sz, sz, nq, 3, 3, nq)    spatial dims 0, 1
+      duffy        (D, sz, sz, nq, nq)       spatial dims 1, 2
+                   or (sz, sz, nq, nq)       spatial dims 0, 1
+      m2l_E levels (4, m2, m2, r, 27r)       spatial dims 1, 2
+                   per-offset {'Wo'}         replicated
+      fields       (sz, sz, ...)             spatial dims 0, 1 (sigma_w,
+                                             coeffs)
+      the per-mode tables and anything not divisible: replicated.
+    """
+    def place(root, x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: place(root or k, v) for k, v in x.items()}
+        if root in _TABLES:
+            return replicate(mesh, x)
+        if root == "m2l_E":
+            dims = (1, 2) if x.ndim == 5 else None
+        elif root == "near_E":
+            dims = (0, 1) if x.ndim == 6 else None
+        elif root == "duffy":
+            dims = (1, 2) if x.ndim == 5 else (0, 1)
+        else:
+            dims = (0, 1)
+        if dims is not None and _divisible(x.shape, mesh, *dims):
+            return shard(mesh, x, dims)
+        return replicate(mesh, x)
+
+    return place(None, tree)
+
+
+def _local(tree, mesh: Mesh, k: int):
+    """Shard k's view of a placed tree: its block, or the copy on its
+    device."""
+    if isinstance(tree, dict):
+        return {key: _local(v, mesh, k) for key, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return tree.blocks[k]
+    if isinstance(tree, Replicated):
+        return tree.on(mesh.devices[k])
+    return tree
+
+
+class _Sweep:
+    """One sharded matvec's exchanges, each done once for every shard when
+    its first shard asks (the shards' up passes all ran before): the
+    halo-extended M of a sharded level, the whole-level T of a
+    replicated-route level per device, the gathered coefficient field, the
+    halo-extended u."""
+
+    def __init__(self, mesh, caches, M, u):
+        self.mesh, self.caches, self.M, self.u = mesh, caches, M, u
+        self.memo = {}
+
+    def _once(self, key, fn):
+        if key not in self.memo:
+            self.memo[key] = fn()
+        return self.memo[key]
+
+    def _level(self, level):
+        return [None if m is None else m[level] for m in self.M]
+
+    def translate(self, k, shift, level, E_l, cosr_l, M_l):
+        """Shard k's T at `level` (the _down_pass hook)."""
+        if isinstance(self.caches["m2l_E"][level], Sharded):
+            ext = self._once(("halo", level), lambda: halo_exchange(
+                self.mesh, self._level(level), 2))
+            return fine_translate_local(E_l, cosr_l, ext[k], shift)
+        # replicated route: the whole level on each device, from the
+        # gathered M; each shard keeps its block of T
+        device = self.mesh.devices[k]
+        T = self._once(("T", level), lambda: self._whole_level(
+            level, cosr_l, shift))[device]
+        bx, by = M_l.shape[:2]
+        ix, iy = self.mesh.coords(k)
+        return T[..., ix * bx:(ix + 1) * bx, iy * by:(iy + 1) * by, :]
+
+    def _whole_level(self, level, cosr_l, shift):
+        """{device: the whole level's T} by K1 or K3 on each device; the
+        tables and E are replicated, so any shard's view on the device
+        serves."""
+        out = {}
+        Mfull = gather_full(self.mesh, self._level(level))
+        for device, ks in self.mesh.local_groups().items():
+            E_l = _local(self.caches["m2l_E"][level], self.mesh, ks[0])
+            if isinstance(E_l, dict):
+                coeffs = self._once("coeffs", lambda: gather_full(
+                    self.mesh, self.caches["coeffs"].blocks))[device]
+                out[device] = offsets_translate(E_l["Wo"], coeffs, cosr_l,
+                                                Mfull[device], shift)
+            else:
+                out[device] = m2l_translate(E_l, cosr_l, Mfull[device], shift)
+        return out
+
+    def near(self, k, caches, ms, mode, u):
+        """Shard k's near field (the fmm_apply_mode hook)."""
+        ue = self._once("u", lambda: halo_exchange(self.mesh, self.u.blocks,
+                                                   1))
+        return near_apply_local(caches["near_E"], ms["near_cosrw"],
+                                ms["near_static"], caches["sigma_w"],
+                                ms["duffy"], ue[k], mode)
+
+
+def _sharded_apply(mesh, leaf, static, caches, ms, mode, u: Sharded):
+    views = {k: (_local(static, mesh, k), _local(caches, mesh, k),
+                 _local(ms, mesh, k)) for k in mesh.local}
+    M = [None] * mesh.size
+    for k in mesh.local:
+        M[k] = _up_pass(views[k][0], leaf, u.blocks[k])
+    sweep = _Sweep(mesh, caches, M, u)
+    out = [None] * mesh.size
+    for k in mesh.local:
+        st, cch, msk = views[k]
+        out[k] = fmm_apply_mode(
+            leaf, st, cch, msk, mode, u.blocks[k],
+            translate_fn=functools.partial(sweep.translate, k, st["shift"]),
+            near_fn=functools.partial(sweep.near, k), multipoles=M[k])
+    return Sharded(mesh, out)
+
+
+def sharded_solver(solver, mesh: Mesh, halo: str = "gspmd"):
+    """Wrap a TransportSolver (fmm backend, after set_coeff) for mesh
+    execution: (apply_fn, caches, mode_statics), where apply_fn(caches, ms,
+    mode, u) is the corrected mode-m matvec on a Sharded field u (ms =
+    mode_statics[m]), a Sharded field back.
+
+    halo: JAX's two names are kept.  torch has no partitioner, so "gspmd"
+    and "shardmap" both run the explicit exchange (parallel.halo: K10 halos,
+    K2-S and K1-S per shard, whole-level K1 / K3 where a level does not
+    split); any other value raises ValueError, as in JAX.
+    """
+    if halo not in ("gspmd", "shardmap"):
+        raise ValueError(f"unknown halo mode {halo!r}")
+    if solver.backend_name != "fmm" or solver._caches is None:
+        raise ValueError("sharded_solver needs an fmm solver after "
+                         "set_coeff")
+    mx, my = mesh.shape
+    if 4 % mx or 4 % my:
+        raise ValueError(f"mesh {mesh.shape}: each axis must divide 4 (the "
+                         "boxes of level 2 along it)")
+    static = shard_pytree(mesh, solver._fmm_static)
+    caches = shard_pytree(mesh, solver._caches)
+    mode_statics = [shard_pytree(mesh, ms) for ms in solver._mode_statics]
+    apply_fn = functools.partial(_sharded_apply, mesh,
+                                 solver._tcfg.leaf_level, static)
+    return apply_fn, caches, mode_statics

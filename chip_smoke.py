@@ -9,7 +9,7 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
 
   device   first the nvidia-smi name and power limit line as nvidia-smi
            prints it, then torch / CUDA versions and the TF32 pins
-  build    nvcc of K1, K2, K3, K9d, K9 and K7 and g++ of the host engine,
+  build    nvcc of K1, K2, K3, K9d, K9, K7 and K10 and g++ of the host engine,
            in parallel; per library the entry functions ptxas compiled, their
            most registers and any spill
   redesigned_kernels  ptxas's registers, spills and static shared memory
@@ -44,7 +44,12 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            the compat-transformed coefficients and at global ones on the
            raw coefficients, with its operation bound on the FP64 CUDA
            cores from the sub-segments of these pairs; its runtime-deg
-           instance at deg 9, 10 and 12 on 8^2 (128 target rows).
+           instance at deg 9, 10 and 12 on 8^2 (128 target rows);
+           at sharded512's shapes (8 shards of 256 x 128): K10, the halo
+           fill, f32 and f64, on u (one square) and on the leaf's M (two
+           boxes), bitwise against its plain version, with one Tensor.copy_
+           of the same bytes beside it; K1-S on one shard at levels 3-9 and
+           K2-S on one shard (compat off, on), f32 and f64.
            Gates: max|kernel - plain| <= 1e-5 max|plain| in f32 (sums of
            432 to 729 terms, or K3's 27 atomic adds, in another order) and
            1e-12 max|plain| in f64
@@ -127,12 +132,33 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            residual < 1e-8, x's residual through the f32 path < 1e-5;
            forward() time, device time and busy share, time per mode pair,
            the twin forward's time, launches per forward
+  sharded512  domain decomposition (aniso_torch.parallel) at the north
+           star's grid: 512^2, deg 3, g 0.5, np 4, f32, tol 1e-7, GMRES(80),
+           bench sigma and charge, on a 2 x 4 mesh of 8 shards on the card
+           (level 2 the replicated route, levels 3-9 sharded): the sharded
+           matvec within 1e-6 (relative 2-norm) of the one-device one, its
+           wall and device time beside the one-device matvec's, the
+           sharded GMRES solve in 14 +- 1 iterations with the true residual
+           (one-device operator) < 1e-5, K10 / K1-S / K2-S / K1 launches =
+           launches per matvec x matvecs, permute bytes per matvec < 8
+           fields, all-gather bytes those of level 2's M; the shard copies'
+           bytes and the peak memory
+  sharded64_compat  benchmarks/oracle_64 (compat on) on a 2 x 2 mesh, every
+           level 2-6 sharded: 18 +- 1 iterations, relative Linf < 1e-3
+           against oracle_64, one mode-1 sharded matvec within 1e-6 of the
+           one-device one, the same launch and byte gates
+  distributed1  parallel.distributed.init as a world-size-1 NCCL group on a
+           free localhost port, a 2 x 2 mesh of 4 shards on the card over
+           it: one sharded matvec within 1e-6 of the one-device one and one
+           all_reduce (the norm over the shards), then the group destroyed
   cli      `python -m aniso_torch run ...` in subprocesses in a temporary
            directory: oracle_64 on the FMM backend to tol 1e-10 and
            oracle_16 on the dense one, both with --compat-global-basis:
            exit code 0, result.csv within 1e-3 / 1e-2 of the oracle, and a
            second run warm-started from it in <= 1 iteration; oracle_16
-           also without the flag (its error reported, no gate)
+           also without the flag (its error reported, no gate); oracle_64
+           with --distributed as one process of an NCCL group (exit 0,
+           within 1e-3 of the oracle)
 
 then the kernels line (times at each kernel's main-path shapes, launches
 counted in the run of that path) and last
@@ -255,14 +281,17 @@ class Kernels:
     def __init__(self, torch, flush):
         from aniso_torch.fmm.apply import parity_shift_table_np
         from aniso_torch.kernels import (
-            attenuation, diffusion, m2l, near, offsets, pcg,
+            attenuation, diffusion, halo, m2l, near, offsets, pcg,
         )
 
         self.torch, self.flush = torch, flush
         self.m2l, self.near, self.offsets = m2l, near, offsets
         self.diffusion, self.attenuation, self.pcg = diffusion, attenuation, pcg
+        self.halo = halo
+        # K1-S and K2-S count under k1_shard_* / k2_shard_*
         self.modules = (("k1", m2l), ("k2", near), ("k3", offsets),
-                        ("k9d", diffusion), ("k9", pcg), ("k7", attenuation))
+                        ("k9d", diffusion), ("k9", pcg), ("k7", attenuation),
+                        ("k10", halo))
         self.shift = torch.as_tensor(parity_shift_table_np(),
                                      dtype=torch.int32, device=DEVICE)
 
@@ -393,6 +422,107 @@ class Kernels:
                     for d in range(D)])),
                 reps=7 if D else 21)
             rows.append({"variant": name, **row})
+        return rows
+
+    def k10(self, inst, lx, ly, q, w, mesh_n=8):
+        """K10 at one exchange of a mesh of mesh_n shards of (lx, ly, q)
+        on the card (the jobs parallel.halo builds: one launch), bitwise
+        against its plain version.  Bound: the extended blocks written once
+        and the regions they copy read once.  No PyTorch call computes the
+        fill; copy_ms is one Tensor.copy_ of the extended blocks' bytes,
+        the floor a copy reaches."""
+        from aniso_torch.parallel import api
+        from aniso_torch.parallel import halo as phalo
+
+        torch, halo = self.torch, self.halo
+        mesh = api.make_mesh(devices=[DEVICE] * mesh_n)
+        blocks = [self.rand((lx, ly, q), inst, normal=True, seed=100 + k)
+                  for k in range(mesh_n)]
+        groups, _ = phalo.exchange_jobs(mesh, blocks, w)
+        ((_, jobs),) = groups.values()
+        got = halo.halo_fill(jobs, w)
+        want = [halo.halo_fill_plain(regions, w) for regions in jobs]
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"K10 {inst} w {w}: not bitwise its plain version ({err})")
+        item = blocks[0].element_size()
+        written = sum(o.numel() for o in got) * item
+        read = item * sum(r.numel() for regions in jobs for row in regions
+                          for r in row if r is not None)
+        bms, bby = bound_ms(written + read, 0, inst)
+        src = torch.empty(written // item, dtype=blocks[0].dtype,
+                          device=DEVICE)
+        dst = torch.empty_like(src)
+        del got, want
+        return [{"w": w, "lx": lx, "ly": ly, "q": q, "shards": mesh_n,
+                 "max_abs_err": err, "bitwise": True,
+                 "ms": event_ms(torch, lambda: halo.halo_fill(jobs, w),
+                                flush=self.flush),
+                 "plain_ms": event_ms(torch, lambda: [
+                     halo.halo_fill_plain(regions, w) for regions in jobs],
+                     flush=self.flush),
+                 "copy_ms": event_ms(torch, lambda: dst.copy_(src),
+                                     flush=self.flush),
+                 "bytes": written + read, "flops": 0, "bound_ms": bms,
+                 "bound_by": bby}]
+
+    def k1s(self, sz, inst, levels, mesh=(2, 4), np_cheb=4):
+        """K1-S on one shard of an (mx, my) mesh of sz^2 at the given
+        levels: its (4, m2 / mx, m2 / my, r, 27r) slice of E in [0, 3) and
+        its multipoles extended by two boxes."""
+        m2l = self.m2l
+        r = np_cheb * np_cheb
+        rows = []
+        for level in levels:
+            m2 = (1 << level) // 2
+            m2x, m2y = m2 // mesh[0], m2 // mesh[1]
+            seed = 2000 * level + sz
+            E = self.rand((4, m2x, m2y, r, 27 * r), inst, 0.0, 3.0,
+                          seed=seed)
+            cosr = self.rand((4, r, 27 * r), inst, normal=True,
+                             seed=seed + 1)
+            Mext = self.rand((2 * m2x + 4, 2 * m2y + 4, r), inst,
+                             normal=True, seed=seed + 2)
+            item = E.element_size()
+            row = self.compare(
+                f"K1-S {inst} {sz}^2 shard {mesh} level {level}", inst,
+                lambda: m2l.m2l_translate_shard(E, cosr, Mext, self.shift),
+                lambda: m2l.m2l_translate_shard_plain(E, cosr, Mext,
+                                                      self.shift),
+                item * (E.numel() + cosr.numel() + Mext.numel()
+                        + 4 * m2x * m2y * r) + 4 * self.shift.numel(),
+                4 * E.numel())
+            rows.append({"level": level, "m2x": m2x, "m2y": m2y, **row})
+            del E
+        return rows
+
+    def k2s(self, lx, ly, inst, variants=(("m0", False),), nq=NQ):
+        """K2-S on one (lx, ly) shard with its halo-extended u, with and
+        without the Duffy term (slot 0 is mode 0)."""
+        near = self.near
+        seed = 3000 + lx
+        E = self.rand((lx, ly, nq, 3, 3, nq), inst, 0.0, 0.5, seed=seed)
+        cosrw, S, ue, sigma_w, duffy = (
+            self.rand(shape, inst, normal=True, seed=seed + k)
+            for k, shape in enumerate(((nq, 3, 3, nq), (nq, 3, 3, nq),
+                                       (lx + 2, ly + 2, nq), (lx, ly, nq),
+                                       (lx, ly, nq, nq)), 1))
+        rows = []
+        for name, compat in variants:
+            dfy = duffy if compat else None
+            item = E.element_size()
+            row = self.compare(
+                f"K2-S {inst} shard {lx} x {ly} {name}", inst,
+                lambda: near.near_contract_shard(E, cosrw, S, ue, sigma_w,
+                                                 dfy),
+                lambda: near.near_contract_shard_plain(E, cosrw, S, ue,
+                                                       sigma_w, dfy),
+                item * (E.numel() + cosrw.numel() + S.numel() + ue.numel()
+                        + 2 * sigma_w.numel()
+                        + (0 if dfy is None else dfy.numel())),
+                4 * E.numel())
+            rows.append({"variant": name, "lx": lx, "ly": ly, **row})
         return rows
 
     def k3(self, sz, inst, levels, coeffs_np, D=None, deg=3, np_cheb=4):
@@ -1049,7 +1179,12 @@ def run_cli(torch):
     cases = (("oracle_64", "fmm", ["--tol", "1e-10", "--compat-global-basis"],
               1e-3),
              ("oracle_16", "dense", ["--compat-global-basis"], 1e-2),
-             ("oracle_16", "dense", [], None))
+             ("oracle_16", "dense", [], None),
+             # one process of a torch.distributed group (NCCL), cold only
+             ("oracle_64", "fmm", ["--compat-global-basis", "--distributed",
+                                   "--coordinator", f"127.0.0.1:{free_port()}",
+                                   "--num-processes", "1",
+                                   "--process-id", "0"], 1e-3))
     out = {"phase": "cli", "runs": []}
     with tempfile.TemporaryDirectory() as tmp:
         for k, (oracle, backend, extra, gate) in enumerate(cases):
@@ -1058,7 +1193,8 @@ def run_cli(torch):
             cmd = [sys.executable, "-m", "aniso_torch", "run",
                    os.path.join(ROOT, "benchmarks", oracle, "data.cfg"),
                    "--backend", backend, *extra]
-            for warm in ((False, True) if gate else (False,)):
+            rerun = gate and "--distributed" not in extra
+            for warm in ((False, True) if rerun else (False,)):
                 t0 = time.perf_counter()
                 proc = subprocess.run(cmd, cwd=cwd, env=env,
                                       capture_output=True, text=True,
@@ -1596,6 +1732,217 @@ def run_mm512(torch, kern):
     return out
 
 
+def free_port() -> int:
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def sharded_solve(torch, kern, s, mesh, q, tol, restart=80, max_iter=400):
+    """The sharded corrected matvec and a GMRES solve of u - K0(sigma_s u)
+    = K0 q on Sharded fields (the JAX package's tests/test_parallel.py
+    solve), with the counters set to 0 just before and read just after:
+    launches, collectives (parallel.halo), matvecs."""
+    from aniso_torch.parallel import api, halo
+    from aniso_torch.solver.gmres import gmres
+
+    apply_fn, caches, ms = api.sharded_solver(s, mesh)
+    sig = api.shard_field(mesh, s.sigma_s)
+    u = api.shard_field(mesh, torch.as_tensor(q, dtype=s.dtype,
+                                              device=DEVICE))
+    calls = []
+
+    def matvec(v):
+        calls.append(1)
+        return v - apply_fn(caches, ms[0], 0, sig * v)
+
+    kern.reset()
+    halo.reset_collectives()
+    t0 = time.perf_counter()
+    b = apply_fn(caches, ms[0], 0, u)
+    res = gmres(matvec, b, restart=restart, max_iter=max_iter, tol=tol)
+    torch.cuda.synchronize()
+    out = {"solve_s": time.perf_counter() - t0, "matvecs": 1 + len(calls),
+           "launches": kern.counts(),
+           "collectives": halo.collective_stats()._asdict(),
+           "iterations": res.iterations, "converged": res.converged,
+           "givens_estimate": res.residual}
+    x = res.x.full()
+    # the true residual through the one-device operator
+    qt = torch.as_tensor(q, dtype=s.dtype, device=DEVICE)
+    b1 = s.apply_mode(0, qt)
+    out["true_relative_residual"] = float(torch.linalg.vector_norm(
+        x - s.apply_mode(0, s.sigma_s * x) - b1)
+        / torch.linalg.vector_norm(b1))
+    return res, out, x, (apply_fn, caches, ms)
+
+
+def check_sharded_counts(name, out, mesh, tcfg, sharded_levels, field_bytes,
+                         inst="f32"):
+    """Launches per matvec: K10 once for u and once per sharded level
+    (one launch: every shard on one card), K1-S and K2-S once per shard and
+    sharded level, K1 whole-level once per replicated level; permute bytes
+    O(halo), all-gather bytes only those of the replicated levels' M."""
+    n, shards = out["matvecs"], mesh.size
+    repl = [lv for lv in range(2, tcfg.leaf_level + 1)
+            if lv not in sharded_levels]
+    check_launches(name, out, {
+        f"k10_{inst}": n * (1 + len(sharded_levels)),
+        f"k1_shard_{inst}": n * shards * len(sharded_levels),
+        f"k2_shard_{inst}": n * shards,
+        f"k1_{inst}": n * len(repl)})
+    st = out["collectives"]
+    itemsize = 4 if inst == "f32" else 8
+    gathered = n * sum(4 ** lv * R * itemsize for lv in repl)
+    check(st["bytes"].get("permute", 0) / n < 8 * field_bytes,
+          f"{name}: permute bytes {st['bytes']} per matvec vs 8 fields")
+    check(st["bytes"].get("all-gather", 0) == gathered,
+          f"{name}: all-gather bytes {st['bytes']}, expected {gathered} "
+          "(the replicated levels' M)")
+
+
+def run_sharded512(torch, kern):
+    """The north star's grid on a 2 x 4 mesh of 8 shards on the card:
+    512^2, deg 3, g 0.5, np 4, f32, tol 1e-7, GMRES(80), bench sigma and
+    charge.  Level 2 takes the replicated route, levels 3-9 are sharded."""
+    from aniso_torch.parallel import api
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s = make_solver(torch, NORTH, 0.5, False)
+    grid, tcfg = s.grid, s._tcfg
+    out = {"phase": "sharded512", "sz": NORTH, "g": 0.5, "tol": 1e-7,
+           "set_coeff_s": timed_set_coeff(torch, s),
+           "cache_report_bytes": s.cache_report()}
+    mesh = api.make_mesh(devices=[DEVICE] * 8)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    apply_fn, caches, ms = api.sharded_solver(s, mesh)
+    torch.cuda.synchronize()
+    out.update({"mesh": list(mesh.shape), "placement_s":
+                time.perf_counter() - t0,
+                "shard_copies_bytes": torch.cuda.memory_allocated() - before})
+    q = bench_charge(grid)
+    qt = torch.as_tensor(q, dtype=s.dtype, device=DEVICE)
+    u = api.shard_field(mesh, qt)
+    ref = s.apply_mode(0, qt)
+    got = apply_fn(caches, ms[0], 0, u).full()
+    out["matvec_rel_err"] = float(torch.linalg.vector_norm(got - ref)
+                                  / torch.linalg.vector_norm(ref))
+    out["apply_ms"] = event_ms(torch, lambda: s.apply_mode(0, qt))
+    out["sharded_apply_ms"] = event_ms(
+        torch, lambda: apply_fn(caches, ms[0], 0, u))
+    out["matvec_device_ms"], _ = device_ms_per_call(
+        torch, lambda: s.apply_mode(0, qt))
+    (out["sharded_matvec_device_ms"],
+     out["sharded_matvec_device_kernels"]) = device_ms_per_call(
+        torch, lambda: apply_fn(caches, ms[0], 0, u))
+    del apply_fn, caches, ms
+    res, run, x, _ = sharded_solve(torch, kern, s, mesh, q, 1e-7)
+    out.update(run)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["finite"] = bool(torch.isfinite(x).all())
+    emit(out)
+    check(out["finite"] and x.shape == (NORTH, NORTH, NQ),
+          "sharded512: bad x")
+    check(out["matvec_rel_err"] < 1e-6,
+          f"sharded512: matvec {out['matvec_rel_err']} from the one-device")
+    check(res.converged and abs(res.iterations - 14) <= 1,
+          f"sharded512: {res.iterations} iterations, expected 14 +- 1")
+    check(out["true_relative_residual"] < 1e-5,
+          f"sharded512: true residual {out['true_relative_residual']}")
+    check_sharded_counts("sharded512", out, mesh, tcfg,
+                         list(range(3, tcfg.leaf_level + 1)),
+                         grid.n_nodes * 4)
+    return out
+
+
+def run_sharded64_compat(torch, kern):
+    """benchmarks/oracle_64 with the reference's basis quirk on a 2 x 2
+    mesh (every level 2-6 sharded): the oracle solve, and one mode-1
+    sharded matvec (no diagonal) against the one-device one."""
+    from aniso_torch.parallel import api
+
+    s = make_solver(torch, 64, 0.95, True, kernel_size=2)
+    grid, tcfg = s.grid, s._tcfg
+    out = {"phase": "sharded64_compat", "sz": 64, "g": 0.95,
+           "compat_global_basis": True, "tol": 1e-7,
+           "set_coeff_s": timed_set_coeff(torch, s)}
+    mesh = api.make_mesh(devices=[DEVICE] * 4)
+    res, run, x, (apply_fn, caches, ms) = sharded_solve(
+        torch, kern, s, mesh, bench_charge(grid), 1e-7)
+    out.update(run)
+    out["mesh"] = list(mesh.shape)
+    xf = x.double().cpu().numpy().reshape(-1)
+    out["oracle_rel_linf"] = oracle_error(grid, "oracle_64", xf)
+    u1 = torch.as_tensor(fields_from_seed(grid, 1)[0], dtype=s.dtype,
+                         device=DEVICE)
+    ref1 = s.apply_mode(1, u1)
+    got1 = apply_fn(caches, ms[1], 1, api.shard_field(mesh, u1)).full()
+    out["mode1_matvec_rel_err"] = float(torch.linalg.vector_norm(
+        got1 - ref1) / torch.linalg.vector_norm(ref1))
+    emit(out)
+    check(bool(np.isfinite(xf).all()), "sharded64_compat: bad x")
+    check(res.converged and abs(res.iterations - 18) <= 1,
+          f"sharded64_compat: {res.iterations} iterations, expected 18 +- 1")
+    check(out["oracle_rel_linf"] < 1e-3,
+          f"sharded64_compat: {out['oracle_rel_linf']} vs oracle_64")
+    check(out["mode1_matvec_rel_err"] < 1e-6,
+          f"sharded64_compat: mode-1 matvec {out['mode1_matvec_rel_err']}")
+    check_sharded_counts("sharded64_compat", out, mesh, tcfg,
+                         list(range(2, tcfg.leaf_level + 1)),
+                         grid.n_nodes * 4)
+    return out
+
+
+def run_distributed1(torch, kern):
+    """parallel.distributed.init as a world-size-1 NCCL group on a free
+    localhost port, a 2 x 2 mesh of 4 shards on the card over it: one
+    sharded matvec against the one-device one, and one all_reduce (the
+    norm of its result over the shards)."""
+    from aniso_torch.parallel import api, distributed, halo
+
+    port = free_port()
+    distributed.init(f"127.0.0.1:{port}", 1, 0)
+    try:
+        backend = torch.distributed.get_backend()
+        s = make_solver(torch, 64, 0.95, True)
+        timed_set_coeff(torch, s)
+        mesh = api.make_mesh(devices=[DEVICE] * 4)
+        apply_fn, caches, ms = api.sharded_solver(s, mesh)
+        u = torch.as_tensor(bench_charge(s.grid), dtype=s.dtype,
+                            device=DEVICE)
+        ref = s.apply_mode(0, u)
+        out_sh = apply_fn(caches, ms[0], 0, api.shard_field(mesh, u))
+        halo.reset_collectives()
+        norm = out_sh.krylov_space().norm(out_sh)
+        st = halo.collective_stats()
+        got = out_sh.full()
+        out = {"phase": "distributed1", "backend": backend, "port": port,
+               "world_size": torch.distributed.get_world_size(),
+               "mesh": list(mesh.shape), "distributed": mesh.distributed,
+               "collectives": st._asdict(),
+               "matvec_rel_err": float(torch.linalg.vector_norm(got - ref)
+                                       / torch.linalg.vector_norm(ref)),
+               "norm_rel_err": abs(norm - float(torch.linalg.vector_norm(
+                   ref.double()))) / float(torch.linalg.vector_norm(
+                       ref.double()))}
+    finally:
+        distributed.shutdown()
+    emit(out)
+    check(out["backend"] == "nccl" and out["world_size"] == 1
+          and out["distributed"], f"distributed1: {out}")
+    check(out["matvec_rel_err"] < 1e-6,
+          f"distributed1: matvec {out['matvec_rel_err']}")
+    check(st.counts == {"all-reduce": 1} and out["norm_rel_err"] < 1e-5,
+          f"distributed1: {st}, norm {out['norm_rel_err']}")
+    return out
+
+
 def ptxas_usage(log, names):
     """Per entry function of an nvcc -Xptxas -v log whose mangled name
     holds one of `names`: the function, its registers, its spill line and
@@ -1763,6 +2110,16 @@ def main():
             DEMO, "f64", lv[DEMO][-2:], demo_coeffs(DEMO), D=D, deg=1,
             np_cheb=n)
         torch.cuda.empty_cache()
+    # K10 at sharded512's exchanges (8 shards of 256 x 128: u with one
+    # square of halo, the leaf's M with two boxes); K1-S at one of its
+    # shards at every sharded level (3-9), K2-S at one of its shards
+    shard = (NORTH // 2, NORTH // 4)
+    for inst in ("f32", "f64"):
+        chk[NORTH, f"k10_{inst}"] = (kern.k10(inst, *shard, NQ, 1)
+                                     + kern.k10(inst, *shard, R, 2))
+        chk[NORTH, f"k1s_{inst}"] = kern.k1s(NORTH, inst, lv[NORTH][1:])
+        chk[NORTH, f"k2s_{inst}"] = kern.k2s(*shard, inst, both)
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     for sz in sorted({8, 16, 32, 64, 128, DSA_SZ, DEMO, NORTH}):
         emit({"phase": "kernels_vs_plain", "sz": sz,
@@ -1793,6 +2150,11 @@ def main():
     np6 = run_np6(torch, kern)
     torch.cuda.empty_cache()
     mm = run_mm512(torch, kern)
+    torch.cuda.empty_cache()
+    sh512 = run_sharded512(torch, kern)
+    torch.cuda.empty_cache()
+    sh64 = run_sharded64_compat(torch, kern)
+    dist1 = run_distributed1(torch, kern)
     torch.cuda.empty_cache()
     run_cli(torch)
 
@@ -1946,6 +2308,35 @@ def main():
                     **{f"bound_ms_8_deg{d}": chk[8, f"k7_deg{d}"][0]["bound_ms"]
                        for d in (9, 10, 12)},
                     max_abs_err_all_sizes=worst("k7")),
+        # domain decomposition (sharded512: 8 shards of 256 x 128 on one
+        # card): K10 per matvec's u exchange plus its leaf M exchange, one
+        # launch each; K1-S and K2-S on one shard (levels 3-9), launched
+        # once per shard
+        kernel_line("halo_fill", "aniso_torch/csrc/halo_fill.cu",
+                    "aniso_tpu/parallel/halo.py:30",
+                    sh512["launches"]["k10_f32"], chk[NORTH, "k10_f32"],
+                    id="K10", shapes="sharded512: u (w 1) + leaf M (w 2), "
+                    "8 shards of 256 x 128, one launch each",
+                    copy_ms=sum(r["copy_ms"] for r in chk[NORTH, "k10_f32"]),
+                    ms_f64=Kernels.total(chk[NORTH, "k10_f64"])["ms"],
+                    launches_sharded64=sh64["launches"]["k10_f32"],
+                    bitwise=True, max_abs_err_all_sizes=worst("k10_f32")),
+        kernel_line("m2l_translate_shard", "aniso_torch/csrc/m2l_translate.cu",
+                    "aniso_tpu/parallel/halo.py:106",
+                    sh512["launches"]["k1_shard_f32"], chk[NORTH, "k1s_f32"],
+                    id="K1-S", shapes="one sharded512 shard, levels 3-9",
+                    ms_f64=Kernels.total(chk[NORTH, "k1s_f64"])["ms"],
+                    launches_sharded64=sh64["launches"]["k1_shard_f32"],
+                    max_abs_err_all_sizes=worst("k1s_f32")),
+        kernel_line("near_contract_shard", "aniso_torch/csrc/near_contract.cu",
+                    "aniso_tpu/parallel/halo.py:56",
+                    sh512["launches"]["k2_shard_f32"],
+                    chk[NORTH, "k2s_f32"][:1], id="K2-S",
+                    shapes="one sharded512 shard, 256 x 128",
+                    ms_compat=chk[NORTH, "k2s_f32"][1]["ms"],
+                    ms_f64=chk[NORTH, "k2s_f64"][0]["ms"],
+                    launches_sharded64=sh64["launches"]["k2_shard_f32"],
+                    max_abs_err_all_sizes=worst("k2s_f32")),
     ]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr, flush=True)

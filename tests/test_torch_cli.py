@@ -97,9 +97,41 @@ def test_checkpoint_round_trip(cfg_path, tmp_path, capsys):
     assert cli.main(["checkpoint", str(tmp_path / "absent.npz")]) == 1
 
 
-def test_distributed_raises(cfg_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
+def test_distributed_raises(cfg_path, monkeypatch):
+    """--distributed runs now (parallel.distributed); with no coordinator
+    and none of torch's rendezvous environment it cannot form a group and
+    raises, before any solve."""
+    for var in ("ANISO_COORDINATOR", "ANISO_NUM_PROCESSES",
+                "ANISO_PROCESS_ID", "MASTER_ADDR", "MASTER_PORT",
+                "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="env://"):
         cli.main(["run", cfg_path, "--device", "cpu", "--distributed"])
+
+
+def test_distributed_one_process_matches_plain_run(cfg_path, tmp_path,
+                                                    capsys):
+    """--distributed with one process on a localhost coordinator (gloo on
+    the CPU): the same x as the run without it, and `info` then still
+    reports process 0 of 1."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    plain, dist = tmp_path / "plain.csv", tmp_path / "dist.csv"
+    base = ["run", cfg_path, "--device", "cpu", "--backend", "fmm",
+            "--points", str(tmp_path / "p.csv")]
+    assert cli.main(base + ["--result", str(plain)]) == 0
+    assert cli.main(base + ["--result", str(dist), "--distributed",
+                            "--coordinator", f"127.0.0.1:{port}",
+                            "--num-processes", "1", "--process-id", "0"]) == 0
+    np.testing.assert_array_equal(np.loadtxt(dist), np.loadtxt(plain))
+    capsys.readouterr()
+    assert cli.main(["info"]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert (info["process_index"], info["process_count"]) == (0, 1)
 
 
 def test_run_needs_the_card_unless_asked(cfg_path, tmp_path):

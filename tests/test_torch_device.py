@@ -24,7 +24,7 @@ from aniso_torch.core.geometry import make_grid, project_field
 from aniso_torch.fmm.smooth import build_m2l_offsets_fine
 from aniso_torch.fmm.structure import tree_config
 from aniso_torch.kernels import (
-    _cuda, attenuation, diffusion, m2l, near, offsets, pcg,
+    _cuda, attenuation, diffusion, halo, m2l, near, offsets, pcg,
 )
 from aniso_torch.ops.attenuation import make_line_integral
 from aniso_torch.solver.dsa import _face_coeffs
@@ -56,6 +56,8 @@ def test_port_imports_neither_jax_nor_aniso_tpu():
         "import aniso_torch.kernels.diffusion, chip_smoke\n"
         "import aniso_torch.cli, aniso_torch.ops.dense, aniso_torch.utils\n"
         "import aniso_torch.kernels.attenuation, aniso_torch.kernels.pcg\n"
+        "import aniso_torch.kernels.halo, aniso_torch.parallel.api\n"
+        "import aniso_torch.parallel.halo, aniso_torch.parallel.distributed\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m.startswith('aniso_tpu')]\n"
         "assert not bad, bad\n"
@@ -122,12 +124,41 @@ def _k3_inputs(device, dtype=torch.float32, sz=16, level=4, np_cheb=4):
             t(parity_shift_table_np(), torch.int32))
 
 
+def _k1s_inputs(device, dtype=torch.float32, m2x=2, m2y=3, r=16):
+    """K1-S: a shard's (4, m2x, m2y, r, 27r) slice of E and its multipoles
+    extended by two boxes."""
+    rng = np.random.default_rng(4)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, dtype=dt).to(device)
+
+    return (t(rng.uniform(0, 2, (4, m2x, m2y, r, 27 * r))),
+            t(rng.standard_normal((4, r, 27 * r))),
+            t(rng.standard_normal((2 * m2x + 4, 2 * m2y + 4, r))),
+            t(parity_shift_table_np(), torch.int32))
+
+
+def _k2s_inputs(device, dtype=torch.float32, lx=4, ly=3, nq=9):
+    """K2-S: a shard's slices and its halo-extended u."""
+    rng = np.random.default_rng(5)
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype).to(device)
+
+    return (t((lx, ly, nq, 3, 3, nq)).abs(), t((nq, 3, 3, nq)),
+            t((nq, 3, 3, nq)), t((lx + 2, ly + 2, nq)), t((lx, ly, nq)),
+            t((lx, ly, nq, nq)))
+
+
 _INPUTS = {"m2l": (m2l.m2l_translate, _k1_inputs),
            "near": (near.near_contract, _k2_inputs),
-           "offsets": (offsets.offsets_translate, _k3_inputs)}
+           "offsets": (offsets.offsets_translate, _k3_inputs),
+           "m2l_shard": (m2l.m2l_translate_shard, _k1s_inputs),
+           "near_shard": (near.near_contract_shard, _k2s_inputs)}
 
 
-@pytest.mark.parametrize("kernel", ["m2l", "near", "offsets"])
+@pytest.mark.parametrize("kernel", ["m2l", "near", "offsets", "m2l_shard",
+                                    "near_shard"])
 def test_wrappers_raise_on_tensors_off_the_cpu_without_a_kernel(kernel):
     """A tensor that is neither on the CPU nor a launchable CUDA tensor
     (here on the meta device) is refused, never computed by the plain
@@ -137,7 +168,8 @@ def test_wrappers_raise_on_tensors_off_the_cpu_without_a_kernel(kernel):
         fn(*inputs("meta"))
 
 
-@pytest.mark.parametrize("kernel", ["m2l", "near", "offsets"])
+@pytest.mark.parametrize("kernel", ["m2l", "near", "offsets", "m2l_shard",
+                                    "near_shard"])
 def test_wrappers_refuse_other_dtypes(kernel):
     """Only the float32 and float64 instances exist: a float16 tensor off
     the CPU is refused before any launch."""
@@ -149,7 +181,7 @@ def test_wrappers_refuse_other_dtypes(kernel):
 
 
 @pytest.mark.parametrize("kernel", [m2l, near, offsets, diffusion,
-                                    attenuation, pcg])
+                                    attenuation, pcg, halo])
 def test_kernel_load_raises_without_cuda(no_cuda, kernel):
     with pytest.raises(RuntimeError):
         _cuda.load(kernel.SOURCE, next(iter(kernel.SYMBOLS.values())), ())
@@ -515,3 +547,142 @@ def test_line_integral_kernel_high_deg_matches_plain_on_card(cuda_device,
         want = attenuation.dense_smooth_rows_plain(g, coeffs, pts, w, diag,
                                                    0, 200, [0, 1], compat)
         _gate(got, want, torch.float64)
+
+
+def _halo_jobs(device, dtype, lx, ly, q, w, seed, receive=False):
+    """K10's jobs for the 8 shards of a 2 x 4 mesh of (lx, ly, q) blocks:
+    each shard's regions as views of its neighbours' blocks, or (receive)
+    as contiguous copies, the form of a P2P receive buffer."""
+    from aniso_torch.parallel.api import make_mesh
+    from aniso_torch.parallel.halo import DIRECTIONS, neighbour_region
+
+    mesh = make_mesh(devices=[device] * 8)
+    rng = np.random.default_rng(seed)
+    blocks = [torch.as_tensor(rng.standard_normal((lx, ly, q)),
+                              dtype=dtype).to(device) for _ in range(8)]
+    jobs = []
+    for k in range(8):
+        regions = [[None] * 3 for _ in range(3)]
+        regions[1][1] = blocks[k]
+        for a, b in DIRECTIONS:
+            nb = mesh.neighbour(k, a - 1, b - 1)
+            if nb is not None:
+                r = neighbour_region(blocks[nb], a, b, w)
+                regions[a][b] = r.contiguous() if receive else r
+        jobs.append(regions)
+    return jobs
+
+
+@pytest.mark.parametrize("receive", [False, True])
+def test_halo_fill_plain_is_the_zero_padded_block(receive):
+    """On the CPU: every shard's extended block is the window of the whole
+    zero-padded array around its block, from neighbour views and from
+    receive-buffer copies alike."""
+    jobs = _halo_jobs("cpu", torch.float64, 4, 3, 5, 2, 0, receive)
+    whole = torch.zeros((2 * 4 + 4, 4 * 3 + 4, 5), dtype=torch.float64)
+    for k, regions in enumerate(jobs):
+        ix, iy = divmod(k, 4)
+        whole[2 + 4 * ix:6 + 4 * ix, 2 + 3 * iy:5 + 3 * iy] = regions[1][1]
+    outs = halo.halo_fill(jobs, 2)
+    for k, out in enumerate(outs):
+        ix, iy = divmod(k, 4)
+        assert torch.equal(out, whole[4 * ix:4 * ix + 8, 3 * iy:3 * iy + 7])
+
+
+def test_halo_fill_refuses_what_the_kernel_does_not_take():
+    jobs = _halo_jobs("meta", torch.float32, 4, 3, 5, 1, 0)
+    with pytest.raises(ValueError):
+        halo.halo_fill(jobs, 1)
+    half = [[None if r is None else r.half() for r in row] for row in jobs[0]]
+    with pytest.raises(TypeError):
+        halo.halo_fill([half], 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("w,q,receive", [(1, 9, False), (1, 16, False),
+                                         (2, 16, False), (2, 16, True),
+                                         (2, 9, True)])
+def test_halo_fill_kernel_matches_plain_on_card(cuda_device, dtype, w, q,
+                                                receive):
+    """K10 bitwise against its plain version: one launch for the 8 shards,
+    16-byte copies (q 16) and one value a thread (q 9 in float32, odd
+    strides)."""
+    jobs = _halo_jobs(cuda_device, dtype, 12, 6, q, w, q + w, receive)
+    inst = _cuda.INSTANCES[dtype]
+    n0 = halo.launches[inst]
+    got = halo.halo_fill(jobs, w)
+    assert halo.launches[inst] == n0 + 1
+    torch.cuda.synchronize()
+    for out, regions in zip(got, jobs):
+        assert torch.equal(out, halo.halo_fill_plain(regions, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D,m2x,m2y,np_cheb", [(1, 4, 2, 4), (1, 2, 3, 3),
+                                               (9, 4, 2, 4), (5, 8, 4, 4),
+                                               (3, 2, 2, 3)])
+def test_m2l_shard_kernel_matches_plain_on_card(cuda_device, dtype, D, m2x,
+                                                m2y, np_cheb):
+    """K1-S (the one-mode kernel at D = 1, the all-modes one above)
+    against its plain version on a shard's rectangle."""
+    r = np_cheb * np_cheb
+    E, cosr, Mext, shift = _k1s_inputs(cuda_device, dtype, m2x, m2y, r)
+    if D > 1:
+        cosr = _mode_tables((4, r, 27 * r), D, cuda_device, dtype, 15)
+    inst = _cuda.INSTANCES[dtype]
+    n0 = m2l.launches["shard_" + inst]
+    got = m2l.m2l_translate_shard(E, cosr, Mext, shift)
+    assert m2l.launches["shard_" + inst] == n0 + 1
+    _gate(got, m2l.m2l_translate_shard_plain(E, cosr, Mext, shift), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [1, 9])
+@pytest.mark.parametrize("compat", [False, True])
+def test_near_shard_kernel_matches_plain_on_card(cuda_device, dtype, D,
+                                                 compat):
+    E, cosrw, S, ue, sigma_w, duffy = _k2s_inputs(cuda_device, dtype, 8, 4)
+    if D > 1:
+        cosrw = _mode_tables((9, 3, 3, 9), D, cuda_device, dtype, 16)
+        S = _mode_tables((9, 3, 3, 9), D, cuda_device, dtype, 17)
+        duffy = _mode_tables((8, 4, 9, 9), D, cuda_device, dtype, 18)
+    duffy = duffy if compat else None
+    inst = _cuda.INSTANCES[dtype]
+    n0 = near.launches["shard_" + inst]
+    got = near.near_contract_shard(E, cosrw, S, ue, sigma_w, duffy)
+    assert near.launches["shard_" + inst] == n0 + 1
+    _gate(got, near.near_contract_shard_plain(E, cosrw, S, ue, sigma_w,
+                                              duffy), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_matvec_on_card_matches_one_device(cuda_device, dtype):
+    """The whole sharded matvec on a 2 x 4 mesh of shards on one card
+    (K10, K1-S, K2-S; K1 whole-level at level 2) against the card's
+    one-device matvec, with the launches per matvec."""
+    from aniso_torch.parallel import api
+
+    s = TransportSolver(SolverConfig(domain_size=32, quad_rule=3, np_cheb=4,
+                                     g=0.5, dtype=dtype, sing_rule=8),
+                        backend="fmm", device=cuda_device)
+    g = s.grid
+    sig = 8 * (1 - np.cos(2 * np.pi * g.nodes_x))
+    s.set_coeff(sig, sig + 0.2)
+    u = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (32, 32, g.nq)), dtype=s.dtype, device=cuda_device)
+    mesh = api.make_mesh(devices=[cuda_device] * 8)
+    apply_fn, caches, ms = api.sharded_solver(s, mesh)
+    inst = _cuda.INSTANCES[s.dtype]
+    n = (halo.launches[inst], m2l.launches["shard_" + inst],
+         near.launches["shard_" + inst], m2l.launches[inst])
+    out = apply_fn(caches, ms[0], 0, api.shard_field(mesh, u)).full()
+    # K10: u and levels 3-5; K1-S: 8 shards x levels 3-5; K2-S: 8 shards;
+    # K1 at level 2 once for the device
+    assert (halo.launches[inst] - n[0], m2l.launches["shard_" + inst] - n[1],
+            near.launches["shard_" + inst] - n[2],
+            m2l.launches[inst] - n[3]) == (4, 24, 8, 1)
+    _gate(out, s.apply_mode(0, u), s.dtype)
