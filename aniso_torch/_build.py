@@ -5,7 +5,8 @@ Two kinds, both with a plain C interface loaded by ctypes:
   * CUDA kernels (K1 and K1-S m2l_translate.cu, K2 and K2-S
     near_contract.cu, K3 offsets_translate.cu, K9d diffusion_apply.cu, K9
     pcg.cu, K10 halo_fill.cu, each with a float32 and a float64 entry; K7
-    line_integral.cu, float64): one nvcc
+    line_integral.cu, float64 arithmetic, its dense matrices stored in
+    float64 or float32): one nvcc
     per source, ``-gencode arch=compute_90a,code=sm_90a -O3 -shared``, no fast
     math (E feeds exp/expm1; ``--use_fast_math`` would turn them into the
     approximate intrinsics and expm1 of a small E into exp - 1);

@@ -1,10 +1,10 @@
 // K7: the exact attenuation line integral E(p, q) = int sigma_t along the
-// segment p -> q, for sm_90a, float64, in two entries:
+// segment p -> q, for sm_90a, float64 arithmetic, in two entries:
 //
 //   aniso_line_integral_pairs_f64  E[k] for a list of pairs p0[k] -> p1[k]
-//   aniso_dense_smooth_rows_f64    rows [row0, row0 + nrows) of the dense
-//       smooth matrices of modes m0 .. m0 + D - 1, fused:
-//         out[d, t - row0, s] = expm1(-E(t -> s)) cos(m theta) / r * w[s]
+//   aniso_dense_smooth_f64 / _f32  the whole dense smooth matrices of modes
+//       m0 .. m0 + D - 1, fused, stored in float64 or float32:
+//         out[d, t, s] = expm1(-E(t -> s)) cos(m theta) / r * w[s]
 //       with (dx, dy) = x_s - x_t, r = |(dx, dy)|, cos(m theta) = T_m(dx / r)
 //       by the Chebyshev recurrence; at r = 0 diag[t] * w[t] for m = 0 and
 //       0 for the other modes.
@@ -31,24 +31,40 @@
 // 67 TFLOP/s of the FP64 tensor cores serve only matrix products, and this
 // is a data-dependent walk of scalar multiply-adds).  Per sub-segment about
 // 16 + deg (16 + 2 deg^2 + 2 deg + 10 (deg - 2)) operations (deg 3: 166;
-// kernels/attenuation.py:flops_per_subsegment); at 64^2, deg 3 the 1.36e9
-// pairs hold 5.9e10 sub-segments, ~1e13 operations, a bound of ~0.3 s.
-// Writing the f64 matrix (10.9 GB at 64^2) takes 3.2 ms at 3.35 TB/s.
+// kernels/attenuation.py:flops_per_subsegment).  The dense matrices need E
+// of each unordered pair once: at 64^2, deg 3 the 6.8e8 pairs hold 2.95e10
+// sub-segments, ~4.9e12 operations, a bound of ~147 ms (all ordered pairs,
+// as the row form computed them: 294 ms).  Writing the f64 matrix (10.9 GB
+// at 64^2) takes 3.2 ms at 3.35 TB/s.
 //
-// Design: one thread per pair.  In the dense entry a block row is one
-// target t and its threads take consecutive sources s, so the threads of a
-// warp walk segments of similar length through neighbouring cells
-// (divergence stays low, the coefficient rows they read overlap in L1) and
-// their stores are coalesced.  The coefficients (sz^2 deg^2 values, 295 KB
-// at 64^2, divided by the basis norms by the wrapper) stay in L2 and are
-// read through __ldg.  The instances are templates on deg (1..8) so that
-// the Legendre values and a cell's coefficients live in registers; any
-// higher deg runs in one runtime-deg instance (DEG = 0) that reads the
-// cell's deg^2 coefficients and the Gauss rule through __ldg as it sums
-// them and takes each Legendre value by the same recurrence as it goes (no
-// array of deg values: simple, not tuned).  E is
-// symmetric, but every pair is computed: simple first.  Indices of the
-// output are 64-bit (D n^2 exceeds 2^31 at 64^2).
+// Design: one thread per pair.  The dense entry is symmetric: E(t -> s) =
+// E(s -> t) and, with the direction reversed, cos(m theta) turns into
+// (-1)^m cos(m theta), so a block takes a tile of 16 targets x 16 sources
+// in the upper triangle of tiles (target tile <= source tile; the grid
+// walks that triangle row by row), computes E once per pair and writes
+// K[t, s] for every mode, then passes expm1(-E) / r and dx / r through
+// shared memory and writes the mirrored tile K[s, t] = expm1(-E) / r
+// T_m(-dx / r) w[t]: both stores are rows of 16 contiguous values.  A
+// diagonal tile computes its upper half and the r = 0 entries.  The
+// threads of a warp take two targets and 16 neighbouring sources, so they
+// walk segments of similar length through neighbouring cells.  The whole
+// matrix is one launch, written in the solver's dtype: no row chunks and
+// no temporary.  Occupancy: the Gauss rule sits in shared memory and the
+// walk keeps only the start, direction, next line and count of each axis
+// (the start point and direction serve as the JAX expression's a0 and
+// a1 - a0), under __launch_bounds__ of 4 blocks of 256 threads an SM at
+// deg <= 4 (2 at deg 5).  A piece lies in one cell by construction (it ends
+// at the next grid line), so its deg^2 coefficients are loaded once into
+// registers for its deg Gauss points and no further reuse exists.  The
+// coefficients (sz^2 deg^2 values, 295 KB at 64^2, divided by the basis
+// norms by the wrapper) stay in L2 and are read through __ldg.  The
+// instances are templates on deg (1..8) so that the Legendre values and a
+// cell's coefficients live in registers; any higher deg runs in one
+// runtime-deg instance (DEG = 0) that reads the cell's deg^2 coefficients
+// and the Gauss rule through __ldg as it sums them and takes each Legendre
+// value by the same recurrence as it goes (no array of deg values: simple,
+// not tuned).  Indices of the output are 64-bit (D n^2 exceeds 2^31 at
+// 64^2).
 
 #include <cuda_runtime.h>
 
@@ -57,6 +73,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTile = 16;        // a dense block: 16 targets x 16 sources
 
 struct Field {
     int sz;
@@ -67,9 +84,10 @@ struct Field {
     const double* cn;      // (sz * sz, deg * deg) coefficient / norm
 };
 
-// The crossings of one axis: n lines k = first, first + step, ...
+// The crossings of one axis from a0 to a1: n lines, the next one k, walked
+// in the direction of travel (step +-1)
 struct Axis {
-    double a0, denom, first, step;
+    double k, step;
     int n;
 };
 
@@ -77,18 +95,17 @@ __device__ inline Axis make_axis(double a0, double a1, int sz) {
     Axis ax;
     const double lo = fmin(a0, a1), hi = fmax(a0, a1);
     const double i_lo = floor(lo * sz), i_hi = floor(hi * sz);
-    ax.a0 = a0;
-    ax.denom = a1 - a0;
-    ax.n = ax.denom != 0.0 ? (int)(i_hi - i_lo) : 0;
-    // walk the lines in the direction of travel: t ascends
-    ax.first = ax.denom >= 0.0 ? i_lo + 1.0 : i_hi;
-    ax.step = ax.denom >= 0.0 ? 1.0 : -1.0;
+    const double denom = a1 - a0;
+    ax.n = denom != 0.0 ? (int)(i_hi - i_lo) : 0;
+    // t ascends
+    ax.k = denom >= 0.0 ? i_lo + 1.0 : i_hi;
+    ax.step = denom >= 0.0 ? 1.0 : -1.0;
     return ax;
 }
 
-__device__ inline double crossing(const Axis& ax, int m, int sz) {
-    const double k = ax.step > 0.0 ? ax.first + (double)m : ax.first - m;
-    const double t = (k / sz - ax.a0) / ax.denom;
+// JAX's crossing parameter of line k: clip((k / sz - a0) / (a1 - a0), 0, 1)
+__device__ inline double crossing(double k, double a0, double denom, int sz) {
+    const double t = (k / sz - a0) / denom;
     return fmin(fmax(t, 0.0), 1.0);
 }
 
@@ -137,12 +154,12 @@ __device__ inline double expansion(const double* c, int deg, double ex,
 }
 
 // sum_g w_g sigma(t_g) over the Gauss points of [ta, tb], times the piece's
-// length |p1 - p0| (tb - ta); DEG = 0: the runtime-deg instance
+// length |p1 - p0| (tb - ta); rule: the deg points then the deg weights
+// (shared memory); DEG = 0: the runtime-deg instance (rule unused)
 template <int DEG>
-__device__ inline double piece(const Field& F, const double* gx,
-                               const double* gw, double x0, double y0,
-                               double dx, double dy, double len, double ta,
-                               double tb) {
+__device__ inline double piece(const Field& F, const double* rule, double x0,
+                               double y0, double dx, double dy, double len,
+                               double ta, double tb) {
     const int sz = F.sz;
     const double tm = 0.5 * (ta + tb);
     const double half = 0.5 * (tb - ta);
@@ -176,7 +193,7 @@ __device__ inline double piece(const Field& F, const double* gx,
     double seg = 0.0;
 #pragma unroll
     for (int g = 0; g < DEG; ++g) {
-        const double tg = tm + half * gx[g];
+        const double tg = tm + half * rule[g];
         const double xg = x0 + tg * dx;
         const double yg = y0 + tg * dy;
         double ex = xg, ey = yg;
@@ -184,10 +201,10 @@ __device__ inline double piece(const Field& F, const double* gx,
             ex = 2.0 * (xg * sz - i) - 1.0;
             ey = 2.0 * (yg * sz - j) - 1.0;
         }
-        double px[NC], py[NC];
-        legendre<DEG>(ex, px);
+        double py[NC];
         legendre<DEG>(ey, py);
-        double v = 0.0;
+        // sum_a P_a(ex) row_a, with P_a by the recurrence as it goes
+        double v = 0.0, pa = 1.0, pa_m = 0.0;
 #pragma unroll
         for (int a = 0; a < DEG; ++a) {
             double row = 0.0;
@@ -195,106 +212,102 @@ __device__ inline double piece(const Field& F, const double* gx,
             for (int b = 0; b < DEG; ++b) {
                 row += cr[a * DEG + b] * py[b];
             }
-            v += px[a] * row;
+            v += pa * row;
+            const double next = legendre_next(ex, a, pa, pa_m);
+            pa_m = pa;
+            pa = next;
         }
-        seg += gw[g] * v;
+        seg += rule[DEG + g] * v;
     }
     return seg * (len * (tb - ta));
 }
 
 template <int DEG>
-__device__ double line_integral(const Field& F, const double* gx,
-                                const double* gw, double x0, double y0,
-                                double x1, double y1) {
+__device__ double line_integral(const Field& F, const double* rule,
+                                double x0, double y0, double x1, double y1) {
     const double dx = x1 - x0, dy = y1 - y0;
     const double len = sqrt(dx * dx + dy * dy);
     if (len == 0.0) {
         return 0.0;
     }
     const int sz = F.sz;
-    const Axis ax = make_axis(x0, x1, sz);
-    const Axis ay = make_axis(y0, y1, sz);
-    int mx = 0, my = 0;
-    double tx = mx < ax.n ? crossing(ax, 0, sz) : 2.0;
-    double ty = my < ay.n ? crossing(ay, 0, sz) : 2.0;
+    Axis ax = make_axis(x0, x1, sz);
+    Axis ay = make_axis(y0, y1, sz);
+    double tx = ax.n > 0 ? crossing(ax.k, x0, dx, sz) : 2.0;
+    double ty = ay.n > 0 ? crossing(ay.k, y0, dy, sz) : 2.0;
     double ta = 0.0, acc = 0.0;
     for (;;) {
         // the next breakpoint: an x crossing first on a tie, as JAX's merge
         double tb;
-        if (mx < ax.n && tx <= ty) {
+        if (ax.n > 0 && tx <= ty) {
             tb = tx;
-            ++mx;
-            tx = mx < ax.n ? crossing(ax, mx, sz) : 2.0;
-        } else if (my < ay.n) {
+            --ax.n;
+            ax.k += ax.step;
+            tx = ax.n > 0 ? crossing(ax.k, x0, dx, sz) : 2.0;
+        } else if (ay.n > 0) {
             tb = ty;
-            ++my;
-            ty = my < ay.n ? crossing(ay, my, sz) : 2.0;
+            --ay.n;
+            ay.k += ay.step;
+            ty = ay.n > 0 ? crossing(ay.k, y0, dy, sz) : 2.0;
         } else {
             break;
         }
-        acc += piece<DEG>(F, gx, gw, x0, y0, dx, dy, len, ta, tb);
+        acc += piece<DEG>(F, rule, x0, y0, dx, dy, len, ta, tb);
         ta = tb;
     }
-    acc += piece<DEG>(F, gx, gw, x0, y0, dx, dy, len, ta, 1.0);
+    acc += piece<DEG>(F, rule, x0, y0, dx, dy, len, ta, 1.0);
     return acc / 2.0;
 }
 
-// the Gauss rule into registers (the runtime-deg instance reads it as it
-// goes)
+// the Gauss rule (points, then weights) into shared memory, by the block;
+// the runtime-deg instance reads it from device memory as it goes
 template <int DEG>
-__device__ inline void load_rule(const Field& F, double* gx, double* gw) {
-#pragma unroll
-    for (int g = 0; g < DEG; ++g) {
-        gx[g] = __ldg(F.gx + g);
-        gw[g] = __ldg(F.gw + g);
+__device__ inline void load_rule(const Field& F, double* rule) {
+    if constexpr (DEG > 0) {
+        if (threadIdx.x < 2 * DEG) {
+            rule[threadIdx.x] = threadIdx.x < DEG
+                ? F.gx[threadIdx.x] : F.gw[threadIdx.x - DEG];
+        }
     }
+    __syncthreads();
 }
 
+// 4 blocks of 256 threads an SM at deg <= 4 (64 registers), 2 at deg 5;
+// from deg 6, and at run time, the registers a thread needs (under a bound
+// of 128, deg 7-8 spilled 1.3-3.9 KB a thread)
 template <int DEG>
-__global__ void pairs_kernel(Field F, const double* __restrict__ p0,
-                             const double* __restrict__ p1, long long n,
-                             double* __restrict__ out) {
+struct Occupancy {
+    static constexpr int blocks =
+        DEG >= 1 && DEG <= 4 ? 4 : (DEG == 5 ? 2 : 1);
+};
+
+template <int DEG>
+__global__ void __launch_bounds__(kThreads, Occupancy<DEG>::blocks)
+pairs_kernel(Field F, const double* __restrict__ p0,
+             const double* __restrict__ p1, long long n,
+             double* __restrict__ out) {
+    __shared__ double rule[2 * (DEG > 0 ? DEG : 1)];
+    load_rule<DEG>(F, rule);
     const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (k >= n) {
         return;
     }
-    double gx[DEG > 0 ? DEG : 1], gw[DEG > 0 ? DEG : 1];
-    load_rule<DEG>(F, gx, gw);
-    out[k] = line_integral<DEG>(F, gx, gw, p0[2 * k], p0[2 * k + 1],
-                                p1[2 * k], p1[2 * k + 1]);
+    out[k] = line_integral<DEG>(F, rule, p0[2 * k], p0[2 * k + 1], p1[2 * k],
+                                p1[2 * k + 1]);
 }
 
-template <int DEG>
-__global__ void dense_kernel(Field F, const double* __restrict__ pts,
-                             const double* __restrict__ w,
-                             const double* __restrict__ diag, int n,
-                             int row0, int nrows, int m0, int D,
-                             double* __restrict__ out) {
-    const int s = blockIdx.x * blockDim.x + threadIdx.x;
-    if (s >= n) {
-        return;
-    }
-    const int row = blockIdx.y;
-    const int t = row0 + row;
-    const double xt = pts[2 * t], yt = pts[2 * t + 1];
-    const double xs = pts[2 * s], ys = pts[2 * s + 1];
-    const double dx = xs - xt, dy = ys - yt;
-    const double r = sqrt(dx * dx + dy * dy);
-    const size_t stride = (size_t)nrows * n;
-    double* o = out + (size_t)row * n + s;
-    if (r == 0.0) {
+// K_m for m = m0 .. m0 + D - 1 at out[m - m0, row, col] of an (n, n) plane:
+// v T_m(c) w, or at r = 0 (at_zero: only t = s) dg * w for m = 0, else 0
+template <typename TO>
+__device__ inline void store_modes(TO* __restrict__ o, size_t plane,
+                                   double v, double c, double wv,
+                                   double dg, bool at_zero, int m0, int D) {
+    if (at_zero) {
         for (int d = 0; d < D; ++d) {
-            o[d * stride] = m0 + d == 0 ? diag[t] * w[t] : 0.0;
+            o[d * plane] = (TO)(m0 + d == 0 ? dg * wv : 0.0);
         }
         return;
     }
-    double gx[DEG > 0 ? DEG : 1], gw[DEG > 0 ? DEG : 1];
-    load_rule<DEG>(F, gx, gw);
-    // E from the target to the source, as JAX's pure path
-    const double E = line_integral<DEG>(F, gx, gw, xt, yt, xs, ys);
-    const double v = expm1(-E) / r;
-    const double c = dx / r;
-    const double ws = w[s];
     double t_prev = 1.0, t_m = 1.0;      // T_{m-1}, T_m at m = 0
     for (int m = 0; m < m0 + D; ++m) {
         if (m == 1) {
@@ -306,8 +319,68 @@ __global__ void dense_kernel(Field F, const double* __restrict__ pts,
             t_m = t_next;
         }
         if (m >= m0) {
-            o[(m - m0) * stride] = v * t_m * ws;
+            o[(m - m0) * plane] = (TO)(v * t_m * wv);
         }
+    }
+}
+
+// The whole (D, n, n) matrix from the upper triangle of its 16 x 16 tiles:
+// block p is tile pair (bi, bj), bi <= bj, row by row.
+template <int DEG, typename TO>
+__global__ void __launch_bounds__(kThreads, Occupancy<DEG>::blocks)
+dense_sym_kernel(Field F, const double* __restrict__ pts,
+                 const double* __restrict__ w,
+                 const double* __restrict__ diag, int n, int nt, int m0,
+                 int D, TO* __restrict__ out) {
+    __shared__ double rule[2 * (DEG > 0 ? DEG : 1)];
+    __shared__ double sv[kTile][kTile + 1], sc[kTile][kTile + 1];
+    load_rule<DEG>(F, rule);
+    // row bi of the triangle starts at bi nt - bi (bi - 1) / 2
+    const long long p = blockIdx.x;
+    const double b = 2.0 * nt + 1.0;
+    long long bi = (long long)floor((b - sqrt(b * b - 8.0 * (double)p)) / 2.0);
+    bi = bi < 0 ? 0 : (bi >= nt ? nt - 1 : bi);
+    while (bi > 0 && bi * nt - bi * (bi - 1) / 2 > p) {
+        --bi;
+    }
+    while (bi + 1 < nt && (bi + 1) * nt - (bi + 1) * bi / 2 <= p) {
+        ++bi;
+    }
+    const long long bj = bi + (p - (bi * nt - bi * (bi - 1) / 2));
+    const int ty = threadIdx.x / kTile;
+    const int tx = threadIdx.x % kTile;
+    const size_t plane = (size_t)n * n;
+
+    // K[t, s] for target t = 16 bi + ty, source s = 16 bj + tx, s >= t on a
+    // diagonal tile
+    const int t = (int)(bi * kTile) + ty;
+    const int s = (int)(bj * kTile) + tx;
+    double v = 0.0, c = 0.0;
+    if (t < n && s < n && (bi < bj || tx >= ty)) {
+        const double xt = pts[2 * t], yt = pts[2 * t + 1];
+        const double xs = pts[2 * s], ys = pts[2 * s + 1];
+        const double dx = xs - xt, dy = ys - yt;
+        const double r = sqrt(dx * dx + dy * dy);
+        if (r != 0.0) {
+            // E from the target to the source, as JAX's pure path
+            const double E = line_integral<DEG>(F, rule, xt, yt, xs, ys);
+            v = expm1(-E) / r;
+            c = dx / r;
+        }
+        store_modes(out + (size_t)t * n + s, plane, v, c, w[s], diag[t],
+                    r == 0.0, m0, D);
+    }
+    sv[ty][tx] = v;
+    sc[ty][tx] = c;
+    __syncthreads();
+    // the mirrored entry K[s', t'] (s' = 16 bj + ty, t' = 16 bi + tx) of the
+    // pair computed by thread (tx, ty): E the same, the direction reversed,
+    // strictly below the diagonal on a diagonal tile (t' != s': r != 0)
+    const int ms = (int)(bj * kTile) + ty;
+    const int mt = (int)(bi * kTile) + tx;
+    if (ms < n && mt < n && (bi < bj || ty > tx)) {
+        store_modes(out + (size_t)ms * n + mt, plane, sv[tx][ty],
+                    -sc[tx][ty], w[mt], 0.0, false, m0, D);
     }
 }
 
@@ -322,16 +395,49 @@ void launch_pairs(const Field& F, const double* p0, const double* p1,
                                                                 out);
 }
 
-template <int DEG>
+template <int DEG, typename TO>
 void launch_dense(const Field& F, const double* pts, const double* w,
-                  const double* diag, int n, int row0, int nrows, int m0,
-                  int D, double* out, cudaStream_t stream) {
-    dim3 grid((unsigned)((n + kThreads - 1) / kThreads), (unsigned)nrows);
-    dense_kernel<DEG><<<grid, kThreads, 0, stream>>>(F, pts, w, diag, n,
-                                                     row0, nrows, m0, D, out);
+                  const double* diag, int n, int nt, long long tiles, int m0,
+                  int D, TO* out, cudaStream_t stream) {
+    dense_sym_kernel<DEG, TO><<<dim3((unsigned)tiles), kThreads, 0,
+                                stream>>>(F, pts, w, diag, n, nt, m0, D, out);
 }
 
 #define ANISO_K7_DEGREES(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+
+template <typename TO>
+int dense_smooth(int sz, int deg, const void* gx, const void* gw,
+                 const void* cn, int compat, const void* pts, const void* w,
+                 const void* diag, int n, int m0, int D, void* out,
+                 void* stream) {
+    const Field F{sz, deg, compat, static_cast<const double*>(gx),
+                  static_cast<const double*>(gw),
+                  static_cast<const double*>(cn)};
+    if (deg < 1 || n < 1 || D < 1 || m0 < 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const int nt = (n + kTile - 1) / kTile;
+    const long long tiles = (long long)nt * (nt + 1) / 2;
+    if (tiles > 0x7fffffffLL) {
+        return (int)cudaErrorInvalidConfiguration;
+    }
+    const auto* p = static_cast<const double*>(pts);
+    const auto* wp = static_cast<const double*>(w);
+    const auto* dg = static_cast<const double*>(diag);
+    auto* o = static_cast<TO*>(out);
+    auto st = (cudaStream_t)stream;
+    switch (deg) {
+#define ANISO_K7_CASE(DG)                                                  \
+    case DG:                                                               \
+        launch_dense<DG, TO>(F, p, wp, dg, n, nt, tiles, m0, D, o, st);    \
+        break;
+        ANISO_K7_DEGREES(ANISO_K7_CASE)
+#undef ANISO_K7_CASE
+        default:
+            launch_dense<0, TO>(F, p, wp, dg, n, nt, tiles, m0, D, o, st);
+    }
+    return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -365,30 +471,20 @@ extern "C" int aniso_line_integral_pairs_f64(
     return (int)cudaGetLastError();
 }
 
-extern "C" int aniso_dense_smooth_rows_f64(
+// the (D, n, n) smooth matrices of modes m0 .. m0 + D - 1 into out, stored
+// as float64 or float32
+extern "C" int aniso_dense_smooth_f64(
     int sz, int deg, const void* gx, const void* gw, const void* cn,
     int compat, const void* pts, const void* w, const void* diag, int n,
-    int row0, int nrows, int m0, int D, void* out, void* stream) {
-    const Field F{sz, deg, compat, static_cast<const double*>(gx),
-                  static_cast<const double*>(gw),
-                  static_cast<const double*>(cn)};
-    if (deg < 1) {
-        return (int)cudaErrorInvalidValue;
-    }
-    const auto* p = static_cast<const double*>(pts);
-    const auto* wp = static_cast<const double*>(w);
-    const auto* dg = static_cast<const double*>(diag);
-    auto* o = static_cast<double*>(out);
-    auto st = (cudaStream_t)stream;
-    switch (deg) {
-#define ANISO_K7_CASE(DG)                                                \
-    case DG:                                                             \
-        launch_dense<DG>(F, p, wp, dg, n, row0, nrows, m0, D, o, st);    \
-        break;
-        ANISO_K7_DEGREES(ANISO_K7_CASE)
-#undef ANISO_K7_CASE
-        default:
-            launch_dense<0>(F, p, wp, dg, n, row0, nrows, m0, D, o, st);
-    }
-    return (int)cudaGetLastError();
+    int m0, int D, void* out, void* stream) {
+    return dense_smooth<double>(sz, deg, gx, gw, cn, compat, pts, w, diag, n,
+                                m0, D, out, stream);
+}
+
+extern "C" int aniso_dense_smooth_f32(
+    int sz, int deg, const void* gx, const void* gw, const void* cn,
+    int compat, const void* pts, const void* w, const void* diag, int n,
+    int m0, int D, void* out, void* stream) {
+    return dense_smooth<float>(sz, deg, gx, gw, cn, compat, pts, w, diag, n,
+                               m0, D, out, stream);
 }

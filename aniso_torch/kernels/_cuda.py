@@ -29,6 +29,17 @@ def load(source: str, symbol: str, argtypes: tuple):
     return fn
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point: None means the GPU, and CUDA must then
+    be present.  The CPU runs only when asked for by name."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
 # kernel instances by the scalar type they take
 INSTANCES = {torch.float32: "f32", torch.float64: "f64"}
 

@@ -1,29 +1,31 @@
 """K7: the exact attenuation line integral, for pairs of points and fused
-into the rows of the dense smooth matrices.
+into the whole dense smooth matrices.
 
 Replaces aniso_tpu/ops/attenuation.py:make_line_integral (:112, with
 _crossings :67 and _merge_breakpoints :92) and the all-pairs loops of
 aniso_tpu/ops/dense.py:build_dense_smooth (:43), build_dense_E (:115) and
 build_dense_smooth_all (:166).  The CUDA kernel is csrc/line_integral.cu;
 its header states the bound (operations on the FP64 CUDA cores) and the
-design (the crossings walked in ascending t, one thread per pair).
+design (the crossings walked in ascending t, one thread per pair; the dense
+matrices from the upper triangle of 16 x 16 tiles, each E once).
 
-Two entries, one float64 instance each (E feeds expm1 and must be exact; an
-f32 solve casts the finished matrices):
+Two entries, float64 arithmetic (E feeds expm1 and must be exact):
 
   line_integral_pairs  E[k] = int sigma_t from p0[k] to p1[k]
-  dense_smooth_rows    out[d, t - row0, s] = expm1(-E(t -> s)) cos(m theta)
-                       / r * w[s] for m = m0 + d, rows t in [row0, row0 +
-                       nrows) and every source s; at r = 0: diag[t] * w[t]
-                       for m = 0, else 0 (theta = atan2 of src - tgt)
+  dense_smooth         out[d, t, s] = expm1(-E(t -> s)) cos(m theta) / r
+                       * w[s] for m = modes[d] and every target t and source
+                       s; at r = 0: diag[t] * w[t] for m = 0, else 0 (theta
+                       = atan2 of src - tgt); stored in float64 or float32
 
 Layouts: coeffs (sz, sz, deg^2) normalized-Legendre coefficients of
 sigma_t; p0, p1, pts (n, 2); w, diag (n,); all float64.  The kernel is
 compiled for deg 1-8 and takes any higher deg in one runtime-deg instance.
 
 Both take their plain versions (ops.attenuation's transcription of the JAX
-function, and JAX's build_dense_smooth_all epilogue) for CPU tensors and
-launch the kernel for CUDA tensors.  `launches` counts kernel launches.
+function; dense_smooth_plain, the rows of JAX's build_dense_smooth_all
+epilogue, dense_smooth_rows_plain, chunk by chunk) for CPU tensors and
+launch the kernel for CUDA tensors.  `launches` counts kernel launches per
+entry: "pairs", and "dense_f64" / "dense_f32" by the stored type.
 """
 
 from __future__ import annotations
@@ -38,18 +40,21 @@ from . import _cuda
 
 SOURCE = "line_integral.cu"
 SYMBOLS = {"pairs": "aniso_line_integral_pairs_f64",
-           "dense": "aniso_dense_smooth_rows_f64"}
+           "dense_f64": "aniso_dense_smooth_f64",
+           "dense_f32": "aniso_dense_smooth_f32"}
 _FIELD = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
           ctypes.c_void_p, ctypes.c_int)
 _ARGTYPES = {
     "pairs": _FIELD + (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_void_p, ctypes.c_void_p),
     "dense": _FIELD + (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p),
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p),
 }
+# float64 rows of the plain dense version computed at a time (128 MB)
+_PLAIN_ELEMENTS = 1 << 24
 
-launches = {"f64": 0}
+launches = {"pairs": 0, "dense_f64": 0, "dense_f32": 0}
 
 
 def _field_args(grid, coeffs: torch.Tensor, compat: bool):
@@ -91,7 +96,7 @@ def line_integral_pairs(grid, coeffs, p0, p1, compat: bool = False,
     rc = fn(*field, _cuda.ptr(p0), _cuda.ptr(p1), n, _cuda.ptr(out),
             _cuda.stream(p0.device))
     _cuda.raise_on_error(SYMBOLS["pairs"], rc)
-    launches["f64"] += 1
+    launches["pairs"] += 1
     del keep
     return out
 
@@ -143,31 +148,47 @@ def dense_smooth_rows_plain(grid, coeffs, pts, w, diag, row0: int,
     return torch.stack(out)
 
 
-def dense_smooth_rows(grid, coeffs, pts, w, diag, row0: int, nrows: int,
-                      modes, compat: bool = False) -> torch.Tensor:
-    """(D, nrows, n) rows of the smooth matrices of `modes` (consecutive,
-    ascending), float64."""
+def dense_smooth_plain(grid, coeffs, pts, w, diag, modes,
+                       compat: bool = False, dtype=torch.float64):
+    """dense_smooth's plain version: the plain rows in chunks of at most
+    128 MB, each cast to `dtype`."""
+    modes = list(modes)
+    n = pts.shape[0]
+    out = torch.empty((len(modes), n, n), dtype=dtype, device=pts.device)
+    step = max(1, _PLAIN_ELEMENTS // (len(modes) * n))
+    for r0 in range(0, n, step):
+        nr = min(step, n - r0)
+        out[:, r0:r0 + nr] = dense_smooth_rows_plain(
+            grid, coeffs, pts, w, diag, r0, nr, modes, compat)
+    return out
+
+
+def dense_smooth(grid, coeffs, pts, w, diag, modes, compat: bool = False,
+                 dtype=torch.float64) -> torch.Tensor:
+    """(D, n, n) smooth matrices of `modes` (consecutive, ascending), every
+    target row and source column, in `dtype` (float64 or float32; the
+    arithmetic is float64): one launch."""
     modes = list(modes)
     if pts.device.type == "cpu":
-        return dense_smooth_rows_plain(grid, coeffs, pts, w, diag, row0,
-                                       nrows, modes, compat)
+        return dense_smooth_plain(grid, coeffs, pts, w, diag, modes, compat,
+                                  dtype)
     _instance(pts)
+    inst = {torch.float64: "dense_f64", torch.float32: "dense_f32"}.get(dtype)
+    if inst is None:
+        raise TypeError(f"K7 stores float64 or float32, not {dtype}")
     n = pts.shape[0]
     m0, D = modes[0], len(modes)
     if modes != list(range(m0, m0 + D)) or m0 < 0:
         raise ValueError(f"K7 takes consecutive ascending modes, got {modes}")
-    if not (0 <= row0 and 0 < nrows <= 65535 and row0 + nrows <= n):
-        raise ValueError(f"rows {row0}..{row0 + nrows} of {n}")
-    _cuda.check("pts", pts, (n, 2), torch.float64)
-    _cuda.check("w", w, (n,), torch.float64)
-    _cuda.check("diag", diag, (n,), torch.float64)
+    _cuda.check_all(torch.float64, ("pts", pts, (n, 2)), ("w", w, (n,)),
+                    ("diag", diag, (n,)))
     keep, field = _field_args(grid, coeffs, compat)
-    fn = _cuda.load(SOURCE, SYMBOLS["dense"], _ARGTYPES["dense"])
-    out = torch.empty((D, nrows, n), dtype=torch.float64, device=pts.device)
-    rc = fn(*field, _cuda.ptr(pts), _cuda.ptr(w), _cuda.ptr(diag), n, row0,
-            nrows, m0, D, _cuda.ptr(out), _cuda.stream(pts.device))
-    _cuda.raise_on_error(SYMBOLS["dense"], rc)
-    launches["f64"] += 1
+    fn = _cuda.load(SOURCE, SYMBOLS[inst], _ARGTYPES["dense"])
+    out = torch.empty((D, n, n), dtype=dtype, device=pts.device)
+    rc = fn(*field, _cuda.ptr(pts), _cuda.ptr(w), _cuda.ptr(diag), n, m0, D,
+            _cuda.ptr(out), _cuda.stream(pts.device))
+    _cuda.raise_on_error(SYMBOLS[inst], rc)
+    launches[inst] += 1
     del keep
     return out
 

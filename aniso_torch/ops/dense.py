@@ -10,11 +10,11 @@ the removal term: the coarse 3x3 part of the all-pairs real sum cancels
 against it, main.cpp:78-119).
 
 The smooth matrices embed the attenuation E of every pair; K7
-(kernels.attenuation.dense_smooth_rows) computes E and writes every mode's
-row from it in one pass, row chunk by row chunk, so that no (n, n) E is
-ever stored.  The real matrices are geometry only: torch expressions, row
-chunk by row chunk.  Both are built in float64 and cast to the solver's
-dtype.  The two (n, n) GEMVs of dense_apply are plain large products left
+(kernels.attenuation.dense_smooth) computes E once per unordered pair and
+writes every mode's two entries from it, in one launch straight into the
+solver's dtype (float64 arithmetic), so that no (n, n) E is ever stored.
+The real matrices are geometry only: torch expressions in float64, row
+chunk by row chunk, cast to the solver's dtype.  The two (n, n) GEMVs of dense_apply are plain large products left
 to torch.matmul, as JAX leaves them to XLA.
 
 Memory: 2 D n^2 itemsize bytes for D modes (at 64^2, deg 3: 21.7 GB for one
@@ -29,12 +29,13 @@ import numpy as np
 import torch
 
 from ..core.geometry import Grid
-from ..kernels.attenuation import dense_smooth_rows, line_integral_pairs
+from ..kernels._cuda import resolve_device
+from ..kernels.attenuation import dense_smooth, line_integral_pairs
 from .attenuation import make_sigma_eval
 from .kernels import real_kernel
 from .stencil import apply_near_stencil, apply_per_square
 
-# float64 elements of one row chunk of a build (128 MB)
+# float64 elements of one row chunk of the real and E builds (128 MB)
 _CHUNK_ELEMENTS = 1 << 24
 
 
@@ -95,33 +96,27 @@ def build_dense_real(grid: Grid, m: int, device, dtype=torch.float64,
 def build_dense_smooth_all(grid: Grid, modes, coeffs, sigma_nodes, device,
                            dtype=torch.float64) -> torch.Tensor:
     """(D, n, n) smooth matrices K_m[t, s] = smooth_m(s, t) * w[s] of the
-    consecutive `modes`, from one E per pair (K7).
+    consecutive `modes`, from one E per pair (K7), in `dtype`.
 
     coeffs must be in local-basis form (callers pass the compat-transformed
     coefficients under the global-basis quirk); sigma_nodes (sz, sz, nq)
     gives the m = 0 diagonal (KernelFactory.cpp:260)."""
-    modes = list(modes)
     pts, w = _nodes(grid, device)
-    n = pts.shape[0]
     cf = torch.as_tensor(np.asarray(coeffs), dtype=torch.float64,
                          device=device)
     diag = torch.as_tensor(np.asarray(sigma_nodes).reshape(-1),
                            dtype=torch.float64, device=device)
-    out = torch.empty((len(modes), n, n), dtype=dtype, device=device)
-    for r0, nr in _row_chunks(n, len(modes) * n):
-        out[:, r0:r0 + nr] = dense_smooth_rows(grid, cf, pts, w, diag, r0, nr,
-                                               modes)
-    return out
+    return dense_smooth(grid, cf, pts, w, diag, modes, dtype=dtype)
 
 
 def build_dense_smooth(grid: Grid, m: int, coeffs,
-                       compat_global_basis: bool = False, device="cpu",
+                       compat_global_basis: bool = False, device=None,
                        dtype=torch.float64) -> torch.Tensor:
     """(n, n) matrix K[t, s] = smooth_m(s, t) * w[s] of one mode, with the
     line integral and the m = 0 diagonal sigma_hat(node) evaluated under
-    `compat_global_basis`."""
+    `compat_global_basis`.  device None means the GPU (resolve_device)."""
+    device = resolve_device(device)
     pts, w = _nodes(grid, device)
-    n = pts.shape[0]
     cf = torch.as_tensor(np.asarray(coeffs), dtype=torch.float64,
                          device=device)
     if m == 0:
@@ -129,11 +124,8 @@ def build_dense_smooth(grid: Grid, m: int, coeffs,
         diag = sig(cf, pts[:, 0], pts[:, 1])
     else:
         diag = torch.zeros_like(w)
-    out = torch.empty((n, n), dtype=dtype, device=device)
-    for r0, nr in _row_chunks(n, n):
-        out[r0:r0 + nr] = dense_smooth_rows(grid, cf, pts, w, diag, r0, nr,
-                                            [m], compat_global_basis)[0]
-    return out
+    return dense_smooth(grid, cf, pts, w, diag, [m], compat_global_basis,
+                        dtype)[0]
 
 
 def build_dense_E(grid: Grid, coeffs, device) -> torch.Tensor:

@@ -53,6 +53,7 @@ from ..fmm.smooth import (
     m2l_cache_bytes, per_offset_levels,
 )
 from ..fmm.structure import tree_config
+from ..kernels._cuda import resolve_device
 from ..ops import dense as dense_ops
 from ..ops.compat import to_local_equivalent
 from ..ops.fields import evaluate_at_nodes_np
@@ -65,17 +66,6 @@ from .refine import refined_solve
 # ~1e-2 (the JAX record, aniso_tpu/fmm/apply.py:38-42).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-
-
-def resolve_device(device=None) -> torch.device:
-    """None means the GPU; CUDA must then be present.  The CPU runs only
-    when asked for by name."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 def _mode_coupling(N: int, chi: np.ndarray, weighted: bool) -> np.ndarray:

@@ -14,7 +14,8 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            most registers and any spill
   redesigned_kernels  ptxas's registers, spills and static shared memory
            of the r = 16 (np 4) instances of K1's all-modes kernel and of
-           K3 (K3's dynamic shared memory is in PERF.md)
+           K3 (K3's dynamic shared memory is in PERF.md), of every K2
+           instance and of K7's deg 3 instances
   kernels_vs_plain  at every size solved below, each kernel at the shapes
            the paths give it, against its plain version on inputs from a
            seed (random E, M, cosr; the sigma field's coefficients of the
@@ -38,13 +39,17 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            |x|), with its time per CG iteration and the barrier floor of
            its loop; np 6 and 7: K3 f32/f64 at the np6 phase's fine levels,
            K1-D f64 and K3-D f64 at demo128's twin shapes;
-           K7 (the exact line integral, f64) at 16^2 (all 2304^2 pairs) and
-           64^2 (512 target rows x all 36,864 sources): the dense-build
-           form and the pair-list form, the basis at local coordinates on
-           the compat-transformed coefficients and at global ones on the
-           raw coefficients, with its operation bound on the FP64 CUDA
-           cores from the sub-segments of these pairs; its runtime-deg
-           instance at deg 9, 10 and 12 on 8^2 (128 target rows);
+           K7 (the exact line integral, f64 arithmetic) at 16^2 and 64^2:
+           the whole-matrix form (one launch, E once per unordered pair)
+           against the plain target -> source rows on the first and last
+           rows (at 16^2 all 2304; at 64^2 512 each, the last ones from
+           mirrored tiles), timed whole, and the pair-list form on the
+           first rows' pairs, the basis at local coordinates on the
+           compat-transformed coefficients and at global ones on the raw
+           coefficients, with its operation bound on the FP64 CUDA cores
+           from the sub-segments of the unique pairs (all ordered pairs
+           beside); its runtime-deg instance at deg 9, 10 and 12 on 8^2
+           (128 rows checked at each end);
            at sharded512's shapes (8 shards of 256 x 128): K10, the halo
            fill, f32 and f64, on u (one square) and on the leaf's M (two
            boxes), bitwise against its plain version, with one Tensor.copy_
@@ -83,17 +88,21 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            :86-105): benchmarks/oracle_16, compat on, f64, tol 1e-12,
            backend "dense": relative Linf error < 1e-2 against oracle_16,
            JAX's CPU iteration count +- 1 (ORACLE16_DENSE_ITERS), true
-           residual < 1e-10; K7 launches = the row chunks of set_coeff, no
-           other kernel of the port
+           residual < 1e-10; one K7 launch (the f64 store) in set_coeff,
+           no other kernel of the port
   dense64  the reference CLI's default problem on the dense backend
            (benchmarks/oracle_64, compat on, f64, tol 1e-10): set_coeff
-           split into the real matrices, K7 (with its chunk copies) and the
-           rest, peak memory, the matvec against its byte bound (the two
+           split into the real matrices, K7 and the rest, peak memory, the
+           matvec against its byte bound (the two
            f64 matrices read once), true residual < 1e-9, relative Linf
            error < 1e-2 against oracle_64, distance from f64_64's FMM x,
            and apply_mode(0, u) of the FMM against the dense one on a
            seeded u < 6e-3 (the JAX property-test bound); K7 launches as
            in oracle16_dense
+  dense64_f32  the same problem on the dense backend in float32, tol 1e-7
+           (K7 stores the matrices in float32): true residual < 1e-5,
+           relative Linf error < 1e-2 against oracle_64; one K7 launch (the
+           f32 store)
   demo128  the reference's demo.m problem (examples/demo_torch.py): 128^2,
            deg 1, N = 5 coupled modes, g = 0.8, sigma_s = 20, sigma_a =
            0.2, Gaussian charge on mode 0, f32 inner GMRES(80) with f64
@@ -189,6 +198,9 @@ PEAK_FLOP_PER_S = {"f32": 67e12, "f64": 67e12}
 # for the tensor cores)
 PEAK_F64_CUDA_CORES = 33.5e12
 TOL_KERNEL = {"f32": 1e-5, "f64": 1e-12}
+# K7's float32 store (float64 arithmetic, each value rounded once to
+# float32: at most 2^-24 of the largest) against its float64 plain rows
+TOL_STORE_F32 = 1e-7
 # K9 against pcg_plain: |x - x_plain| / |x_plain|, and the iteration
 # counts within K9_COUNTS (f64: 1; f32: 15% of plain's, since at tol 1e-8
 # the loop stops on a residual below float32's resolution, where the two
@@ -316,12 +328,11 @@ class Kernels:
                                            device=DEVICE)
 
     def compare(self, what, inst, fn, plain, nbytes, flops, per_mode=None,
-                reps=21, peak=None, plain_reps=None):
+                reps=21, peak=None):
         """One kernel call against its plain version, then both timed.
         per_mode: the same result from one launch of the one-mode instance
         per mode, held to the same gate and timed as well.  peak: the
-        operation rate of the bound (default: the type's); plain_reps:
-        fewer samples of a slow plain version, after one warm-up."""
+        operation rate of the bound (default: the type's)."""
         torch = self.torch
         got, want = fn(), plain()
         torch.cuda.synchronize()
@@ -333,9 +344,8 @@ class Kernels:
         bms, bby = bound_ms(nbytes, flops, inst, peak)
         out = {"max_abs_err": err, "max_abs_plain": scale,
                "ms": event_ms(torch, fn, reps=reps, flush=self.flush),
-               "plain_ms": event_ms(torch, plain, reps=plain_reps or reps,
-                                    flush=self.flush,
-                                    warmup=1 if plain_reps else 3),
+               "plain_ms": event_ms(torch, plain, reps=reps,
+                                    flush=self.flush),
                "bytes": nbytes, "flops": flops, "bound_ms": bms,
                "bound_by": bby}
         if per_mode is not None:
@@ -646,16 +656,22 @@ class Kernels:
                  "bound_by": bby, "barrier_floor_ms": floor,
                  "barrier_floor_ms_per_iteration": floor / k}]
 
-    def k7(self, sz, nrows, reps=5, plain_reps=None, deg=3):
+    def k7(self, sz, nrows, reps=3, deg=3, f32=False):
         """K7 at sz^2, degree deg, on the oracle problem's sigma_t: the
-        dense-build form for target rows 0..nrows-1 against every source,
-        one mode (D = 1, as oracle16_dense and dense64 build), against its
-        plain version; then the pair-list form on the same pairs.  Variant
-        m0: the coefficients the solver passes under the global-basis quirk
-        (to_local_equivalent) with the basis at local coordinates; compat:
-        the raw coefficients with the basis at global coordinates (the same
-        E, by another path).  Bound: operations on the FP64 CUDA cores, the
-        sub-segments counted exactly from this run's pairs."""
+        whole-matrix form (one mode, D = 1, as oracle16_dense and dense64
+        build; one launch, E once per unordered pair), its first and last
+        nrows rows (the last ones from mirrored tiles) against the plain
+        target -> source rows; then the pair-list form on the first rows'
+        pairs.  f32: also the float32 store of variant m0 (dense64_f32's
+        instance), held to the same rows at TOL_STORE_F32, as a row of
+        variant "m0_f32".  Variant m0: the coefficients the solver passes
+        under the global-basis quirk (to_local_equivalent) with the basis at
+        local coordinates; compat: the raw coefficients with the basis at
+        global coordinates (the same E, by another path).  Times: the whole
+        build and the plain version of the first nrows rows (the whole
+        build when nrows = n).  Bounds: operations on the FP64 CUDA cores, from the
+        sub-segments of the unique pairs the build needs (each E once), and
+        of all ordered pairs (the row form's work) beside."""
         torch, k7 = self.torch, self.attenuation
         from aniso_torch.core.geometry import make_grid, project_field
         from aniso_torch.ops.attenuation import make_line_integral
@@ -674,21 +690,76 @@ class Kernels:
         pts_np = grid.flat_nodes()
         pts, w = dev(pts_np).contiguous(), dev(grid.weights.reshape(-1))
         diag = dev(evaluate_at_nodes_np(grid, local).reshape(-1))
-        nsub = k7.subsegments(grid, pts_np[:nrows], pts_np)
+        # every ordered pair's sub-segments; a pair and its reverse have the
+        # same, a node with itself none: the unique pairs hold half
+        nsub_all = k7.subsegments(grid, pts_np, pts_np)
+        nsub_rows = k7.subsegments(grid, pts_np[:nrows], pts_np)
         p0 = pts[:nrows, None, :].expand(nrows, n, 2).reshape(-1, 2)
         p1 = pts[None].expand(nrows, n, 2).reshape(-1, 2)
+        blocks = [(0, nrows)] + ([(n - nrows, nrows)] if nrows < n else [])
         rows = []
         for name, compat, cf in (("m0", False, dev(local)),
                                  ("compat", True, dev(raw))):
-            flops = nsub * k7.flops_per_subsegment(deg, compat)
-            row = self.compare(
-                f"K7 {sz}^2 deg {deg} rows {nrows} {name}", "f64",
-                lambda: k7.dense_smooth_rows(grid, cf, pts, w, diag, 0, nrows,
-                                             [0], compat),
-                lambda: k7.dense_smooth_rows_plain(grid, cf, pts, w, diag, 0,
-                                                   nrows, [0], compat),
-                8 * (nrows * n + 4 * n + cf.numel()), flops, reps=reps,
-                peak=PEAK_F64_CUDA_CORES, plain_reps=plain_reps)
+            fpp = k7.flops_per_subsegment(deg, compat)
+
+            def build(dtype=torch.float64):
+                return k7.dense_smooth(grid, cf, pts, w, diag, [0], compat,
+                                       dtype)
+
+            def plain_rows(r0=0):
+                return k7.dense_smooth_rows_plain(grid, cf, pts, w, diag, r0,
+                                                  nrows, [0], compat)
+
+            store32 = f32 and name == "m0"
+            wants = [plain_rows(r0) for r0, _ in blocks]
+            scale = max(float(want.abs().max()) for want in wants)
+
+            def max_err(dtype):
+                # one whole matrix at a time (10.9 GB in f64 at 64^2)
+                got = build(dtype)
+                return max(float((got[:, r0:r0 + nr].double() - want)
+                                 .abs().max())
+                           for (r0, nr), want in zip(blocks, wants))
+
+            err = max_err(torch.float64)
+            err32 = max_err(torch.float32) if store32 else 0.0
+            del wants
+            torch.cuda.synchronize()
+            check(err <= TOL_KERNEL["f64"] * scale,
+                  f"K7 {sz}^2 deg {deg} {name}: rows of both triangles: max "
+                  f"err {err} > 1e-12 x {scale}")
+            check(err32 <= TOL_STORE_F32 * scale,
+                  f"K7 f32 store {sz}^2 deg {deg}: rows of both triangles: "
+                  f"max err {err32} > {TOL_STORE_F32} x {scale}")
+            nbytes = 8 * (n * n + 4 * n + cf.numel())
+            bms, bby = bound_ms(nbytes, (nsub_all // 2) * fpp, "f64",
+                                PEAK_F64_CUDA_CORES)
+            row = {"variant": name, "n": n, "rows_checked": blocks,
+                   "max_abs_err": err, "max_abs_plain": scale,
+                   "ms": event_ms(torch, build, reps=reps, flush=self.flush,
+                                  warmup=1),
+                   "plain_ms": event_ms(torch, plain_rows, reps=1,
+                                        flush=self.flush, warmup=0),
+                   "plain_rows": nrows,
+                   "subsegments_unique_pairs": nsub_all // 2,
+                   "subsegments_all_pairs": nsub_all,
+                   "bytes": nbytes, "flops": (nsub_all // 2) * fpp,
+                   "bound_ms": bms, "bound_by": bby,
+                   "bound_ms_all_pairs": bound_ms(
+                       nbytes, nsub_all * fpp, "f64", PEAK_F64_CUDA_CORES)[0]}
+            if store32:
+                nbytes32 = nbytes - 4 * n * n
+                bms32, bby32 = bound_ms(nbytes32, (nsub_all // 2) * fpp, "f64",
+                                        PEAK_F64_CUDA_CORES)
+                rows.append({
+                    **row, "variant": "m0_f32", "max_abs_err": err32,
+                    "tolerance": TOL_STORE_F32,
+                    "ms": event_ms(torch, lambda: build(torch.float32),
+                                   reps=reps, flush=self.flush, warmup=1),
+                    "bytes": nbytes32, "bound_ms": bms32, "bound_by": bby32,
+                    "bound_ms_all_pairs": bound_ms(
+                        nbytes32, nsub_all * fpp, "f64",
+                        PEAK_F64_CUDA_CORES)[0]})
             got = k7.line_integral_pairs(grid, cf, p0, p1, compat)
             want = make_line_integral(grid, sz, compat)(
                 cf, p0[:, 0], p0[:, 1], p1[:, 0], p1[:, 1])
@@ -696,10 +767,9 @@ class Kernels:
             scale = float(want.abs().max())
             check(err <= TOL_KERNEL["f64"] * scale,
                   f"K7 pairs {sz}^2 {name}: max err {err} > 1e-12 x {scale}")
-            pbms, _ = bound_ms(8 * 5 * p0.shape[0], flops, "f64",
+            pbms, _ = bound_ms(8 * 5 * p0.shape[0], nsub_rows * fpp, "f64",
                                PEAK_F64_CUDA_CORES)
-            rows.append({"variant": name, "pairs": nrows * n,
-                         "subsegments": nsub, **row,
+            rows.append({**row, "pairs": nrows * n,
                          "pairs_max_abs_err": err,
                          "pairs_ms": event_ms(torch, lambda: k7.line_integral_pairs(
                              grid, cf, p0, p1, compat), reps=reps,
@@ -1061,10 +1131,9 @@ def oracle_error(grid, oracle, x):
 def dense_run(torch, kern, s):
     """set_coeff and the solve of the oracle problem on a dense solver, the
     counters set to 0 before set_coeff and read after the solve: the path
-    launches K7 in set_coeff (one launch per row chunk) and no other kernel
-    of the port (its GEMVs are torch.matmul)."""
-    from aniso_torch.ops.dense import _row_chunks
-
+    launches K7's whole-matrix entry once in set_coeff (the instance that
+    stores the solver's dtype) and no other kernel of the port (its GEMVs
+    are torch.matmul)."""
     grid = s.grid
     q = bench_charge(grid)
     kern.reset()
@@ -1083,8 +1152,8 @@ def dense_run(torch, kern, s):
         "givens_estimate": res.residual,
         "true_relative_residual": true_residual(torch, s, q, res.x),
         "finite": bool(np.isfinite(x).all()),
-        "k7_launches_expected": len(list(_row_chunks(grid.n_nodes,
-                                                     grid.n_nodes))),
+        "k7_launches_expected": {
+            "k7_dense_" + ("f64" if s.dtype == torch.float64 else "f32"): 1},
     })
     return res, out, x
 
@@ -1111,8 +1180,7 @@ def run_oracle16_dense(torch, kern):
           f"{ORACLE16_DENSE_ITERS} +- 1")
     check(out["oracle_rel_linf"] < 1e-2,
           f"oracle16_dense: {out['oracle_rel_linf']} vs oracle_16")
-    check_launches("oracle16_dense", out,
-                   {"k7_f64": out["k7_launches_expected"]})
+    check_launches("oracle16_dense", out, out["k7_launches_expected"])
     return out
 
 
@@ -1157,7 +1225,33 @@ def run_dense64(torch, kern, x_fmm):
     check(out["fmm_vs_dense_apply_rel_err"] < 6e-3,
           f"dense64: FMM apply_mode differs from the dense one by "
           f"{out['fmm_vs_dense_apply_rel_err']}")
-    check_launches("dense64", out, {"k7_f64": out["k7_launches_expected"]})
+    check_launches("dense64", out, out["k7_launches_expected"])
+    return out
+
+
+def run_dense64_f32(torch, kern):
+    """dense64's problem (benchmarks/oracle_64, compat on) on the dense
+    backend in float32, tol 1e-7: K7 stores the matrices in float32 (f64
+    arithmetic); true residual < 1e-5, relative Linf error < 1e-2 against
+    oracle_64."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s = make_solver(torch, 64, 0.95, True, dtype="float32", tol=1e-7,
+                    backend="dense")
+    res, run, x = dense_run(torch, kern, s)
+    out = {"phase": "dense64_f32", "sz": 64, "g": 0.95,
+           "compat_global_basis": True, "dtype": "float32", "tol": 1e-7,
+           "backend": "dense", **run,
+           "set_coeff_k7_s": run["set_coeff_phases_s"]["dense_smooth_s"],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "oracle_rel_linf": oracle_error(s.grid, "oracle_64", x)}
+    emit(out)
+    check(out["finite"] and x.shape == (s.grid.n_nodes,), "dense64_f32: bad x")
+    check(res.converged and out["true_relative_residual"] < 1e-5,
+          f"dense64_f32: true residual {out['true_relative_residual']}")
+    check(out["oracle_rel_linf"] < 1e-2,
+          f"dense64_f32: {out['oracle_rel_linf']} vs oracle_64")
+    check_launches("dense64_f32", out, out["k7_launches_expected"])
     return out
 
 
@@ -2019,15 +2113,19 @@ def main():
                                                 row.get("spill", ""))]}
                     for k, rows in usage.items()}})
 
-    # the two kernels redesigned for the card, at r = 16 (np 4): registers,
-    # spills and static shared memory, per instance
-    from aniso_torch.kernels import m2l, offsets
+    # the kernels redesigned for the card: K1's all-modes kernel and K3 at
+    # r = 16 (np 4), every K2 instance and K7's deg 3 instances: registers,
+    # spills and static shared memory
+    from aniso_torch.kernels import attenuation, m2l, near, offsets
     emit({"phase": "redesigned_kernels",
           "ptxas": [row for src in (m2l.SOURCE, offsets.SOURCE)
                     for row in usage.get(src, [])
                     if "Li16E" in row["function"]
                     and ("m2l_translate_modes_kernel" in row["function"]
-                         or "offsets_translate_kernel" in row["function"])]})
+                         or "offsets_translate_kernel" in row["function"])]
+          + usage.get(near.SOURCE, [])
+          + [row for row in usage.get(attenuation.SOURCE, [])
+             if "ILi3E" in row["function"]]})
 
     scratch = torch.empty(96 * 1024 * 1024 // 4, device=DEVICE)
 
@@ -2089,13 +2187,16 @@ def main():
     # demo128 and dsa512 (f32)
     for sz, inst in ((DSA_SZ, "f64"), (DEMO, "f32"), (NORTH, "f32")):
         chk[sz, f"k9_{inst}"] = kern.k9(sz, inst)
-    # K7 at oracle16_dense's shapes (all 2304^2 pairs: its whole build) and
-    # at dense64's (512 target rows x all 36,864 sources); its runtime-deg
-    # instance at deg 9, 10 and 12 (8^2, 128 target rows x every source)
+    # K7's whole build at oracle16_dense's shapes (all 2304^2 pairs) and at
+    # dense64's (36,864^2 pairs; the first and last 512 rows checked); its
+    # runtime-deg instance at deg 9, 10 and 12 (8^2; 128 rows checked)
     chk[16, "k7"] = kern.k7(16, 16 * 16 * NQ)
-    chk[64, "k7"] = kern.k7(64, 512, plain_reps=1)
+    k7_rows = kern.k7(64, 512, f32=True)
+    chk[64, "k7"] = [r for r in k7_rows if r["variant"] != "m0_f32"]
+    chk[64, "k7_f32"] = [r for r in k7_rows if r["variant"] == "m0_f32"]
+    torch.cuda.empty_cache()
     for deg in (9, 10, 12):
-        chk[8, f"k7_deg{deg}"] = kern.k7(8, 128, plain_reps=1, deg=deg)
+        chk[8, f"k7_deg{deg}"] = kern.k7(8, 128, deg=deg)
     # np 6 and 7: K3 at the np6 phase's fine levels (32^2, deg 2: the split
     # pair axis, r = 36 and 49), K1-D f64 and K3-D f64 at demo128's twin
     # shapes (D = 9; K1-D f64 one box a lane)
@@ -2140,6 +2241,8 @@ def main():
                              max_true_res=1e-9)
     run_oracle16_dense(torch, kern)
     dense64 = run_dense64(torch, kern, x_f64)
+    torch.cuda.empty_cache()
+    dense64_f32 = run_dense64_f32(torch, kern)
     torch.cuda.empty_cache()
     demo = run_demo128(torch, kern)
     torch.cuda.empty_cache()
@@ -2291,23 +2394,41 @@ def main():
                     shapes=f"dsa64 DSA, {DSA_SZ}^2 cells",
                     on_main_path=False,
                     max_abs_err_all_sizes=worst("k9d_f64")),
-        # K7: times of one launch at dense64's shapes (512 rows; its
-        # set_coeff launches 82 of up to 455 rows), the bound on the FP64
-        # CUDA cores; the whole 16^2 build and the pair-list form beside
+        # K7: the whole 16^2 build (oracle16_dense, one launch: the kernel,
+        # its plain version and the bound on the same work); the whole 64^2
+        # build (dense64, f64 and f32 stores: one launch each) beside, with
+        # its bounds on the unique pairs and on all ordered pairs
         kernel_line("line_integral", "aniso_torch/csrc/line_integral.cu",
                     "aniso_tpu/ops/attenuation.py:112",
-                    dense64["launches"]["k7_f64"], chk[64, "k7"][:1],
-                    id="K7", shapes="dense64 64^2: 512 target rows x 36864 "
-                    "sources, one mode",
-                    ms_16=chk[16, "k7"][0]["ms"],
-                    plain_ms_16=chk[16, "k7"][0]["plain_ms"],
-                    bound_ms_16=chk[16, "k7"][0]["bound_ms"],
-                    pairs_ms=chk[64, "k7"][0]["pairs_ms"],
+                    dense64["launches"]["k7_dense_f64"], chk[16, "k7"][:1],
+                    id="K7", shapes="oracle16_dense 16^2: the whole (1, 2304, "
+                    "2304) build, one mode",
+                    ms_64=chk[64, "k7"][0]["ms"],
+                    bound_ms_64=chk[64, "k7"][0]["bound_ms"],
+                    bound_ms_64_all_pairs=chk[64, "k7"][0][
+                        "bound_ms_all_pairs"],
+                    plain_ms_64_512_rows=chk[64, "k7"][0]["plain_ms"],
+                    shapes_64="dense64 64^2: the whole (1, 36864, 36864) build",
+                    launches_dense64_f32=dense64_f32["launches"][
+                        "k7_dense_f32"],
+                    pairs_ms_64_512_rows=chk[64, "k7"][0]["pairs_ms"],
                     **{f"ms_8_deg{d}": chk[8, f"k7_deg{d}"][0]["ms"]
                        for d in (9, 10, 12)},
                     **{f"bound_ms_8_deg{d}": chk[8, f"k7_deg{d}"][0]["bound_ms"]
                        for d in (9, 10, 12)},
                     max_abs_err_all_sizes=worst("k7")),
+        # K7's float32 store (dense64_f32's instance, one launch): the whole
+        # 64^2 build, first and last 512 rows against the float64 plain rows
+        kernel_line("line_integral_f32", "aniso_torch/csrc/line_integral.cu",
+                    "aniso_tpu/ops/attenuation.py:112",
+                    dense64_f32["launches"]["k7_dense_f32"],
+                    chk[64, "k7_f32"], id="K7 f32 store",
+                    shapes="dense64_f32 64^2: the whole (1, 36864, 36864) "
+                    "build, stored in float32",
+                    tolerance=TOL_STORE_F32,
+                    bound_ms_all_pairs=chk[64, "k7_f32"][0][
+                        "bound_ms_all_pairs"],
+                    plain_rows=chk[64, "k7_f32"][0]["plain_rows"]),
         # domain decomposition (sharded512: 8 shards of 256 x 128 on one
         # card): K10 per matvec's u exchange plus its leaf M exchange, one
         # launch each; K1-S and K2-S on one shard (levels 3-9), launched

@@ -238,6 +238,34 @@ def test_single_mode_builds_match_jax(m):
                    want) < 1e-13
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("deg", [2, 3])
+def test_whole_matrix_entry_matches_jax(deg, compat, dtype):
+    """K7's whole-matrix entry (its plain version on the CPU) against JAX's
+    build_dense_smooth_all at 4^2, modes 0-2: on the raw coefficients, or
+    under the global-basis quirk (the basis at global coordinates on the
+    raw coefficients; JAX on their local equivalent).  A float32 store
+    rounds each value once (2^-24 relative): 1e-7 of the maximum there."""
+    rng = np.random.default_rng(deg)
+    g, jg = make_grid(4, deg), j_make_grid(4, deg)
+    raw = project_field(g, 2.0 + rng.random((4, 4, deg * deg)))
+    local = to_local_equivalent(g, raw) if compat else raw
+    nodes = evaluate_at_nodes_np(g, local)
+    with pure_jax():
+        want = j_dense.build_dense_smooth_all(
+            jg, range(3), jnp.asarray(local), jnp.asarray(nodes),
+            use_native=False)
+    got = k7.dense_smooth(g, t(raw), t(g.flat_nodes()),
+                          t(g.weights.reshape(-1)), t(nodes).reshape(-1),
+                          range(3), compat, dtype)
+    assert got.dtype == dtype and got.shape == (3, 4 * 4 * deg * deg,
+                                                4 * 4 * deg * deg)
+    tol = 1e-13 if dtype == torch.float64 else 1e-7
+    for m in range(3):
+        assert rel(got[m].double().numpy(), want[m]) < tol
+
+
 @functools.lru_cache(maxsize=None)
 def solvers(N, compat):
     """(JAX, port) dense solvers at 8^2, deg 3, f64, N modes."""

@@ -27,6 +27,7 @@ from aniso_torch.kernels import (
     _cuda, attenuation, diffusion, halo, m2l, near, offsets, pcg,
 )
 from aniso_torch.ops.attenuation import make_line_integral
+from aniso_torch.ops.dense import build_dense_smooth
 from aniso_torch.solver.dsa import _face_coeffs
 from aniso_torch.solver.operator import TransportSolver, resolve_device
 
@@ -150,15 +151,35 @@ def _k2s_inputs(device, dtype=torch.float32, lx=4, ly=3, nq=9):
             t((lx, ly, nq, nq)))
 
 
+def _k7_inputs(device, dtype=torch.float64, sz=4, deg=2):
+    """K7's whole-matrix entry: sigma_t's coefficients, the nodes, their
+    weights and the m = 0 diagonal."""
+    g = make_grid(sz, deg)
+    rng = np.random.default_rng(6)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
+
+    return (t(rng.standard_normal((sz, sz, deg * deg)) + 3.0),
+            t(g.flat_nodes()).contiguous(), t(g.weights.reshape(-1)),
+            t(rng.random(g.n_nodes)))
+
+
+def _k7_dense(coeffs, pts, w, diag):
+    return attenuation.dense_smooth(make_grid(4, 2), coeffs, pts, w, diag,
+                                    [0, 1, 2])
+
+
 _INPUTS = {"m2l": (m2l.m2l_translate, _k1_inputs),
            "near": (near.near_contract, _k2_inputs),
            "offsets": (offsets.offsets_translate, _k3_inputs),
            "m2l_shard": (m2l.m2l_translate_shard, _k1s_inputs),
-           "near_shard": (near.near_contract_shard, _k2s_inputs)}
+           "near_shard": (near.near_contract_shard, _k2s_inputs),
+           "dense_smooth": (_k7_dense, _k7_inputs)}
 
 
 @pytest.mark.parametrize("kernel", ["m2l", "near", "offsets", "m2l_shard",
-                                    "near_shard"])
+                                    "near_shard", "dense_smooth"])
 def test_wrappers_raise_on_tensors_off_the_cpu_without_a_kernel(kernel):
     """A tensor that is neither on the CPU nor a launchable CUDA tensor
     (here on the meta device) is refused, never computed by the plain
@@ -169,7 +190,7 @@ def test_wrappers_raise_on_tensors_off_the_cpu_without_a_kernel(kernel):
 
 
 @pytest.mark.parametrize("kernel", ["m2l", "near", "offsets", "m2l_shard",
-                                    "near_shard"])
+                                    "near_shard", "dense_smooth"])
 def test_wrappers_refuse_other_dtypes(kernel):
     """Only the float32 and float64 instances exist: a float16 tensor off
     the CPU is refused before any launch."""
@@ -199,9 +220,47 @@ def test_k7_wrappers_refuse_tensors_off_the_cpu_without_a_kernel():
         attenuation.line_integral_pairs(g, c.float(), p.float(), p.float())
     pts, w = torch.zeros((64, 2), **f64), torch.zeros(64, **f64)
     with pytest.raises(ValueError):
-        attenuation.dense_smooth_rows(g, c, pts, w, w, 0, 8, [0, 1])
+        attenuation.dense_smooth(g, c, pts, w, w, [0, 1])
     with pytest.raises(ValueError):
-        attenuation.dense_smooth_rows(g, c, pts, w, w, 0, 8, [0, 2])
+        attenuation.dense_smooth(g, c, pts, w, w, [0, 2])
+    with pytest.raises(ValueError):
+        attenuation.dense_smooth(g, c, pts[:63], w, w, [0, 1])
+    with pytest.raises(TypeError):
+        attenuation.dense_smooth(g, c, pts, w, w, [0, 1],
+                                 dtype=torch.float16)
+
+
+def test_build_dense_smooth_default_device_raises_without_cuda(no_cuda):
+    """build_dense_smooth without a device means the card, as every entry
+    point: without one it raises, and the CPU runs only when named."""
+    g = make_grid(2, 2)
+    coeffs = np.full((2, 2, 4), 0.5)
+    with pytest.raises(RuntimeError):
+        build_dense_smooth(g, 0, coeffs)
+    assert build_dense_smooth(g, 0, coeffs, device="cpu").shape == (16, 16)
+
+
+def test_k2_variants_patch_the_committed_source(tmp_path):
+    """aniso_torch/tools/k2_variants.py's A/B copies: every patch finds
+    its text in csrc/near_contract.cu exactly once and changes the copy."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "k2_variants",
+        os.path.join(ROOT, "aniso_torch", "tools", "k2_variants.py"))
+    k2v = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(k2v)
+    dirs = k2v.variant_sources(_build.CSRC, str(tmp_path))
+    assert set(dirs) == {"base", *k2v.VARIANTS}
+
+    def text(name):
+        with open(os.path.join(dirs[name], k2v.SOURCE)) as f:
+            return f.read()
+
+    with open(os.path.join(_build.CSRC, k2v.SOURCE)) as f:
+        assert text("base") == f.read()
+    for name in k2v.VARIANTS:
+        assert text(name) != text("base"), name
 
 
 def test_cuda_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -332,6 +391,40 @@ def test_near_all_modes_kernel_matches_plain_on_card(cuda_device, dtype, D):
                                None if dfy is None else dfy[d])
             for d in range(D)])
         _gate(got, each, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [False, True])
+@pytest.mark.parametrize("nq", [1, 4, 9, 16])
+@pytest.mark.parametrize("D", [1, 3, 5, 9, 11])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_near_kernel_instances_match_plain_on_card(cuda_device, dtype, D, nq,
+                                                   shard):
+    """Every K2 instance against its plain version: compiled D (1, 3, 5, 9)
+    and the runtime-D one (11: two blocks of modes), nq 1, 4, 9 and 16 (at
+    nq 16, D 9 in f64 the tables of all target rows exceed shared memory:
+    the rows are split over blocks), with and without the Duffy term, on
+    the whole grid (13 x 13, the last tile ragged) and on a 7 x 5 shard
+    with its halo-extended u."""
+    rng = np.random.default_rng(100 * D + nq)
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=dtype).to(cuda_device)
+
+    lx, ly = (7, 5) if shard else (13, 13)
+    E = t((lx, ly, nq, 3, 3, nq)).abs()
+    cosrw, S = t((D, nq, 3, 3, nq)), t((D, nq, 3, 3, nq))
+    u = t((lx + 2, ly + 2, nq)) if shard else t((lx, ly, nq))
+    sigma_w, duffy = t((lx, ly, nq)), t((D, lx, ly, nq, nq))
+    fn, plain = ((near.near_contract_shard, near.near_contract_shard_plain)
+                 if shard else (near.near_contract, near.near_contract_plain))
+    key = ("shard_" if shard else "") + _cuda.INSTANCES[dtype]
+    for dfy in (None, duffy):
+        n0 = near.launches[key]
+        got = fn(E, cosrw, S, u, sigma_w, dfy)
+        assert near.launches[key] == n0 + 1
+        _gate(got, plain(E, cosrw, S, u, sigma_w, dfy), dtype)
 
 
 @pytest.mark.cuda
@@ -481,40 +574,60 @@ def test_line_integral_kernel_matches_plain_on_card(cuda_device, compat, sz,
                              device=cuda_device)
     p0, p1 = (torch.as_tensor(p, device=cuda_device)
               for p in _k7_pairs(rng, sz, 3000))
-    n0 = attenuation.launches["f64"]
+    n0 = attenuation.launches["pairs"]
     got = attenuation.line_integral_pairs(g, coeffs, p0, p1, compat)
-    assert attenuation.launches["f64"] == n0 + 1
+    assert attenuation.launches["pairs"] == n0 + 1
     want = make_line_integral(g, sz, compat)(coeffs, p0[:, 0], p0[:, 1],
                                              p1[:, 0], p1[:, 1])
     _gate(got, want, torch.float64)
     assert float(got[-1]) == 0.0
 
 
+def _dense_gate(got, want, rows, dtype):
+    """K7's whole matrix against its plain version on `rows` (targets of
+    both triangles): 1e-12 of the maximum for float64; a float32 store
+    rounds each value once more (2^-24 relative), so 1e-7 there."""
+    sub = got[:, rows].double()
+    assert got.dtype == dtype
+    tol = 1e-12 if dtype == torch.float64 else 1e-7
+    assert float((sub - want).abs().max()) <= tol * float(want.abs().max())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("compat", [False, True])
 @pytest.mark.parametrize("modes", [[0, 1, 2], [1, 2], [0]])
-def test_dense_smooth_kernel_matches_plain_on_card(cuda_device, compat,
-                                                   modes):
-    """K7's dense-build form (E fused with the mode factors, the diagonal
-    and the weights) against its plain version, rows 100..299 of 576."""
-    rng = np.random.default_rng(len(modes))
-    g = make_grid(8, 3)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("sz,deg", [(8, 1), (8, 2), (8, 3), (16, 1),
+                                    (16, 2), (16, 3), (8, 9)])
+def test_dense_smooth_kernel_matches_plain_on_card(cuda_device, dtype,
+                                                   compat, sz, deg, modes):
+    """K7's whole-matrix entry (E once per unordered pair, fused with the
+    mode factors, the diagonal and the weights) against the plain target
+    -> source rows: the first and last rows (the upper triangle's tiles and
+    the mirrored ones) and rows that cross the diagonal tiles, in both
+    bases, for modes from 0 (the r = 0 diagonal on mode 0) and from 1 (no
+    diagonal; the mirrored entries' (-1)^m sign from m = 1)."""
+    rng = np.random.default_rng(sz + deg)
+    g = make_grid(sz, deg)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float64,
                                device=cuda_device)
 
-    coeffs = t(rng.standard_normal((8, 8, 9)) + 3.0)
+    coeffs = t(rng.standard_normal((sz, sz, deg * deg)) + 3.0)
     pts, w = t(g.flat_nodes()).contiguous(), t(g.weights.reshape(-1))
     diag = t(rng.random(g.n_nodes))
-    n0 = attenuation.launches["f64"]
-    got = attenuation.dense_smooth_rows(g, coeffs, pts, w, diag, 100, 200,
-                                        modes, compat)
-    assert attenuation.launches["f64"] == n0 + 1
-    want = attenuation.dense_smooth_rows_plain(g, coeffs, pts, w, diag, 100,
-                                               200, modes, compat)
-    assert got.shape == (len(modes), 200, g.n_nodes)
-    _gate(got, want, torch.float64)
+    n = g.n_nodes
+    inst = "dense_f64" if dtype == torch.float64 else "dense_f32"
+    n0 = attenuation.launches[inst]
+    got = attenuation.dense_smooth(g, coeffs, pts, w, diag, modes, compat,
+                                   dtype)
+    assert attenuation.launches[inst] == n0 + 1
+    assert got.shape == (len(modes), n, n)
+    for r0, nr in ((0, 40), (n - 40, 40), (n // 2 - 7, 30)):
+        want = attenuation.dense_smooth_rows_plain(g, coeffs, pts, w, diag,
+                                                   r0, nr, modes, compat)
+        _dense_gate(got, want, slice(r0, r0 + nr), dtype)
 
 
 @pytest.mark.cuda
@@ -522,8 +635,8 @@ def test_dense_smooth_kernel_matches_plain_on_card(cuda_device, compat,
 def test_line_integral_kernel_high_deg_matches_plain_on_card(cuda_device,
                                                              deg):
     """K7's runtime-deg instance (deg > 8) on an 8^2 grid: the pair-list
-    form against the plain line integral, and the dense-build form of rows
-    0..199 against its plain version, both bases."""
+    form against the plain line integral, and rows 0..199 and the last 100
+    of the whole-matrix form against its plain version, both bases."""
     rng = np.random.default_rng(deg)
     g = make_grid(8, deg)
 
@@ -535,18 +648,20 @@ def test_line_integral_kernel_high_deg_matches_plain_on_card(cuda_device,
     p0, p1 = (t(p) for p in _k7_pairs(rng, 8, 3000))
     pts, w = t(g.flat_nodes()).contiguous(), t(g.weights.reshape(-1))
     diag = t(rng.random(g.n_nodes))
+    n = g.n_nodes
     for compat in (False, True):
-        n0 = attenuation.launches["f64"]
+        n0 = attenuation.launches["pairs"]
         got = attenuation.line_integral_pairs(g, coeffs, p0, p1, compat)
-        assert attenuation.launches["f64"] == n0 + 1
+        assert attenuation.launches["pairs"] == n0 + 1
         want = make_line_integral(g, 8, compat)(coeffs, p0[:, 0], p0[:, 1],
                                                 p1[:, 0], p1[:, 1])
         _gate(got, want, torch.float64)
-        got = attenuation.dense_smooth_rows(g, coeffs, pts, w, diag, 0, 200,
-                                            [0, 1], compat)
-        want = attenuation.dense_smooth_rows_plain(g, coeffs, pts, w, diag,
-                                                   0, 200, [0, 1], compat)
-        _gate(got, want, torch.float64)
+        got = attenuation.dense_smooth(g, coeffs, pts, w, diag, [0, 1],
+                                       compat)
+        for r0, nr in ((0, 200), (n - 100, 100)):
+            want = attenuation.dense_smooth_rows_plain(
+                g, coeffs, pts, w, diag, r0, nr, [0, 1], compat)
+            _dense_gate(got, want, slice(r0, r0 + nr), torch.float64)
 
 
 def _halo_jobs(device, dtype, lx, ly, q, w, seed, receive=False):
