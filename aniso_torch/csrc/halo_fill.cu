@@ -25,13 +25,26 @@
 //
 // Bound on the H100: bytes, the extended blocks written once and what they
 // copy read once (u at 512^2 in f32 on 8 shards: 19.2 MB, 5.7 us at 3.35
-// TB/s).
-// A copy has no arithmetic.  The shards' tables (up to kMaxShards a launch)
-// travel as a kernel parameter, so a launch needs no table copy of its own;
-// blockIdx.y is the shard, and the threads of the grid's x dimension stride
-// over the shard's extended block in 16-byte vectors where q values fill
-// whole vectors and every region's rows start on 16 bytes (the wrapper
-// checks), one value a thread otherwise.
+// TB/s).  A copy has no arithmetic, so the design keeps the integer work
+// off the values and enough loads in flight:
+//   * the unit is a run: one output row X of one region column b, w or ly
+//     squares x q values, contiguous in the region and in the output.  The
+//     runs of all shards are one flat 32-bit index space, (shard, X, b);
+//     each output row gets one warp for each of its two halo runs and WL
+//     warps for its interior run (WL from the run's length), and a warp
+//     finds its run with two 32-bit divisions: no division or 64-bit
+//     arithmetic per value;
+//   * a run is copied in 16-byte words where its source and destination lie
+//     alike modulo 16, else in 8-byte words where they lie alike modulo 8,
+//     else value by value, kUnroll words in flight a lane; the head up to
+//     the destination's first word boundary and the tail go value by
+//     value.  A run with no source is stored as zeros, loads none;
+//   * the shards' tables (up to kMaxShards a launch) travel as a
+//     __grid_constant__ kernel parameter: no table copy, no local copy.
+// On an H100 80GB HBM3 at 700 W, u in f32 takes 0.0147 ms (the old kernel
+// 0.0213, a Tensor.copy_ of its bytes 0.0156) and the leaf's M 0.0186
+// (0.0189); in f64 the leaf's M is 3% slower than the old kernel
+// (PERF.md, the K10 rows of §6).
 
 #include <cuda_runtime.h>
 
@@ -39,6 +52,9 @@ namespace {
 
 constexpr int kMaxShards = 16;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 8;        // words in flight a lane
+constexpr int kMaxInterior = 8;   // warps on an interior run, at most
 
 struct HaloTable {
     const void* src[kMaxShards][9];   // region (a, b) at 3 a + b, or null
@@ -46,44 +62,110 @@ struct HaloTable {
     void* out[kMaxShards];
 };
 
-template <typename T, int VW> struct Vec { using V = T; };
-template <> struct Vec<float, 4> { using V = float4; };
-template <> struct Vec<double, 2> { using V = double2; };
+template <typename T> struct Words;
+template <> struct Words<float> {
+    using W16 = float4;
+    using W8 = float2;
+};
+template <> struct Words<double> {
+    using W16 = double2;
+    using W8 = double;
+};
 
-// One shard's extended block per blockIdx.y, in vectors of VW values:
-// lx + 2w rows of (ly + 2w) q / VW vectors each.
-template <typename T, int VW>
-__global__ void __launch_bounds__(kThreads) halo_fill_kernel(
-    const HaloTable tab, int lx, int ly, int q, int w) {
-    using V = typename Vec<T, VW>::V;
-    const int s = blockIdx.y;
-    const long long qv = q / VW;                  // vectors a square
-    const long long row_len = (long long)(ly + 2 * w) * qv;
-    const long long total = (long long)(lx + 2 * w) * row_len;
-    const long long wq = (long long)w * qv;
-    const long long lyq = (long long)ly * qv;
-    V* out = static_cast<V*>(tab.out[s]);
-    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         e < total; e += (long long)gridDim.x * blockDim.x) {
-        const int X = (int)(e / row_len);
-        const long long Y = e - (long long)X * row_len;
-        const int a = X < w ? 0 : (X < w + lx ? 1 : 2);
-        const int i = X - (a == 0 ? 0 : (a == 1 ? w : w + lx));
-        const int b = Y < wq ? 0 : (Y < wq + lyq ? 1 : 2);
-        const long long j = Y - (b == 0 ? 0 : (b == 1 ? wq : wq + lyq));
-        const V* src = static_cast<const V*>(tab.src[s][3 * a + b]);
-        V v{};
-        if (src != nullptr) {
-            v = src[(long long)i * (tab.row[s][3 * a + b] / VW) + j];
+// n values of T from src (zeros where src is null) to dst by the nt threads
+// t = 0 .. nt - 1 of a run, in words W from dst's first W boundary
+template <typename W, typename T>
+__device__ __forceinline__ void copy_run(T* __restrict__ dst,
+                                         const T* __restrict__ src, int n,
+                                         int t, int nt) {
+    constexpr int k = sizeof(W) / sizeof(T);
+    const int mis = (int)(reinterpret_cast<size_t>(dst) % sizeof(W));
+    const int head =
+        min(n, (int)((sizeof(W) - mis) % sizeof(W)) / (int)sizeof(T));
+    const int nw = (n - head) / k;
+    const int done = head + nw * k;
+    W* dw = reinterpret_cast<W*>(dst + head);
+    if (src == nullptr) {
+        if (t < head) {
+            dst[t] = T(0);
         }
-        out[e] = v;
+        for (int i = t; i < nw; i += nt) {
+            dw[i] = W{};
+        }
+        if (t < n - done) {
+            dst[done + t] = T(0);
+        }
+        return;
+    }
+    if (t < head) {
+        dst[t] = src[t];
+    }
+    const W* sw = reinterpret_cast<const W*>(src + head);
+    int i = t;
+    for (; i + (kUnroll - 1) * nt < nw; i += kUnroll * nt) {
+        W v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            v[u] = sw[i + u * nt];
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            dw[i + u * nt] = v[u];
+        }
+    }
+    for (; i < nw; i += nt) {
+        dw[i] = sw[i];
+    }
+    if (t < n - done) {
+        dst[done + t] = src[done + t];
+    }
+}
+
+// One warp a halo run and wl warps an interior run: output row (s, X) has
+// warps 2 + wl; its warp 0 takes run b = 0, warp 1 run b = 2, the others
+// run b = 1.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) halo_fill_kernel(
+    const __grid_constant__ HaloTable tab, int n, int lx, int ly, int q,
+    int w, int wl) {
+    const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    const int rows = lx + 2 * w;
+    const int rowid = warp / (2 + wl);
+    if (rowid >= n * rows) {
+        return;
+    }
+    const int j = warp - rowid * (2 + wl);
+    const int s = rowid / rows;
+    const int X = rowid - s * rows;
+    const int b = j == 0 ? 0 : (j == 1 ? 2 : 1);
+    const int t = b == 1 ? (j - 2) * 32 + lane : lane;
+    const int nt = b == 1 ? 32 * wl : 32;
+    const int a = X < w ? 0 : (X < w + lx ? 1 : 2);
+    const int i = X - (a == 0 ? 0 : (a == 1 ? w : w + lx));
+    const int y0 = b == 0 ? 0 : (b == 1 ? w : w + ly);
+    const int len = (b == 1 ? ly : w) * q;
+    T* dst = static_cast<T*>(tab.out[s])
+             + ((size_t)X * (ly + 2 * w) + y0) * q;
+    const T* src = static_cast<const T*>(tab.src[s][3 * a + b]);
+    if (src != nullptr) {
+        src += (size_t)i * tab.row[s][3 * a + b];
+    }
+    const size_t rel = reinterpret_cast<size_t>(src)
+                       ^ reinterpret_cast<size_t>(dst);
+    if (src == nullptr || rel % 16 == 0) {
+        copy_run<typename Words<T>::W16>(dst, src, len, t, nt);
+    } else if (rel % 8 == 0) {
+        copy_run<typename Words<T>::W8>(dst, src, len, t, nt);
+    } else {
+        copy_run<T>(dst, src, len, t, nt);
     }
 }
 
 template <typename T>
 int launch(const long long* table, int n, int lx, int ly, int q, int w,
-           int vec, void* stream) {
-    if (n < 1 || n > kMaxShards) {
+           void* stream) {
+    if (n < 1 || n > kMaxShards || lx < 1 || ly < 1 || q < 1 || w < 1) {
         return (int)cudaErrorInvalidValue;
     }
     // table: per shard the out pointer, the 9 region pointers and the 9
@@ -97,34 +179,31 @@ int launch(const long long* table, int n, int lx, int ly, int q, int w,
             tab.row[s][k] = t[10 + k];
         }
     }
-    const int vw = vec ? 16 / (int)sizeof(T) : 1;
-    const long long total =
-        (long long)(lx + 2 * w) * (ly + 2 * w) * q / vw;
-    long long blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > 1024) {
-        blocks = 1024;
+    // an interior run's warps: one for each 2 x 32 x kUnroll values (a
+    // lane walks it in two rounds of single values, or in one of 16-byte
+    // words: sized by words, half the warps, the w = 2 rows ran 7-10%
+    // slower on an H100, PERF.md)
+    const long long len = (long long)ly * q;
+    long long wl = (len + 2 * 32 * kUnroll - 1) / (2 * 32 * kUnroll);
+    wl = wl < 1 ? 1 : (wl > kMaxInterior ? kMaxInterior : wl);
+    const long long warps = (long long)n * (lx + 2 * w) * (2 + wl);
+    if (warps * 32 > 0x7fffffffLL || len > 0x7fffffffLL) {
+        return (int)cudaErrorInvalidValue;
     }
-    const dim3 grid((unsigned)blocks, (unsigned)n);
-    const cudaStream_t st = (cudaStream_t)stream;
-    if (vec) {
-        halo_fill_kernel<T, 16 / sizeof(T)><<<grid, kThreads, 0, st>>>(
-            tab, lx, ly, q, w);
-    } else {
-        halo_fill_kernel<T, 1><<<grid, kThreads, 0, st>>>(tab, lx, ly, q, w);
-    }
+    const unsigned blocks = (unsigned)((warps + kWarps - 1) / kWarps);
+    halo_fill_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        tab, n, lx, ly, q, w, (int)wl);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int aniso_halo_fill_f32(const long long* table, int n, int lx,
-                                   int ly, int q, int w, int vec,
-                                   void* stream) {
-    return launch<float>(table, n, lx, ly, q, w, vec, stream);
+                                   int ly, int q, int w, void* stream) {
+    return launch<float>(table, n, lx, ly, q, w, stream);
 }
 
 extern "C" int aniso_halo_fill_f64(const long long* table, int n, int lx,
-                                   int ly, int q, int w, int vec,
-                                   void* stream) {
-    return launch<double>(table, n, lx, ly, q, w, vec, stream);
+                                   int ly, int q, int w, void* stream) {
+    return launch<double>(table, n, lx, ly, q, w, stream);
 }

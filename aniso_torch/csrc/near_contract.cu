@@ -80,7 +80,7 @@ constexpr int kSmemPerSm = 233472;   // the H100's 228 KB a multiprocessor
 
 // The ring's stages, one fewer in flight: three for one mode, two where a
 // stage's copies serve several modes' sums (measured on an H100 with
-// tools/k2_variants.py of this package, PERF.md).
+// `tools/kernel_ab.py --variants k2`, PERF.md).
 __host__ __device__ constexpr int ring_stages(int DC) {
     return DC == 1 ? 3 : 2;
 }
@@ -439,7 +439,7 @@ inline double plan_score(int warps, int ns, int slot_bytes) {
 // the tables do not fit), the run length SLOT (KC = SLOT - W values of k a
 // stage) and the groups NG of 32 squares, by plan_score; NG no larger than
 // fills every SM with a tile.  False if nothing fits.  Each rule was held
-// against its absence on an H100 (tools/k2_variants.py, PERF.md).
+// against its absence on an H100 (tools/kernel_ab.py, PERF.md).
 template <typename T>
 bool plan(Plan* out, int nx, int ny, int nq, int D, int mpb, int stages,
           int nsm, size_t smem_max) {

@@ -85,6 +85,15 @@ def check_all(dtype, *specs):
         _check_device(name, t)
 
 
+def check_aligned(**tensors):
+    """Raise ValueError unless every tensor starts on 16 bytes: the
+    kernels that take them copy from 16-byte boundaries."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel takes a 16-byte aligned "
+                             f"{name}")
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 

@@ -4,7 +4,11 @@ Replaces aniso_tpu/parallel/halo.py:halo_exchange_1 (:30) applied along x
 and then y, the halo-extension step of the shard-local near contraction
 (:56) and fine M2L translate (:106).  The CUDA kernel is csrc/halo_fill.cu;
 its header states the bound (bytes: the extended blocks written once and
-what they copy read once) and the design.
+what they copy read once, 19.2 MB for u at 512^2 in f32 on 8 shards: 5.7
+us at 3.35 TB/s) and the design: the unit is a run (one output row of one
+region column, contiguous on both sides), a warp or a few a run, found by
+32-bit index arithmetic, copied in 16- or 8-byte words where source and
+destination lie alike, value by value otherwise.
 
 A job is one shard's 3 x 3 grid of regions: regions[a][b] for a, b in
 (0, 1, 2) = (low halo, interior, high halo) along x and y.  regions[1][1] is
@@ -31,7 +35,7 @@ from . import _cuda
 
 SOURCE = "halo_fill.cu"
 SYMBOLS = {"f32": "aniso_halo_fill_f32", "f64": "aniso_halo_fill_f64"}
-_ARGTYPES = ((ctypes.c_void_p,) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
+_ARGTYPES = ((ctypes.c_void_p,) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
 MAX_SHARDS = 16           # jobs a launch (kMaxShards in the source)
 
 launches = {"f32": 0, "f64": 0}
@@ -60,11 +64,10 @@ def halo_fill_plain(regions, w: int) -> torch.Tensor:
     return torch.cat([lo, ext, hi], dim=1)
 
 
-def _table_row(out, regions, lx, ly, w, q, item):
-    """One job's 19 table entries (out, 9 region pointers, 9 row strides in
-    values) and whether every row starts on 16 bytes."""
+def _table_row(out, regions, lx, ly, w, q):
+    """One job's 19 table entries: out, 9 region pointers, 9 row strides
+    in values."""
     ptrs, rows = [], []
-    aligned = out.data_ptr() % 16 == 0
     for a in range(3):
         for b in range(3):
             r = regions[a][b]
@@ -87,9 +90,7 @@ def _table_row(out, regions, lx, ly, w, q, item):
                                  f"expected (*, {q}, 1)")
             ptrs.append(r.data_ptr())
             rows.append(r.stride(0))
-            aligned &= (r.data_ptr() % 16 == 0
-                        and (r.stride(0) * item) % 16 == 0)
-    return [out.data_ptr()] + ptrs + rows, aligned
+    return [out.data_ptr()] + ptrs + rows
 
 
 def halo_fill(jobs, w: int) -> list:
@@ -108,19 +109,16 @@ def halo_fill(jobs, w: int) -> list:
             raise ValueError("halo_fill: jobs on more than one device")
     symbol = SYMBOLS[inst]
     fn = _cuda.load(SOURCE, symbol, _ARGTYPES)
-    item = u0.element_size()
     outs = [torch.empty((lx + 2 * w, ly + 2 * w, q), dtype=u0.dtype,
                         device=u0.device) for _ in jobs]
     for k0 in range(0, len(jobs), MAX_SHARDS):
-        table, vec = [], (q * item) % 16 == 0
+        table = []
         for out, regions in zip(outs[k0:k0 + MAX_SHARDS],
                                 jobs[k0:k0 + MAX_SHARDS]):
-            row, aligned = _table_row(out, regions, lx, ly, w, q, item)
-            table += row
-            vec &= aligned
+            table += _table_row(out, regions, lx, ly, w, q)
         n = len(table) // 19
         arr = (ctypes.c_longlong * len(table))(*table)
-        rc = fn(ctypes.cast(arr, ctypes.c_void_p), n, lx, ly, q, w, int(vec),
+        rc = fn(ctypes.cast(arr, ctypes.c_void_p), n, lx, ly, q, w,
                 _cuda.stream(u0.device))
         _cuda.raise_on_error(symbol, rc)
         launches[inst] += 1

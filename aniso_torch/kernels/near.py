@@ -91,12 +91,6 @@ def _contract_windows(E, cosrw, S, u, up, sigma_w, duffy):
     return torch.stack(outs)
 
 
-def _check_aligned(E):
-    """The kernel copies E in 16-byte pieces from 16-byte boundaries."""
-    if E.data_ptr() % 16:
-        raise ValueError("E: the kernel takes a 16-byte aligned E")
-
-
 def near_contract(E, cosrw, S, u, sigma_w=None, duffy=None) -> torch.Tensor:
     if cosrw.dim() == 4:
         return _one_mode(near_contract, E, cosrw, S, u, sigma_w, duffy)
@@ -114,7 +108,7 @@ def near_contract(E, cosrw, S, u, sigma_w=None, duffy=None) -> torch.Tensor:
         _cuda.check("sigma_w", sigma_w, (sz, sz, nq), dt)
     if duffy is not None:
         _cuda.check("duffy", duffy, (D, sz, sz, nq, nq), dt)
-    _check_aligned(E)
+    _cuda.check_aligned(E=E)
     symbol = SYMBOLS[inst]
     fn = _cuda.load(SOURCE, symbol, _ARGTYPES)
     out = torch.empty((D,) + tuple(u.shape), dtype=dt, device=u.device)
@@ -143,7 +137,7 @@ def near_contract_shard(E, cosrw, S, ue, sigma_w=None, duffy=None):
     if duffy is not None:
         specs.append(("duffy", duffy, (D, lx, ly, nq, nq)))
     _cuda.check_all(E.dtype, *specs)
-    _check_aligned(E)
+    _cuda.check_aligned(E=E)
     symbol = SHARD_SYMBOLS[inst]
     fn = _cuda.load(SOURCE, symbol, _SHARD_ARGTYPES)
     out = torch.empty((D, lx, ly, nq), dtype=E.dtype, device=E.device)

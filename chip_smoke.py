@@ -13,16 +13,18 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            in parallel; per library the entry functions ptxas compiled, their
            most registers and any spill
   redesigned_kernels  ptxas's registers, spills and static shared memory
-           of the r = 16 (np 4) instances of K1's all-modes kernel and of
-           K3 (K3's dynamic shared memory is in PERF.md), of every K2
-           instance and of K7's deg 3 instances
+           of the r = 16 (np 4) instances of K1's one-mode and all-modes
+           kernels and of K3 (their dynamic shared memory is in PERF.md),
+           of every K2 and K10 instance and of K7's deg 3 instances
   kernels_vs_plain  at every size solved below, each kernel at the shapes
            the paths give it, against its plain version on inputs from a
            seed (random E, M, cosr; the sigma field's coefficients of the
            problem solved there for K3), with CUDA-event device times and
            bounds:
              64^2, 128^2: K1 f32 at every level, K2 f32 (compat off, on);
-             64^2: K1/K2 f64, K3 f32/f64 at the fine levels;
+             64^2: K1/K2 f64, K3 f32/f64 at the fine levels, and the
+             one-mode K1 at np 3 and 5 in f32 and f64 (rows that start
+             off 16 bytes);
              512^2: K1 f32 at every level, K1 f64 at the coarse levels,
              K2 f32/f64, K3 f32/f64 at both fine levels;
            the all-modes instances (D = 9 modes of one charge per launch),
@@ -216,6 +218,7 @@ R, NQ = 16, 9                    # np_cheb 4 everywhere; deg 3 but in demo128
 NORTH = 512                      # the north-star grid (BASELINE.json)
 DEMO = 128                       # demo.m's grid, deg 1 (one node per square)
 DSA_SZ = 64                      # benchmarks/dsa_bench.py's larger grid, deg 2
+NP6_LEVELS = [2, 3, 4, 5]        # the np6 phase's (32^2), the last 2 fine
 MODES = 5                        # N of demo128 and mm512: D = 9 kernel modes
 # inner iterations of the JAX package on the CPU for the same problems:
 # `python examples/demo.py --cpu --refine --tol 1e-11 [--dsa]`, and
@@ -1710,6 +1713,9 @@ def run_np6(torch, kern):
     n_fine = len(fine_levels(s._tcfg))
     sweeps, fast = run["twin_sweeps"], run["matvecs"]
     check(n_fine > 0 and sweeps > 0, "np6: no per-offset twin sweep")
+    check(list(range(2, s._tcfg.leaf_level + 1)) == NP6_LEVELS
+          and list(fine_levels(s._tcfg)) == NP6_LEVELS[-2:],
+          "np6: its levels are not the ones its kernel rows checked")
     check_launches("np6", out, {
         "k1_f32": n_levels * fast, "k2_f32": fast,
         "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
@@ -2113,17 +2119,19 @@ def main():
                                                 row.get("spill", ""))]}
                     for k, rows in usage.items()}})
 
-    # the kernels redesigned for the card: K1's all-modes kernel and K3 at
-    # r = 16 (np 4), every K2 instance and K7's deg 3 instances: registers,
-    # spills and static shared memory
-    from aniso_torch.kernels import attenuation, m2l, near, offsets
+    # the kernels redesigned for the card: K1's one-mode kernel (its four
+    # instances), K1-D and K3 at r = 16 (np 4), every K2 and K10 instance
+    # and K7's deg 3 instances: registers, spills and static shared memory
+    from aniso_torch.kernels import attenuation, halo, m2l, near, offsets
     emit({"phase": "redesigned_kernels",
           "ptxas": [row for src in (m2l.SOURCE, offsets.SOURCE)
                     for row in usage.get(src, [])
-                    if "Li16E" in row["function"]
-                    and ("m2l_translate_modes_kernel" in row["function"]
-                         or "offsets_translate_kernel" in row["function"])]
-          + usage.get(near.SOURCE, [])
+                    if "m2l_translate_one_kernel" in row["function"]
+                    or "Li16E" in row["function"]
+                    and any(k in row["function"] for k in (
+                        "m2l_translate_modes_kernel",
+                        "offsets_translate_kernel"))]
+          + usage.get(near.SOURCE, []) + usage.get(halo.SOURCE, [])
           + [row for row in usage.get(attenuation.SOURCE, [])
              if "ILi3E" in row["function"]]})
 
@@ -2142,6 +2150,9 @@ def main():
         chk[sz, "k2_f32"] = kern.k2(sz, "f32", (("m0", False),
                                                 ("m0_compat", True)))
     chk[64, "k1_f64"] = kern.k1(64, "f64", lv[64])
+    for n in (3, 5):
+        for inst in ("f32", "f64"):
+            chk[64, f"k1_{inst}_np{n}"] = kern.k1(64, inst, lv[64], np_cheb=n)
     chk[64, "k2_f64"] = kern.k2(64, "f64", (("m0", False),
                                             ("m0_compat", True)))
     chk[NORTH, "k1_f32"] = kern.k1(NORTH, "f32", lv[NORTH])
@@ -2199,7 +2210,11 @@ def main():
         chk[8, f"k7_deg{deg}"] = kern.k7(8, 128, deg=deg)
     # np 6 and 7: K3 at the np6 phase's fine levels (32^2, deg 2: the split
     # pair axis, r = 36 and 49), K1-D f64 and K3-D f64 at demo128's twin
-    # shapes (D = 9; K1-D f64 one box a lane)
+    # shapes (D = 9; K1-D f64 one box a lane); the one-mode K1 at np 6 as
+    # the np6 phase runs it (f32 at every level, f64 at the twin's coarse
+    # ones)
+    chk[32, "k1_f32_np6"] = kern.k1(32, "f32", NP6_LEVELS, np_cheb=6)
+    chk[32, "k1_f64_np6"] = kern.k1(32, "f64", NP6_LEVELS[:-2], np_cheb=6)
     cf32 = bench_coeffs(32, deg=2)
     for n in (6, 7):
         for inst in ("f32", "f64"):
@@ -2266,7 +2281,8 @@ def main():
     # checked size; launches counted in that path's run
     def worst(key):
         return max(r["max_abs_err"] for (_, k), rows in chk.items()
-                   if k == key or k.startswith(key + "_deg") for r in rows)
+                   if k == key or k.startswith(key + "_deg")
+                   or k.startswith(key + "_np") for r in rows)
 
     rl = refined["launches"]
     dl = demo["plain"]["launches"]
@@ -2274,6 +2290,16 @@ def main():
         kernel_line("m2l_translate", "aniso_torch/csrc/m2l_translate.cu",
                     "aniso_tpu/fmm/apply.py:317", bench["launches"]["k1_f32"],
                     chk[64, "k1_f32"], shapes="bench 64^2, levels 2-6",
+                    launches_refined512=rl["k1_f32"],
+                    ms_512=Kernels.total(chk[NORTH, "k1_f32"])["ms"],
+                    bound_ms_512=Kernels.total(chk[NORTH, "k1_f32"])[
+                        "bound_ms"],
+                    leaf512_tb_per_s=chk[NORTH, "k1_f32"][-1]["bytes"]
+                    / chk[NORTH, "k1_f32"][-1]["ms"] / 1e9,
+                    ms_np3=Kernels.total(chk[64, "k1_f32_np3"])["ms"],
+                    ms_np5=Kernels.total(chk[64, "k1_f32_np5"])["ms"],
+                    ms_np6=Kernels.total(chk[32, "k1_f32_np6"])["ms"],
+                    launches_np6=np6["launches"]["k1_f32"],
                     max_abs_err_all_sizes=worst("k1_f32")),
         kernel_line("near_contract", "aniso_torch/csrc/near_contract.cu",
                     "aniso_tpu/fmm/apply.py:577", bench["launches"]["k2_f32"],
@@ -2284,6 +2310,12 @@ def main():
                     chk[NORTH, "k1_f64"],
                     shapes="refined512 twin, coarse levels 2-7",
                     launches_f64_64=f64["launches"]["k1_f64"],
+                    ms_64=Kernels.total(chk[64, "k1_f64"])["ms"],
+                    bound_ms_64=Kernels.total(chk[64, "k1_f64"])["bound_ms"],
+                    ms_np3=Kernels.total(chk[64, "k1_f64_np3"])["ms"],
+                    ms_np5=Kernels.total(chk[64, "k1_f64_np5"])["ms"],
+                    ms_np6=Kernels.total(chk[32, "k1_f64_np6"])["ms"],
+                    launches_np6=np6["launches"]["k1_f64"],
                     max_abs_err_all_sizes=worst("k1_f64")),
         kernel_line("near_contract_f64", "aniso_torch/csrc/near_contract.cu",
                     "aniso_tpu/fmm/apply.py:577", rl["k2_f64"],
@@ -2440,6 +2472,10 @@ def main():
                     "8 shards of 256 x 128, one launch each",
                     copy_ms=sum(r["copy_ms"] for r in chk[NORTH, "k10_f32"]),
                     ms_f64=Kernels.total(chk[NORTH, "k10_f64"])["ms"],
+                    bound_ms_f64=Kernels.total(chk[NORTH, "k10_f64"])[
+                        "bound_ms"],
+                    copy_ms_f64=sum(r["copy_ms"]
+                                    for r in chk[NORTH, "k10_f64"]),
                     launches_sharded64=sh64["launches"]["k10_f32"],
                     bitwise=True, max_abs_err_all_sizes=worst("k10_f32")),
         kernel_line("m2l_translate_shard", "aniso_torch/csrc/m2l_translate.cu",
@@ -2447,6 +2483,8 @@ def main():
                     sh512["launches"]["k1_shard_f32"], chk[NORTH, "k1s_f32"],
                     id="K1-S", shapes="one sharded512 shard, levels 3-9",
                     ms_f64=Kernels.total(chk[NORTH, "k1s_f64"])["ms"],
+                    bound_ms_f64=Kernels.total(chk[NORTH, "k1s_f64"])[
+                        "bound_ms"],
                     launches_sharded64=sh64["launches"]["k1_shard_f32"],
                     max_abs_err_all_sizes=worst("k1s_f32")),
         kernel_line("near_contract_shard", "aniso_torch/csrc/near_contract.cu",

@@ -240,27 +240,48 @@ def test_build_dense_smooth_default_device_raises_without_cuda(no_cuda):
     assert build_dense_smooth(g, 0, coeffs, device="cpu").shape == (16, 16)
 
 
-def test_k2_variants_patch_the_committed_source(tmp_path):
-    """aniso_torch/tools/k2_variants.py's A/B copies: every patch finds
-    its text in csrc/near_contract.cu exactly once and changes the copy."""
+def _kernel_ab():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "k2_variants",
-        os.path.join(ROOT, "aniso_torch", "tools", "k2_variants.py"))
-    k2v = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(k2v)
-    dirs = k2v.variant_sources(_build.CSRC, str(tmp_path))
-    assert set(dirs) == {"base", *k2v.VARIANTS}
+        "kernel_ab", os.path.join(ROOT, "tools", "kernel_ab.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
-    def text(name):
-        with open(os.path.join(dirs[name], k2v.SOURCE)) as f:
-            return f.read()
 
-    with open(os.path.join(_build.CSRC, k2v.SOURCE)) as f:
-        assert text("base") == f.read()
-    for name in k2v.VARIANTS:
-        assert text(name) != text("base"), name
+def _check_variant_trees(table, tmp_path):
+    """tools/kernel_ab.py's A/B copies of one table: every patch finds its
+    text in the committed file exactly once and changes the copy, and
+    nothing else differs."""
+    ab = _kernel_ab()
+    groups, variants = ab.VARIANTS[table]
+    assert all(any(g.startswith(p) for g in ab.GROUPS) for p in groups)
+    for name, patches in variants.items():
+        d = ab.patched_tree(ROOT, str(tmp_path), name, patches)
+        for rel in {rel for rel, _, _ in patches}:
+            with open(os.path.join(ROOT, rel)) as f, \
+                    open(os.path.join(d, rel)) as g:
+                assert f.read() != g.read(), (name, rel)
+        with open(os.path.join(ROOT, "chip_smoke.py")) as f, \
+                open(os.path.join(d, "chip_smoke.py")) as g:
+            assert f.read() == g.read()
+
+
+def test_k2_variants_patch_the_committed_source(tmp_path):
+    """The K2 table of tools/kernel_ab.py patches csrc/near_contract.cu."""
+    _check_variant_trees("k2", tmp_path)
+
+
+def test_k10_variants_patch_the_committed_source(tmp_path):
+    """The K10 table of tools/kernel_ab.py patches csrc/halo_fill.cu."""
+    _check_variant_trees("k10", tmp_path)
+
+
+def test_k1_variants_patch_the_committed_source(tmp_path):
+    """The K1 table of tools/kernel_ab.py patches csrc/m2l_translate.cu
+    and kernels/m2l.py's plan constants."""
+    _check_variant_trees("k1", tmp_path)
 
 
 def test_cuda_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -279,8 +300,15 @@ _GATE = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_m2l_kernel_matches_plain_on_card(cuda_device, dtype):
-    args = _k1_inputs(cuda_device, dtype, m2=8)
+@pytest.mark.parametrize("m2,np_cheb", [(8, 4), (2, 4), (3, 3), (5, 5),
+                                        (7, 2), (16, 7), (32, 4), (9, 8),
+                                        (4, 3), (2, 5), (4, 6), (2, 6)])
+def test_m2l_kernel_matches_plain_on_card(cuda_device, dtype, m2, np_cheb):
+    """The one-mode kernel (one launch) at m2 2-32, box counts that fill
+    no whole run of boxes a block (3^2, 5^2, 7^2, 9^2), rows that start
+    off 16 bytes (np 3, 5, 7), np 6 at the np6 phase's levels 2-3 and
+    np 8."""
+    args = _k1_inputs(cuda_device, dtype, m2=m2, r=np_cheb * np_cheb)
     inst = _cuda.INSTANCES[dtype]
     n0 = m2l.launches[inst]
     got = m2l.m2l_translate(*args)
@@ -291,6 +319,49 @@ def test_m2l_kernel_matches_plain_on_card(cuda_device, dtype):
     with pytest.raises(TypeError):
         m2l.m2l_translate(*[a.half() if a.is_floating_point() else a
                             for a in args])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,r", [(torch.float32, 21 * 21),
+                                     (torch.float32, 448),
+                                     (torch.float64, 15 * 15),
+                                     (torch.float64, 11 * 11)])
+def test_m2l_kernel_at_the_row_limit_matches_plain_on_card(cuda_device,
+                                                           dtype, r):
+    """The longest rows the wrapper takes (27 r values within 48 KB: np 21
+    in float32, 15 in float64, and r = 448, whose rows fill 16-byte
+    vectors) run one row a group, cut into chunks over the stages; np 11 in
+    float64 one whole row a stage.  A row over 48 KB is refused."""
+    args = _k1_inputs(cuda_device, dtype, m2=2, r=r)
+    _gate(m2l.m2l_translate(*args), m2l.m2l_translate_plain(*args), dtype)
+    del args
+    over = 49152 // (27 * (4 if dtype == torch.float32 else 8)) + 1
+    with pytest.raises(ValueError):
+        m2l.m2l_translate(*_k1_inputs(cuda_device, dtype, m2=1, r=over))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_m2l_kernels_refuse_misaligned_inputs_on_card(cuda_device, dtype):
+    """The kernels copy E, cosr and M from 16-byte boundaries: a view
+    that starts one value past one is refused, for K1 and K1-S."""
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    args = list(_k1_inputs(cuda_device, dtype, m2=4))
+    sargs = list(_k1s_inputs(cuda_device, dtype))
+    for k in range(3):
+        bad = list(args)
+        bad[k] = shifted(bad[k])
+        with pytest.raises(ValueError):
+            m2l.m2l_translate(*bad)
+        bad = list(sargs)
+        bad[k] = shifted(bad[k])
+        with pytest.raises(ValueError):
+            m2l.m2l_translate_shard(*bad)
 
 
 @pytest.mark.cuda
@@ -664,19 +735,19 @@ def test_line_integral_kernel_high_deg_matches_plain_on_card(cuda_device,
             _dense_gate(got, want, slice(r0, r0 + nr), torch.float64)
 
 
-def _halo_jobs(device, dtype, lx, ly, q, w, seed, receive=False):
-    """K10's jobs for the 8 shards of a 2 x 4 mesh of (lx, ly, q) blocks:
+def _halo_jobs(device, dtype, lx, ly, q, w, seed, receive=False, shards=8):
+    """K10's jobs for the shards of a mesh of (lx, ly, q) blocks (8: 2 x 4):
     each shard's regions as views of its neighbours' blocks, or (receive)
     as contiguous copies, the form of a P2P receive buffer."""
     from aniso_torch.parallel.api import make_mesh
     from aniso_torch.parallel.halo import DIRECTIONS, neighbour_region
 
-    mesh = make_mesh(devices=[device] * 8)
+    mesh = make_mesh(devices=[device] * shards)
     rng = np.random.default_rng(seed)
     blocks = [torch.as_tensor(rng.standard_normal((lx, ly, q)),
-                              dtype=dtype).to(device) for _ in range(8)]
+                              dtype=dtype).to(device) for _ in range(shards)]
     jobs = []
-    for k in range(8):
+    for k in range(shards):
         regions = [[None] * 3 for _ in range(3)]
         regions[1][1] = blocks[k]
         for a, b in DIRECTIONS:
@@ -715,19 +786,25 @@ def test_halo_fill_refuses_what_the_kernel_does_not_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("w,q,receive", [(1, 9, False), (1, 16, False),
-                                         (2, 16, False), (2, 16, True),
-                                         (2, 9, True)])
+@pytest.mark.parametrize("w,q,receive,lx,ly,shards", [
+    (1, 9, False, 12, 6, 8), (1, 16, False, 12, 6, 8),
+    (2, 16, False, 12, 6, 8), (2, 16, True, 12, 6, 8),
+    (2, 9, True, 12, 6, 8), (1, 9, False, 7, 5, 8), (1, 3, True, 9, 7, 8),
+    (2, 5, False, 5, 3, 8), (1, 1, False, 3, 301, 8),
+    (1, 9, False, 6, 5, 16), (2, 16, True, 4, 3, 17)])
 def test_halo_fill_kernel_matches_plain_on_card(cuda_device, dtype, w, q,
-                                                receive):
-    """K10 bitwise against its plain version: one launch for the 8 shards,
-    16-byte copies (q 16) and one value a thread (q 9 in float32, odd
-    strides)."""
-    jobs = _halo_jobs(cuda_device, dtype, 12, 6, q, w, q + w, receive)
+                                                receive, lx, ly, shards):
+    """K10 bitwise against its plain version: one launch for up to 16
+    shards (two for 17), runs whose source and destination lie alike
+    modulo 16 (q 16: 16-byte words), alike modulo 8 only, or not (q 9, 5,
+    3, 1 and odd lx, ly: runs start off 16 bytes in both dtypes), a long
+    interior run (ly 301: several warps), views and receive buffers."""
+    jobs = _halo_jobs(cuda_device, dtype, lx, ly, q, w, q + w, receive,
+                      shards)
     inst = _cuda.INSTANCES[dtype]
     n0 = halo.launches[inst]
     got = halo.halo_fill(jobs, w)
-    assert halo.launches[inst] == n0 + 1
+    assert halo.launches[inst] == n0 + -(-shards // halo.MAX_SHARDS)
     torch.cuda.synchronize()
     for out, regions in zip(got, jobs):
         assert torch.equal(out, halo.halo_fill_plain(regions, w))
@@ -737,11 +814,15 @@ def test_halo_fill_kernel_matches_plain_on_card(cuda_device, dtype, w, q,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("D,m2x,m2y,np_cheb", [(1, 4, 2, 4), (1, 2, 3, 3),
                                                (9, 4, 2, 4), (5, 8, 4, 4),
-                                               (3, 2, 2, 3)])
+                                               (3, 2, 2, 3), (1, 2, 1, 2),
+                                               (1, 3, 5, 5), (1, 16, 8, 4),
+                                               (1, 7, 3, 7), (1, 4, 4, 8),
+                                               (1, 32, 16, 4), (1, 4, 2, 6)])
 def test_m2l_shard_kernel_matches_plain_on_card(cuda_device, dtype, D, m2x,
                                                 m2y, np_cheb):
     """K1-S (the one-mode kernel at D = 1, the all-modes one above)
-    against its plain version on a shard's rectangle."""
+    against its plain version on a shard's rectangle: odd m2y, rows off
+    16 bytes (np 3, 5, 7), np 6 and 8."""
     r = np_cheb * np_cheb
     E, cosr, Mext, shift = _k1s_inputs(cuda_device, dtype, m2x, m2y, r)
     if D > 1:
