@@ -31,10 +31,10 @@ import functools
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..fmm.apply import _up_pass, fmm_apply_mode
+from ..kernels.krylov import state_layout
 from ..kernels.m2l import m2l_translate
 from ..kernels.offsets import offsets_translate
 from . import distributed
@@ -201,10 +201,16 @@ class ShardedSpace:
     counterpart): every inner product and norm is a per-shard contraction
     summed over the shards in shard order (parallel.halo.reduce_sum, one
     all_reduce of the (i + 1)-vector across processes); no field is
-    gathered."""
+    gathered.  The sums land on the first local shard's device, where the
+    solve's state lives and K12 runs on this process's copy of the column;
+    nothing is read back inside a step.  The step is not captured."""
+
+    capturable = False
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
+        first = mesh.local[0]
+        self.device = mesh.devices[first]
 
     def shaped(self, v):
         return v
@@ -215,9 +221,9 @@ class ShardedSpace:
     def _sum(self, parts):
         return reduce_sum(self.mesh, parts)
 
-    def norm(self, v) -> float:
-        sq = self._sum([(blk * blk).sum() for blk in v.local_blocks()])
-        return float(torch.sqrt(sq))
+    def norm(self, v) -> torch.Tensor:
+        return torch.sqrt(self._sum([(blk * blk).sum()
+                                     for blk in v.local_blocks()]))
 
     def basis(self, b, n: int):
         parts = [None] * self.mesh.size
@@ -227,7 +233,18 @@ class ShardedSpace:
                                    device=blk.device)
         return ShardedBasis(self.mesh, parts)
 
-    def arnoldi(self, V: ShardedBasis, i: int, w: Sharded) -> np.ndarray:
+    def start(self, V: ShardedBasis, u: Sharded, r: Sharded, beta):
+        """V[0] = r / beta; u views it."""
+        for k in self.mesh.local:
+            row = V.parts[k][0]
+            torch.div(r.blocks[k], beta.to(row.device), out=row)
+            u.blocks[k] = row
+
+    def cgs2(self, V: ShardedBasis, w: Sharded, u: Sharded, state, i: int):
+        """CGS2 of w against V[:i + 1] (i the host's count of the cycle's
+        steps: the host runs only active steps, reading each state at
+        once): V[i + 1] = w'' / |w''|, u made its view, the column h1 + h2,
+        |w''| written into the state."""
         local = self.mesh.local
         Vf = {k: V.parts[k].view(V.parts[k].shape[0], -1)[: i + 1]
               for k in local}
@@ -242,16 +259,18 @@ class ShardedSpace:
         wnorm = torch.sqrt(self._sum([wf[k] @ wf[k] for k in local]))
         scale = torch.where(wnorm == 0.0, 1.0, wnorm)
         for k in local:
-            V.parts[k].view(V.parts[k].shape[0], -1)[i + 1] = (
-                wf[k] / scale.to(wf[k].device))
-        return torch.cat([h1 + h2, wnorm[None]]).cpu().numpy()
+            row = V.parts[k][i + 1]
+            torch.div(wf[k].view(row.shape), scale.to(row.device), out=row)
+            u.blocks[k] = row
+        col = state_layout(V.parts[local[0]].shape[0] - 1).col
+        state[col:col + i + 2] = torch.cat([h1 + h2, wnorm[None]])
 
-    def combine(self, V: ShardedBasis, y: np.ndarray) -> Sharded:
+    def combine(self, V: ShardedBasis, y, i: int) -> Sharded:
         out = [None] * self.mesh.size
         for k in self.mesh.local:
             P = V.parts[k]
-            yt = torch.as_tensor(y, dtype=P.dtype, device=P.device)
-            out[k] = torch.tensordot(yt, P[: len(y)], dims=1)
+            yt = y[:i].to(dtype=P.dtype, device=P.device)
+            out[k] = torch.tensordot(yt, P[:i], dims=1)
         return Sharded(self.mesh, out)
 
 

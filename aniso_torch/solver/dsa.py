@@ -62,9 +62,11 @@ class Stencil(NamedTuple):
         return diffusion_apply(z, *self)
 
 
-def cell_average(grid, nodal: torch.Tensor) -> torch.Tensor:
-    """Quadrature-weighted square means: (sz, sz, nq) -> (sz, sz)."""
-    w = torch.as_tensor(grid.w2d, dtype=nodal.dtype, device=nodal.device)
+def cell_average(grid, nodal: torch.Tensor, w=None) -> torch.Tensor:
+    """Quadrature-weighted square means: (sz, sz, nq) -> (sz, sz).  w: the
+    weights (grid.w2d) already on nodal's device in its dtype."""
+    if w is None:
+        w = torch.as_tensor(grid.w2d, dtype=nodal.dtype, device=nodal.device)
     return (nodal * w).sum(-1) / w.sum()
 
 
@@ -116,10 +118,18 @@ class DsaPreconditioner:
 
     h (N, sz, sz, nq) -> h with mode 0 replaced by h0 + prolong(theta z),
     where  (sigma_a - div D grad) z = sigma_s_bar * mean(h0).  It works in
-    the solver's dtype on the solver's device.  `cg_iterations` lists the CG
-    iterations of every call: ints on the CPU, 0-d int32 tensors on the
-    card (read by int(), after the solve).
+    the solver's dtype on the solver's device, and copies nothing from the
+    host in a call, so a CUDA graph can capture it (K9's cooperative launch
+    included).
+
+    `calls` counts the calls since reset() (a solver's captured step adds
+    its calls on each replay).  `cg_iterations` lists the CG iterations of
+    each of them: on the card each call's K9 count goes into its own slot
+    of a device log, indexed by a counter on the device, and the list reads
+    the log (after the solve); at most LOG_CALLS calls between resets.
     """
+
+    LOG_CALLS = 1 << 16
 
     def __init__(self, solver, *, tol: float = 1e-8, max_iter: int = 500,
                  damping: bool = True):
@@ -127,8 +137,11 @@ class DsaPreconditioner:
         if solver.sigma_s is None:
             raise RuntimeError("call set_coeff before building DSA")
         self.grid = grid
-        sigma_s_bar = cell_average(grid, solver.sigma_s)
-        sigma_t_bar = cell_average(grid, solver.sigma_t)
+        dev = solver.sigma_s.device
+        self.w = torch.as_tensor(grid.w2d, dtype=solver.sigma_s.dtype,
+                                 device=dev)
+        sigma_s_bar = cell_average(grid, solver.sigma_s, self.w)
+        sigma_t_bar = cell_average(grid, solver.sigma_t, self.w)
         sigma_a_bar = torch.clamp(sigma_t_bar - sigma_s_bar, min=1e-12)
         D = 0.5 / sigma_t_bar          # 2D Eddington (aniso.m:77)
         self.sigma_s_bar = sigma_s_bar
@@ -147,17 +160,44 @@ class DsaPreconditioner:
             self.theta = torch.ones_like(sigma_t_bar)
         self.tol = tol
         self.max_iter = max_iter
-        self.cg_iterations = []
+        self.calls = 0
+        self._counts = []                      # the CPU's CG counts
+        self._log = self._slot = None
+        if dev.type == "cuda":
+            self._log = torch.zeros(self.LOG_CALLS, dtype=torch.int32,
+                                    device=dev)
+            self._slot = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def reset(self):
+        """Start counting calls and CG iterations anew."""
+        self.calls = 0
+        self._counts.clear()
+        if self._slot is not None:
+            self._slot.zero_()
+
+    @property
+    def cg_iterations(self) -> list:
+        if self._log is None:
+            return list(self._counts)
+        if self.calls > self.LOG_CALLS:
+            raise RuntimeError(f"{self.calls} calls since reset(): the log "
+                               f"holds {self.LOG_CALLS}")
+        return self._log[:self.calls].tolist()
 
     def __call__(self, h: torch.Tensor) -> torch.Tensor:
         multi = h.dim() == 4
         h0 = h[0] if multi else h
-        hbar = cell_average(self.grid, h0)
+        hbar = cell_average(self.grid, h0, self.w)
         z, k = pcg(
             self.apply_diff, self.diag, self.sigma_s_bar * hbar,
             tol=self.tol, max_iter=self.max_iter,
         )
-        self.cg_iterations.append(k)
+        if self._log is not None:              # K9's count, on the card
+            self._log.index_copy_(0, self._slot % self.LOG_CALLS, k.view(1))
+            self._slot += 1
+        else:
+            self._counts.append(k)
+        self.calls += 1
         h0_new = h0 + (self.theta * z)[:, :, None]
         if not multi:
             return h0_new

@@ -139,10 +139,16 @@ class TransportSolver:
         self._sigma_s64 = None
         self._k_smooth = None
         self._k_real = None
+        # the captured Arnoldi steps of inner_gmres (solver.gmres) and what
+        # forward() read when they were captured: set_coeff drops them, and
+        # so does inner_gmres once any of it was replaced
+        self._graphs = {}
+        self._graph_reads = []
         if backend == "dense":
             self._stencils = [self._tensor(st) for st, _ in near]
             self._duffys = [None if d is None else self._tensor(d)
                             for _, d in near]
+            self._dense_pairs = self._pairs()
         else:
             self._init_fmm(near)
 
@@ -203,7 +209,8 @@ class TransportSolver:
         dtype, whose fine levels are dense while they fit the device memory
         left and per-offset beyond."""
         g = self.grid
-        # release the previous caches first
+        # release the previous caches first, and the graphs that read them
+        self._graphs, self._graph_reads = {}, []
         self._caches = self._caches64 = None
         self._k_smooth = self._k_real = None
         shape = (g.sz, g.sz, g.nq)
@@ -398,17 +405,23 @@ class TransportSolver:
             self.n_matvecs += self.cfg.kernel_size
         return out
 
-    def _coupled_dense(self, C, v) -> torch.Tensor:
+    def _pairs(self) -> list:
+        """[(charge a, the modes d it meets, the same as a device index)]:
+        the index lives on the device so that a matvec copies nothing from
+        the host (a captured step may not)."""
         N = self.cfg.kernel_size
-        pairs = {}                  # charge a -> the modes d it meets
+        pairs = {}
         for i in range(N):
             for j in range(-(N - 1), N):
                 pairs.setdefault(abs(j), set()).add(abs(i - j))
+        return [(a, sorted(ds), torch.tensor(sorted(ds), device=self.device))
+                for a, ds in sorted(pairs.items())]
+
+    def _coupled_dense(self, C, v) -> torch.Tensor:
         out = None
-        for a, ds in sorted(pairs.items()):
-            ds = sorted(ds)
+        for a, ds, ds_index in self._dense_pairs:
             Ka = torch.stack([self.apply_mode(d, v[a]) for d in ds])
-            acc = torch.einsum("id,dxyq->ixyq", C[:, a, ds], Ka)
+            acc = torch.einsum("id,dxyq->ixyq", C[:, a, ds_index], Ka)
             out = acc if out is None else out + acc
         return out
 
@@ -454,15 +467,50 @@ class TransportSolver:
         return self._coupled(self._C_rhs64, self._modes(q, torch.float64),
                              twin=True)
 
+    def _forward_reads(self) -> list:
+        """Every object forward() reads from the caches (the leaves of
+        sigma_s, _caches and the dense matrices), whose addresses a captured
+        step holds."""
+        leaves = []
+
+        def walk(v):
+            if isinstance(v, dict):
+                for w in v.values():
+                    walk(w)
+            elif isinstance(v, (list, tuple)):
+                for w in v:
+                    walk(w)
+            elif v is not None:
+                leaves.append(v)
+
+        walk([self.sigma_s, self._caches, self._k_smooth, self._k_real])
+        return leaves
+
     def inner_gmres(self, b, tol, x0=None, precond=None) -> GmresResult:
         """GMRES on forward(), left-preconditioned when `precond` (the
         action of the preconditioner on an (N, sz, sz, nq) field) is
-        given."""
+        given.  On the card its Arnoldi step is a CUDA graph, captured at
+        the first solve of each dtype, shape and restart, with a
+        preconditioner or without, and again for another preconditioner
+        object (solver.gmres).  The graphs are dropped by set_coeff, and
+        here when anything forward() reads was replaced since they were
+        captured (a cache entry swapped by hand).  The counts a step makes
+        (n_matvecs, n_matvecs64, the preconditioner's `calls`, the kernels'
+        launches) are added on each replay."""
         b = self._modes(b, self.dtype)
         x0 = None if x0 is None else self._modes(x0, self.dtype)
+        reads = self._forward_reads()
+        if (len(reads) != len(self._graph_reads)
+                or any(a is not c for a, c in zip(reads, self._graph_reads))):
+            self._graphs, self._graph_reads = {}, reads
+        # the host counters a captured step bumps besides the kernels'
+        counters = [(self, "n_matvecs"), (self, "n_matvecs64")]
+        if hasattr(precond, "calls"):
+            counters.append((precond, "calls"))
         return gmres(
             self.forward, b, x0, restart=self.cfg.restart,
             max_iter=self.cfg.max_iter, tol=tol, precond=precond,
+            graphs=self._graphs, counters=counters,
         )
 
     # -- solve (aniso.m:159-173 / main.cpp:138-141) --

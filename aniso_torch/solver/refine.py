@@ -15,7 +15,10 @@ MAX_REFINE rounds.  Starting from x_0 = 0, r_0 = b exactly and the first
 f64 matvec is skipped.
 
 The f64 state (b, x, r) stays on the solver's device; each round reads
-its residual norm back as a Python float.  The solver is a
+its residual norm back as a Python float.  Every round's inner solve
+replays the one GMRES step the solver captured at its first (the graph is
+kept by dtype, shape, restart and preconditioner object, which the rounds
+share; solver.gmres).  The solver is a
 TransportSolver built with SolverConfig(refine=True, dtype="float32"):
 its set_coeff builds the f64 twin (_forward64, _rhs64) next to the f32
 fast path (forward, inner_gmres).

@@ -9,7 +9,8 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
 
   device   first the nvidia-smi name and power limit line as nvidia-smi
            prints it, then torch / CUDA versions and the TF32 pins
-  build    nvcc of K1, K2, K3, K9d, K9, K7 and K10 and g++ of the host engine,
+  build    nvcc of K1, K2, K3, K9d, K9, K7, K10 and K11 / K12 and g++ of the
+           host engine,
            in parallel; per library the entry functions ptxas compiled, their
            most registers and any spill
   redesigned_kernels  ptxas's registers, spills and static shared memory
@@ -60,6 +61,14 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            Gates: max|kernel - plain| <= 1e-5 max|plain| in f32 (sums of
            432 to 729 terms, or K3's 27 atomic adds, in another order) and
            1e-12 max|plain| in f64
+  krylov_vs_plain  the GMRES step's kernels at restart 80 and steps i = 0,
+           14 and 79: K11 (CGS2) f32 and f64 on the one-mode fields of 64^2
+           and 512^2 (deg 3) against cgs2_plain (the new basis vector, u
+           and the column within TOL_KERNEL of their largest value; rows
+           other than i + 1 untouched; an inactive step a no-op), timed
+           beside its plain version and torch.mv(V[:i+1], w) (library_ms);
+           K12's step against givens_step_plain (1e-14) and its
+           back-substitution (1e-12), beside an empty launch's floor
   bench    bench.py's problem: 64^2, deg 3, g=0.95, np 4, f32, tol 1e-7,
            GMRES(80): set_coeff, matvec time, solve; 14 +- 1 iterations,
            true residual < 1e-5, K1/K2 launch counts = launches per matvec
@@ -170,6 +179,22 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            also without the flag (its error reported, no gate); oracle_64
            with --distributed as one process of an NCCL group (exit 0,
            within 1e-3 of the oracle)
+
+Every solve of one device runs GMRES with its state on the card and its
+Arnoldi step (the matvec, K11, K12; the preconditioner and its K9 in the
+DSA runs) captured as a CUDA graph at the solver's first solve and
+replayed; the sharded phases step the same state uncaptured.  Each solve
+phase reports its gmres counts (steps, replays, cycles, solves, captures),
+host_reads, steps_after_done, graph_capture_s, and repeat_s, device_s /
+device_busy_share from the same solve repeated under torch.profiler (K9's
+device time there gives the DSA runs' precond_s); gates: the steps
+replayed but one eager step per capture, at most one step after
+convergence and iterations + 2 cycles + 2 host reads per inner solve,
+the matvecs the steps add up to, and K11 / K12 launches = steps (K12's
+back-substitution = cycles) beside every other launch count.  A replay
+runs no Python, so its launches are counted by the capture's increments:
+the repeat holds them, family by family (profiled_launches), against the
+launches of each kernel's CUDA function that the profiler saw.
 
 then the kernels line (times at each kernel's main-path shapes, launches
 counted in the run of that path) and last
@@ -296,28 +321,33 @@ class Kernels:
     def __init__(self, torch, flush):
         from aniso_torch.fmm.apply import parity_shift_table_np
         from aniso_torch.kernels import (
-            attenuation, diffusion, halo, m2l, near, offsets, pcg,
+            attenuation, diffusion, halo, krylov, m2l, near, offsets, pcg,
         )
 
         self.torch, self.flush = torch, flush
         self.m2l, self.near, self.offsets = m2l, near, offsets
         self.diffusion, self.attenuation, self.pcg = diffusion, attenuation, pcg
-        self.halo = halo
-        # K1-S and K2-S count under k1_shard_* / k2_shard_*
-        self.modules = (("k1", m2l), ("k2", near), ("k3", offsets),
-                        ("k9d", diffusion), ("k9", pcg), ("k7", attenuation),
-                        ("k10", halo))
+        self.halo, self.krylov = halo, krylov
+        # K1-S and K2-S count under k1_shard_* / k2_shard_*; K12 under
+        # k12_step and k12_backsub
+        self.counters = (("k1", m2l.launches), ("k2", near.launches),
+                         ("k3", offsets.launches),
+                         ("k9d", diffusion.launches), ("k9", pcg.launches),
+                         ("k7", attenuation.launches), ("k10", halo.launches),
+                         ("k11", krylov.launches),
+                         ("k12", krylov.givens_launches))
         self.shift = torch.as_tensor(parity_shift_table_np(),
                                      dtype=torch.int32, device=DEVICE)
 
     def reset(self):
-        for _, mod in self.modules:
-            for inst in mod.launches:
-                mod.launches[inst] = 0
+        for _, launches in self.counters:
+            for inst in launches:
+                launches[inst] = 0
 
     def counts(self):
         return {f"{k}_{inst}": n
-                for k, mod in self.modules for inst, n in mod.launches.items()}
+                for k, launches in self.counters
+                for inst, n in launches.items()}
 
     def rand(self, shape, inst, lo=0.0, hi=1.0, normal=False, seed=0):
         """Inputs made on the card from a seed (GBs at 512^2)."""
@@ -659,6 +689,135 @@ class Kernels:
                  "bound_by": bby, "barrier_floor_ms": floor,
                  "barrier_floor_ms_per_iteration": floor / k}]
 
+    def krylov_state(self, m, i, j=1, done=0.0):
+        """A GMRES state (kernels.krylov.state_layout) at step i, active
+        unless `done`, with the rotations, s and the new column of a seeded
+        earlier cycle: cs, sn from angles, s and the column normal."""
+        torch, kr = self.torch, self.krylov
+        rng = np.random.default_rng(i)
+        L = kr.state_layout(m)
+        st = np.zeros(L.len)
+        st[[kr.I, kr.J, kr.DONE, kr.NORMB, kr.TOL, kr.MAX_ITER]] = (
+            i, j, done, 2.0, 1e-10, 400)
+        ang = rng.uniform(0.0, 2 * np.pi, i)
+        st[L.cs:L.cs + i], st[L.sn:L.sn + i] = np.cos(ang), np.sin(ang)
+        st[L.s:L.s + i + 1] = rng.standard_normal(i + 1)
+        st[L.col:L.col + i + 2] = rng.standard_normal(i + 2)
+        H = np.triu(rng.standard_normal((m + 1, m)), -1) + 4 * np.eye(m + 1, m)
+        st[L.H:L.s] = H.T.reshape(-1)
+        return torch.as_tensor(st, device=DEVICE)
+
+    def k11(self, sz, inst, i, m=80, nq=NQ):
+        """K11, the CGS2 of GMRES step i (restart m) on the field of a sz^2
+        one-mode solve (n = sz^2 nq): rows of V of unit norm and w from a
+        seed, against cgs2_plain (JAX's masked full-basis pass in the
+        field's type: V[i+1], u and the column; gate TOL_KERNEL of their
+        largest value), and a step made inactive (done) changing nothing.
+        Timed beside its plain version and torch.mv(V[:i+1], w), pass (a)
+        alone in one PyTorch call (library_ms).  Bound: bytes, V[:i+1] and
+        w read once, V[i+1] and u written once, ((i + 1) + 3) n itemsize
+        (operations: 8 (i + 1) n on the FP64 CUDA cores); beside it the
+        bytes of CGS2 as the kernel does it, V read three times, (3 (i + 1)
+        + 8) n itemsize."""
+        torch, kr = self.torch, self.krylov
+        n = sz * sz * nq
+        V = self.rand((m + 1, n), inst, normal=True, seed=i)
+        V /= torch.linalg.vector_norm(V, dim=1, keepdim=True)
+        w = self.rand((n,), inst, normal=True, seed=1000 + i)
+        st = self.krylov_state(m, i)
+        got = [V.clone(), w.clone(), torch.zeros_like(w), st.clone()]
+        want = [V.clone(), w.clone(), torch.zeros_like(w), st.clone()]
+        kr.cgs2(*got)
+        kr.cgs2_plain(*want)
+        torch.cuda.synchronize()
+        L = kr.state_layout(m)
+        col = slice(L.col, L.col + i + 2)
+        err = float((got[0][i + 1] - want[0][i + 1]).abs().max())
+        scale = float(want[0][i + 1].abs().max())
+        err_col = float((got[3][col] - want[3][col]).abs().max())
+        scale_col = float(want[3][col].abs().max())
+        what = f"K11 {inst} {sz}^2 i={i}"
+        check(err <= TOL_KERNEL[inst] * scale,
+              f"{what}: V[i+1] max err {err} > {TOL_KERNEL[inst]} x {scale}")
+        check(err_col <= TOL_KERNEL[inst] * scale_col,
+              f"{what}: column max err {err_col} of {scale_col}")
+        check(torch.equal(got[2], got[0][i + 1]), f"{what}: u != V[i+1]")
+        check(torch.equal(got[0][[k for k in range(m + 1) if k != i + 1]],
+                          V[[k for k in range(m + 1) if k != i + 1]]),
+              f"{what}: a row other than i + 1 moved")
+        idle = [V.clone(), w.clone(), torch.zeros_like(w),
+                self.krylov_state(m, i, done=1.0)]
+        before = [t.clone() for t in idle]
+        kr.cgs2(*idle)
+        kr.givens_step(idle[3], m)
+        check(all(torch.equal(a, b) for a, b in zip(idle, before)),
+              f"{what}: an inactive step changed its inputs")
+        del idle, before
+        item = V.element_size()
+        nbytes = (i + 4) * n * item
+        bms, bby = bound_ms(nbytes, 8 * (i + 1) * n,
+                            peak=PEAK_F64_CUDA_CORES)
+        basis = V[:i + 1]
+        row = {"i": i, "n": n, "restart": m, "max_abs_err": err,
+               "max_abs_plain": scale, "max_abs_err_column": err_col,
+               "ms": event_ms(torch, lambda: kr.cgs2(*got), flush=self.flush),
+               "plain_ms": event_ms(torch, lambda: kr.cgs2_plain(*want),
+                                    reps=5, flush=self.flush),
+               "library_ms": event_ms(torch, lambda: torch.mv(basis, w),
+                                      flush=self.flush),
+               "bytes": nbytes, "bound_ms": bms, "bound_by": bby,
+               "bytes_cgs2_three_reads": (3 * (i + 1) + 8) * n * item}
+        row["bound_ms_cgs2_three_reads"] = bound_ms(
+            row["bytes_cgs2_three_reads"], 0)[0]
+        return row
+
+    def k12(self, i, m=80):
+        """K12 at step i (restart m): the Givens step on a seeded state
+        against givens_step_plain (the whole state; gate 1e-14 of its
+        largest value: the same operations, each rounded alike) and the
+        back-substitution against givens_backsub_plain (1e-12: its sums in
+        another order).  Each timed call takes a fresh copy of the state
+        (a step moves i).  Beside it the floor of one empty one-block
+        launch (kernels.krylov.launch_floor).  Bound: bytes of the state
+        it reads and writes, (4 i + 22) x 8."""
+        torch, kr = self.torch, self.krylov
+        st = self.krylov_state(m, i, j=i + 1)
+        copies = [st.clone() for _ in range(60)]
+        got, want = copies.pop(), st.clone()
+        kr.givens_step(got, m)
+        kr.givens_step_plain(want, m)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= 1e-14 * scale, f"K12 i={i}: max err {err} of {scale}")
+        L = kr.state_layout(m)
+        kr.givens_backsub(got, m)
+        kr.givens_backsub_plain(want, m)
+        torch.cuda.synchronize()
+        err_y = float((got[L.y:] - want[L.y:]).abs().max())
+        scale_y = float(want[L.y:].abs().max())
+        check(err_y <= 1e-12 * scale_y,
+              f"K12 backsub i={i}: max err {err_y} of {scale_y}")
+        it = iter(copies)
+        nbytes = (4 * i + 22) * 8
+        bms, bby = bound_ms(nbytes, 6 * i + 20, "f64")
+        it_plain = iter([st.clone() for _ in range(8)])
+        return {"i": i, "restart": m, "max_abs_err": err,
+                "max_abs_plain": scale, "backsub_max_abs_err": err_y,
+                "ms": event_ms(torch, lambda: kr.givens_step(next(it), m),
+                               flush=self.flush),
+                "plain_ms": event_ms(
+                    torch, lambda: kr.givens_step_plain(next(it_plain), m),
+                    reps=5, flush=self.flush),
+                "floor_ms": event_ms(torch, lambda: kr.launch_floor(DEVICE),
+                                     flush=self.flush),
+                "backsub_ms": event_ms(torch, lambda: kr.givens_backsub(
+                    got, m), flush=self.flush),
+                "backsub_plain_ms": event_ms(
+                    torch, lambda: kr.givens_backsub_plain(want, m), reps=5,
+                    flush=self.flush),
+                "bytes": nbytes, "bound_ms": bms, "bound_by": bby}
+
     def k7(self, sz, nrows, reps=3, deg=3, f32=False):
         """K7 at sz^2, degree deg, on the oracle problem's sigma_t: the
         whole-matrix form (one mode, D = 1, as oracle16_dense and dense64
@@ -961,46 +1120,179 @@ def matvec_timing(torch, s):
     return out
 
 
+def gmres_stats():
+    from aniso_torch.solver import gmres
+
+    return dict(gmres.stats)
+
+
+def gmres_since(before):
+    """solver.gmres's counts since `before` (a gmres_stats())."""
+    now = gmres_stats()
+    return {k: now[k] - before[k] for k in now}
+
+
+def device_profile(torch, fn):
+    """fn() under torch.profiler: ({kernel name: device seconds}, {kernel
+    name: launches}, fn()'s wall seconds there), the kernels of CUDA graph
+    replays included; empty dicts when the profiler records no device time
+    on this machine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    # device activity only: a solve's host operators would multiply the
+    # events the profiler then sorts on the host
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return ({e.key: e.self_device_time_total / 1e6 for e in rows},
+            {e.key: e.count for e in rows}, wall)
+
+
+# the CUDA function each launch counter's wrapper launches once a call (the
+# family: the counter's name before its instance; K12's two entries apart)
+KERNEL_FUNCTIONS = {
+    "k1": "m2l_translate_[a-z_]*kernel", "k2": "near_contract_kernel",
+    "k3": "offsets_translate_kernel", "k9d": "diffusion_apply_kernel",
+    "k9": "pcg_kernel", "k10": "halo_fill_kernel", "k11": "scale_kernel",
+    "k12_step": "givens_kernel", "k12_backsub": "backsub_kernel",
+}
+
+
+def counter_family(key):
+    return key if key.startswith("k12_") else key.split("_")[0]
+
+
+def profiled_launches(counts, launched):
+    """{family: (launches the wrappers counted, launches of its CUDA
+    function the profiler saw)} for every family counted in the run."""
+    out = {}
+    for key, n in counts.items():
+        fam = counter_family(key)
+        out[fam] = (out.get(fam, (0, 0))[0] + n, 0)
+    for fam, (n, _) in out.items():
+        check(fam in KERNEL_FUNCTIONS or n == 0,
+              f"{fam}: launched {n} times in a solve, no function known")
+        if fam in KERNEL_FUNCTIONS:
+            pat = re.compile(r"(^|[\s:])" + KERNEL_FUNCTIONS[fam] + r"[<(]")
+            out[fam] = (n, sum(c for name, c in launched.items()
+                               if pat.search(name)))
+    return out
+
+
+def solve_device_time(torch, kern, out, fn, precond=None):
+    """The counted solve again under the profiler (the same work: its
+    counters were read; the graph is captured by now), with the launch
+    counters set to 0 just before it.  repeat_s: its wall seconds there;
+    device_s: its device seconds; device_busy_share = device_s / repeat_s.
+    profiled_launches: for each kernel family of the port, the launches
+    its wrappers counted in the repeat (on a captured step: the capture's
+    increments once a replay) beside the launches of its CUDA function
+    that the profiler saw; they must agree.  With the DSA preconditioner,
+    K9's device seconds in the repeat (precond_s), their share of repeat_s
+    and per CG iteration of the repeat (its own counts, read from the card
+    after it)."""
+    if precond is not None:
+        precond.reset()
+    kern.reset()
+    per, launched, wall = device_profile(torch, fn)
+    out["repeat_s"] = wall
+    out["device_s"] = sum(per.values()) if per else None
+    out["device_busy_share"] = out["device_s"] / wall if per else None
+    out["profiled_launches"] = (profiled_launches(kern.counts(), launched)
+                                if per else None)
+    for fam, (n, seen) in (out["profiled_launches"] or {}).items():
+        check(n == seen, f"{out.get('phase', 'solve')}: {fam} counted {n} "
+              f"launches in the profiled solve, the profiler saw {seen}")
+    if precond is not None:
+        k9 = sum(v for k, v in per.items() if "pcg_kernel" in k)
+        cg = sum(precond.cg_iterations)
+        out.update({"precond_s": k9 if per else None,
+                    "precond_share_of_solve": k9 / wall if per else None,
+                    "precond_ms_per_cg_iteration":
+                        1e3 * k9 / max(cg, 1) if per else None})
+
+
 def counted_solve(torch, kern, s, q, precond=None, warm=True):
     """A first solve (one-time costs: library handles, first launches of
-    each shape; skipped with warm=False), then the main path's run with the
-    counters set to 0 just before it and read just after.  matvecs and
-    twin_sweeps count FMM sweeps: N per forward of an N-mode solver.
-    solve_is_first says that solve_s holds those one-time costs."""
+    each shape, the GMRES step's capture; skipped with warm=False), then
+    the main path's run with the counters set to 0 just before it and read
+    just after, then the same solve profiled for its device time.  matvecs
+    and twin_sweeps count FMM sweeps: N per forward of an N-mode solver.
+    solve_is_first says that solve_s holds those one-time costs.  gmres:
+    solver.gmres's counts in the counted solve (host_reads,
+    steps_after_done and the steps replayed from the graph among them);
+    graph_capture_s: the seconds spent capturing, first solve included.
+    With a DsaPreconditioner, its calls and their CG iterations in the
+    counted solve."""
     out = {"solve_is_first": not warm}
+    g0 = gmres_stats()
     if warm:
         t0 = time.perf_counter()
         s.solve(q, precond=precond)
         torch.cuda.synchronize()
         out["solve_first_s"] = time.perf_counter() - t0
     kern.reset()
+    if precond is not None:
+        precond.reset()
     n0, n64 = s.n_matvecs, s.n_matvecs64
+    g1 = gmres_stats()
     t0 = time.perf_counter()
     res = s.solve(q, precond=precond)
     torch.cuda.synchronize()
     out.update({"solve_s": time.perf_counter() - t0,
                 "matvecs": s.n_matvecs - n0,
                 "twin_sweeps": s.n_matvecs64 - n64,
-                "launches": kern.counts()})
+                "launches": kern.counts(), "gmres": gmres_since(g1)})
+    out["host_reads"] = out["gmres"]["host_reads"]
+    out["steps_after_done"] = out["gmres"]["steps_after_done"]
+    out["graph_capture_s"] = gmres_since(g0)["capture_s"]
+    if precond is not None:
+        out.update(dsa_counts(precond))
+    solve_device_time(torch, kern, out,
+                      lambda: s.solve(q, precond=precond), precond)
     return res, out
 
 
-class TimedPrecond:
-    """A preconditioner with the seconds spent in it (the card drained
-    before and after each call) and its calls counted."""
+def gmres_launches(run, inst, sharded=False):
+    """K11 and K12 launches of a counted solve: K11 and K12's step once a
+    step (K11 on one device only: the sharded CGS2 is torch per shard),
+    K12's back-substitution once a cycle."""
+    g = run["gmres"]
+    out = {"k12_step": g["steps"], "k12_backsub": g["cycles"]}
+    if not sharded:
+        out[f"k11_{inst}"] = g["steps"]
+    return out
 
-    def __init__(self, torch, precond):
-        self.torch, self.precond = torch, precond
-        self.seconds, self.calls = 0.0, 0
 
-    def __call__(self, h):
-        self.torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = self.precond(h)
-        self.torch.cuda.synchronize()
-        self.seconds += time.perf_counter() - t0
-        self.calls += 1
-        return out
+def check_gmres(name, run, iterations, per_forward=1, extra=0,
+                sharded=False):
+    """The counted solve's GMRES steps: one device, every step replayed
+    from the captured graph but one eager step per capture (sharded: none
+    captured); at most one step after convergence per inner solve;
+    host_reads within iterations + 2 cycles + 2 per inner solve; and the
+    matvecs the steps' replays add up to: per_forward sweeps for r0, each
+    step and each cycle's residual of every inner solve, plus `extra` (the
+    rhs, counted where it goes through the same counter)."""
+    g = run["gmres"]
+    if sharded:
+        check(g["replays"] == 0, f"{name}: sharded steps replayed")
+    else:
+        check(g["replays"] > 0 and g["replays"] == g["steps"] - g["captures"],
+              f"{name}: {g['steps']} steps, {g['replays']} replayed, "
+              f"{g['captures']} captures")
+    check(g["steps_after_done"] <= g["solves"],
+          f"{name}: {g['steps_after_done']} steps after convergence in "
+          f"{g['solves']} solves")
+    bound = iterations + 2 * g["cycles"] + 2 * g["solves"]
+    check(g["host_reads"] <= bound,
+          f"{name}: {g['host_reads']} host reads, bound {bound}")
+    want = per_forward * (g["solves"] + g["steps"] + g["cycles"]) + extra
+    check(run["matvecs"] == want,
+          f"{name}: {run['matvecs']} matvecs, the steps make {want}")
 
 
 def true_residual64(torch, s, q, x):
@@ -1029,17 +1321,13 @@ def fields_from_seed(grid, N, seed=SEED):
         (N,) + grid.nodes_x.shape)
 
 
-def dsa_stats(pre, timed, solve_s):
-    """The preconditioner's calls, their CG iterations (read from the card
-    after the solve) and its time."""
-    calls = [int(k) for k in pre.cg_iterations]
+def dsa_counts(pre):
+    """The preconditioner's calls and their CG iterations since its
+    reset(), read from the card's log after the solve."""
+    calls = pre.cg_iterations
     return {"precond_calls": len(calls), "cg_iterations_total": sum(calls),
             "cg_iterations_per_call": sum(calls) / max(len(calls), 1),
-            "cg_iterations_max": max(calls, default=0),
-            "precond_s": timed.seconds,
-            "precond_share_of_solve": timed.seconds / solve_s,
-            "precond_ms_per_cg_iteration":
-                1e3 * timed.seconds / max(sum(calls), 1)}
+            "cg_iterations_max": max(calls, default=0)}
 
 
 def true_residual(torch, s, q, x):
@@ -1115,8 +1403,10 @@ def run_problem(torch, kern, name, sz, g, compat, oracle=None,
         check(abs(res.iterations - expect_iters) <= 1,
               f"{name}: {res.iterations} iterations, expected "
               f"{expect_iters} +- 1")
+    check_gmres(name, run, res.iterations, extra=1)
     check_launches(name, out, {f"k1_{inst}": n_levels * matvecs,
-                               f"k2_{inst}": matvecs})
+                               f"k2_{inst}": matvecs,
+                               **gmres_launches(run, inst)})
     if oracle is not None:
         check(out["oracle_rel_linf"] < 1e-3,
               f"{name}: {out['oracle_rel_linf']} vs {oracle}")
@@ -1144,20 +1434,27 @@ def dense_run(torch, kern, s):
            "set_coeff_phases_s": s.set_coeff_phases,
            "cache_report_bytes": s.cache_report()}
     n0 = s.n_matvecs
+    g0 = gmres_stats()
     t0 = time.perf_counter()
     res = s.solve(q)
     torch.cuda.synchronize()
     out.update({"solve_s": time.perf_counter() - t0,
-                "matvecs": s.n_matvecs - n0, "launches": kern.counts()})
+                "matvecs": s.n_matvecs - n0, "launches": kern.counts(),
+                "gmres": gmres_since(g0)})
+    out.update({"host_reads": out["gmres"]["host_reads"],
+                "steps_after_done": out["gmres"]["steps_after_done"],
+                "graph_capture_s": out["gmres"]["capture_s"]})
+    solve_device_time(torch, kern, out, lambda: s.solve(q))
     x = res.x.cpu().numpy().reshape(-1)
     out.update({
         "iterations": res.iterations, "converged": res.converged,
         "givens_estimate": res.residual,
         "true_relative_residual": true_residual(torch, s, q, res.x),
         "finite": bool(np.isfinite(x).all()),
-        "k7_launches_expected": {
-            "k7_dense_" + ("f64" if s.dtype == torch.float64 else "f32"): 1},
     })
+    inst = "f64" if s.dtype == torch.float64 else "f32"
+    out["k7_launches_expected"] = {"k7_dense_" + inst: 1,
+                                   **gmres_launches(out, inst)}
     return res, out, x
 
 
@@ -1183,6 +1480,7 @@ def run_oracle16_dense(torch, kern):
           f"{ORACLE16_DENSE_ITERS} +- 1")
     check(out["oracle_rel_linf"] < 1e-2,
           f"oracle16_dense: {out['oracle_rel_linf']} vs oracle_16")
+    check_gmres("oracle16_dense", out, res.iterations, extra=1)
     check_launches("oracle16_dense", out, out["k7_launches_expected"])
     return out
 
@@ -1228,6 +1526,7 @@ def run_dense64(torch, kern, x_fmm):
     check(out["fmm_vs_dense_apply_rel_err"] < 6e-3,
           f"dense64: FMM apply_mode differs from the dense one by "
           f"{out['fmm_vs_dense_apply_rel_err']}")
+    check_gmres("dense64", out, res.iterations, extra=1)
     check_launches("dense64", out, out["k7_launches_expected"])
     return out
 
@@ -1254,6 +1553,7 @@ def run_dense64_f32(torch, kern):
           f"dense64_f32: true residual {out['true_relative_residual']}")
     check(out["oracle_rel_linf"] < 1e-2,
           f"dense64_f32: {out['oracle_rel_linf']} vs oracle_64")
+    check_gmres("dense64_f32", out, res.iterations, extra=1)
     check_launches("dense64_f32", out, out["k7_launches_expected"])
     return out
 
@@ -1393,10 +1693,11 @@ def run_refined512(torch, kern):
     # f32: every level dense (8 K1 per matvec at 512^2); the twin: the
     # coarse levels dense f64 (6 K1), the two fine levels per-offset (2 K3)
     n_levels = tcfg.leaf_level - 1
+    check_gmres("refined512", run, res.iterations)
     check_launches("refined512", out, {
         "k1_f32": n_levels * matvecs, "k2_f32": matvecs,
         "k1_f64": (n_levels - 2) * sweeps, "k2_f64": sweeps,
-        "k3_f64": 2 * sweeps})
+        "k3_f64": 2 * sweeps, **gmres_launches(run, "f32")})
     return out, x
 
 
@@ -1432,8 +1733,10 @@ def run_f32_512(torch, kern, x_refined):
           f"f32_512: {res.iterations} iterations, expected 14 +- 1")
     tcfg = s._tcfg
     leaf = tcfg.leaf_level
+    check_gmres("f32_512", run, res.iterations, extra=1)
     check_launches("f32_512", out, {"k1_f32": (leaf - 1) * run["matvecs"],
-                                    "k2_f32": run["matvecs"]})
+                                    "k2_f32": run["matvecs"],
+                                    **gmres_launches(run, "f32")})
 
     # the leaf per-offset: the budget admits every fine level but the leaf
     m2l_E = s._caches["m2l_E"]
@@ -1466,9 +1769,15 @@ def run_f32_512(torch, kern, x_refined):
     check(abs(res2.iterations - res.iterations) <= 1,
           f"offsets_leaf512: {res2.iterations} iterations vs "
           f"{res.iterations}")
+    check_gmres("offsets_leaf512", run2, res2.iterations, extra=1)
+    # the step captured at 512^2 read the swapped caches: the solver drops
+    # it by itself and captures the step anew
+    check(run2["gmres"]["captures"] == 1,
+          f"offsets_leaf512: {run2['gmres']['captures']} captures after the "
+          "caches were swapped")
     check_launches("offsets_leaf512", off, {
         "k1_f32": (leaf - 2) * run2["matvecs"], "k2_f32": run2["matvecs"],
-        "k3_f32": run2["matvecs"]})
+        "k3_f32": run2["matvecs"], **gmres_launches(run2, "f32")})
     return out, off
 
 
@@ -1500,15 +1809,15 @@ def run_demo128(torch, kern):
     n_fine = len(fine_levels(tcfg))
     runs = {}
     for name in ("plain", "dsa"):
-        # a first solve for the one-time costs, then the counted one, whose
-        # preconditioner calls are timed and whose CG iterations counted
+        # a first solve for the one-time costs (the step's capture among
+        # them), then the counted one, profiled for K9's device time and
+        # its CG iterations counted
         t0 = time.perf_counter()
         s.solve(q, precond=pre if name == "dsa" else None)
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
-        pre.cg_iterations.clear()
-        timed = TimedPrecond(torch, pre) if name == "dsa" else None
-        res, run = counted_solve(torch, kern, s, q, precond=timed,
+        res, run = counted_solve(torch, kern, s, q,
+                                 precond=pre if name == "dsa" else None,
                                  warm=False)
         run.update({
             "solve_first_s": first,
@@ -1518,8 +1827,6 @@ def run_demo128(torch, kern):
             "true_f64_residual": true_residual64(torch, s, q, res.x),
             "finite": bool(torch.isfinite(res.x).all()),
         })
-        if timed is not None:
-            run.update(dsa_stats(pre, timed, run["solve_s"]))
         runs[name] = (res, run)
         out[name] = run
     res_dsa, run_dsa = runs["dsa"]
@@ -1544,11 +1851,13 @@ def run_demo128(torch, kern):
         sweeps, fast = run["twin_sweeps"], run["matvecs"]
         check(sweeps == N * (1 + res.refinements),
               f"{what}: {sweeps} twin sweeps")
+        check_gmres(what, run, res.iterations, per_forward=N)
         check_launches(what, run, {
             "k1_f32": n_levels * fast, "k2_f32": fast,
             "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
             "k3_f64": n_fine * sweeps,
-            "k9_f32": run.get("precond_calls", 0)})
+            "k9_f32": run.get("precond_calls", 0),
+            **gmres_launches(run, "f32")})
     check(res_dsa.iterations < runs["plain"][0].iterations,
           "demo128: DSA did not cut the iterations")
     check(run_dsa["cg_iterations_total"] > 0, "demo128: no CG iteration")
@@ -1576,17 +1885,14 @@ def run_dsa64(torch, kern):
         pre = DsaPreconditioner(s)
         xs = {}
         for name in ("plain", "dsa"):
-            pre.cg_iterations.clear()
-            timed = TimedPrecond(torch, pre) if name == "dsa" else None
-            res, run = counted_solve(torch, kern, s, q, precond=timed,
+            res, run = counted_solve(torch, kern, s, q,
+                                     precond=pre if name == "dsa" else None,
                                      warm=False)
             run.update({"iterations": res.iterations,
                         "converged": res.converged,
                         "residual_estimate": res.residual,
                         "true_relative_residual":
                             true_residual(torch, s, q, res.x)})
-            if timed is not None:
-                run.update(dsa_stats(pre, timed, run["solve_s"]))
             out[name] = run
             xs[name] = res.x
         out["x_rel_diff_dsa_vs_plain"] = float(
@@ -1605,10 +1911,13 @@ def run_dsa64(torch, kern):
             check(run["true_relative_residual"]
                   < (1e-7 if name == "plain" else 1e-6),
                   f"{what}: true residual {run['true_relative_residual']}")
+            check_gmres(what, run, run["iterations"], per_forward=N,
+                        extra=N)
             check_launches(what, run, {
                 "k1_f64": n_levels * run["matvecs"],
                 "k2_f64": run["matvecs"],
-                "k9_f64": run.get("precond_calls", 0)})
+                "k9_f64": run.get("precond_calls", 0),
+                **gmres_launches(run, "f64")})
         check(out["dsa"]["iterations"] <= out["plain"]["iterations"],
               f"dsa64 N={N}: DSA above plain")
         check(out["dsa"]["cg_iterations_total"] > 0,
@@ -1643,15 +1952,15 @@ def run_dsa512(torch, kern):
     pre = DsaPreconditioner(s, max_iter=4000)
     runs = {}
     for name in ("plain", "dsa"):
-        # a first solve for the one-time costs, then the counted one, whose
-        # preconditioner calls are timed and whose CG iterations counted
+        # a first solve for the one-time costs (the step's capture among
+        # them), then the counted one, profiled for K9's device time and
+        # its CG iterations counted
         t0 = time.perf_counter()
         s.solve(q, precond=pre if name == "dsa" else None)
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
-        pre.cg_iterations.clear()
-        timed = TimedPrecond(torch, pre) if name == "dsa" else None
-        res, run = counted_solve(torch, kern, s, q, precond=timed,
+        res, run = counted_solve(torch, kern, s, q,
+                                 precond=pre if name == "dsa" else None,
                                  warm=False)
         run.update({
             "solve_first_s": first,
@@ -1661,8 +1970,6 @@ def run_dsa512(torch, kern):
             "true_f64_residual": true_residual64(torch, s, q, res.x),
             "finite": bool(torch.isfinite(res.x).all()),
         })
-        if timed is not None:
-            run.update(dsa_stats(pre, timed, run["solve_s"]))
         runs[name] = res
         out[name] = run
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
@@ -1676,11 +1983,13 @@ def run_dsa512(torch, kern):
         check(res.converged and run["true_f64_residual"] < 1e-8,
               f"{what}: true f64 residual {run['true_f64_residual']}")
         sweeps, fast = run["twin_sweeps"], run["matvecs"]
+        check_gmres(what, run, res.iterations)
         check_launches(what, run, {
             "k1_f32": n_levels * fast, "k2_f32": fast,
             "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
             "k3_f64": n_fine * sweeps,
-            "k9_f32": run.get("precond_calls", 0)})
+            "k9_f32": run.get("precond_calls", 0),
+            **gmres_launches(run, "f32")})
     dsa = out["dsa"]
     check(runs["dsa"].iterations < runs["plain"].iterations,
           "dsa512: DSA did not cut the inner iterations")
@@ -1716,10 +2025,11 @@ def run_np6(torch, kern):
     check(list(range(2, s._tcfg.leaf_level + 1)) == NP6_LEVELS
           and list(fine_levels(s._tcfg)) == NP6_LEVELS[-2:],
           "np6: its levels are not the ones its kernel rows checked")
+    check_gmres("np6", run, res.iterations)
     check_launches("np6", out, {
         "k1_f32": n_levels * fast, "k2_f32": fast,
         "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
-        "k3_f64": n_fine * sweeps})
+        "k3_f64": n_fine * sweeps, **gmres_launches(run, "f32")})
     return out
 
 
@@ -1825,10 +2135,11 @@ def run_mm512(torch, kern):
           f"mm512: f32-path residual {out['f32_path_residual']}")
     sweeps, fast = run["twin_sweeps"], run["matvecs"]
     check(sweeps == N * (1 + res.refinements), f"mm512: {sweeps} twin sweeps")
+    check_gmres("mm512", run, res.iterations, per_forward=N)
     check_launches("mm512", out, {
         "k1_f32": n_levels * fast, "k2_f32": fast,
         "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
-        "k3_f64": n_fine * sweeps})
+        "k3_f64": n_fine * sweeps, **gmres_launches(run, "f32")})
     return out
 
 
@@ -1860,17 +2171,26 @@ def sharded_solve(torch, kern, s, mesh, q, tol, restart=80, max_iter=400):
         calls.append(1)
         return v - apply_fn(caches, ms[0], 0, sig * v)
 
+    def solve():
+        b = apply_fn(caches, ms[0], 0, u)
+        return gmres(matvec, b, restart=restart, max_iter=max_iter, tol=tol)
+
     kern.reset()
     halo.reset_collectives()
+    g0 = gmres_stats()
     t0 = time.perf_counter()
-    b = apply_fn(caches, ms[0], 0, u)
-    res = gmres(matvec, b, restart=restart, max_iter=max_iter, tol=tol)
+    res = solve()
     torch.cuda.synchronize()
     out = {"solve_s": time.perf_counter() - t0, "matvecs": 1 + len(calls),
            "launches": kern.counts(),
            "collectives": halo.collective_stats()._asdict(),
+           "gmres": gmres_since(g0),
            "iterations": res.iterations, "converged": res.converged,
            "givens_estimate": res.residual}
+    out.update({"host_reads": out["gmres"]["host_reads"],
+                "steps_after_done": out["gmres"]["steps_after_done"],
+                "graph_capture_s": out["gmres"]["capture_s"]})
+    solve_device_time(torch, kern, out, solve)
     x = res.x.full()
     # the true residual through the one-device operator
     qt = torch.as_tensor(q, dtype=s.dtype, device=DEVICE)
@@ -1890,11 +2210,13 @@ def check_sharded_counts(name, out, mesh, tcfg, sharded_levels, field_bytes,
     n, shards = out["matvecs"], mesh.size
     repl = [lv for lv in range(2, tcfg.leaf_level + 1)
             if lv not in sharded_levels]
+    check_gmres(name, out, out["iterations"], extra=1, sharded=True)
     check_launches(name, out, {
         f"k10_{inst}": n * (1 + len(sharded_levels)),
         f"k1_shard_{inst}": n * shards * len(sharded_levels),
         f"k2_shard_{inst}": n * shards,
-        f"k1_{inst}": n * len(repl)})
+        f"k1_{inst}": n * len(repl),
+        **gmres_launches(out, inst, sharded=True)})
     st = out["collectives"]
     itemsize = 4 if inst == "f32" else 8
     gathered = n * sum(4 ** lv * R * itemsize for lv in repl)
@@ -2019,7 +2341,7 @@ def run_distributed1(torch, kern):
         ref = s.apply_mode(0, u)
         out_sh = apply_fn(caches, ms[0], 0, api.shard_field(mesh, u))
         halo.reset_collectives()
-        norm = out_sh.krylov_space().norm(out_sh)
+        norm = float(out_sh.krylov_space().norm(out_sh))
         st = halo.collective_stats()
         got = out_sh.full()
         out = {"phase": "distributed1", "backend": backend, "port": port,
@@ -2071,6 +2393,29 @@ def k9_extra(row):
     return {k: row[k] for k in ("iterations", "ms_per_cg_iteration",
                                 "barrier_floor_ms",
                                 "barrier_floor_ms_per_iteration")}
+
+
+def krylov_line(name, kid, kry, sz, inst, launches, **extra):
+    """K11's kernels line: bench's (or f64_64's) field at step 14, every
+    step and 512^2 beside."""
+    row = kry[sz, inst][14]
+    big = kry[NORTH, inst]
+    return {"name": name, "id": kid, "route": "cuda",
+            "source": "aniso_torch/csrc/krylov.cu",
+            "replaces": "aniso_tpu/solver/gmres.py:45",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for z, t in kry
+                               if t == inst for r in kry[z, t].values()),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms",
+                                   "bound_ms_cgs2_three_reads")},
+            "shapes": f"{sz}^2 deg 3 (n = {row['n']}), step 14, restart 80",
+            **{f"ms_i{i}": r["ms"] for i, r in kry[sz, inst].items()},
+            **{f"ms_512_i{i}": r["ms"] for i, r in big.items()},
+            **{f"bound_ms_512_i{i}": r["bound_ms"] for i, r in big.items()},
+            **{f"library_ms_512_i{i}": r["library_ms"]
+               for i, r in big.items()},
+            **extra}
 
 
 def kernel_line(name, source, replaces, launches, rows, **extra):
@@ -2240,6 +2585,20 @@ def main():
     for sz in sorted({8, 16, 32, 64, 128, DSA_SZ, DEMO, NORTH}):
         emit({"phase": "kernels_vs_plain", "sz": sz,
               **{k: rows for (z, k), rows in chk.items() if z == sz}})
+    # K11 at the one-mode fields of bench / f64_64 (64^2) and of refined512
+    # / f32_512 and its f64 twin's size (512^2), restart 80, steps 0, 14
+    # (bench's and f32_512's last) and 79 (a full cycle's last); K12 at
+    # the same steps
+    steps = (0, 14, 79)
+    kry = {}
+    for sz in (64, NORTH):
+        for inst in ("f32", "f64"):
+            kry[sz, inst] = {i: kern.k11(sz, inst, i) for i in steps}
+            torch.cuda.empty_cache()
+    k12 = {i: kern.k12(i) for i in steps}
+    emit({"phase": "krylov_vs_plain",
+          "k11": {f"{sz}_{inst}": rows for (sz, inst), rows in kry.items()},
+          "k12": k12})
 
     bench, _ = run_problem(torch, kern, "bench", 64, 0.95, False,
                            expect_iters=14, timing=True)
@@ -2496,6 +2855,34 @@ def main():
                     ms_f64=chk[NORTH, "k2s_f64"][0]["ms"],
                     launches_sharded64=sh64["launches"]["k2_shard_f32"],
                     max_abs_err_all_sizes=worst("k2s_f32")),
+        # the GMRES step (K11, K12): launches once a step of bench's solve
+        # (K12's back-substitution once a cycle); times at step 14 of a
+        # restart-80 cycle on bench's field, the other steps and sizes
+        # beside; K11's library_ms is pass (a) alone, torch.mv
+        krylov_line("cgs2", "K11", kry, 64, "f32",
+                    bench["launches"]["k11_f32"],
+                    launches_refined512=rl["k11_f32"],
+                    launches_demo128=dl["k11_f32"]),
+        krylov_line("cgs2_f64", "K11 f64", kry, 64, "f64",
+                    f64["launches"]["k11_f64"],
+                    launches_dsa64=sum(o[k]["launches"]["k11_f64"]
+                                       for o in dsa64
+                                       for k in ("plain", "dsa"))),
+        {"name": "givens", "id": "K12", "route": "cuda",
+         "source": "aniso_torch/csrc/krylov.cu",
+         "replaces": "aniso_tpu/solver/gmres.py:66",
+         "launches": bench["launches"]["k12_step"],
+         "launches_backsub": bench["launches"]["k12_backsub"],
+         "launches_refined512": rl["k12_step"],
+         "launches_sharded512": sh512["launches"]["k12_step"],
+         "max_abs_err": max(r["max_abs_err"] for r in k12.values()),
+         **{k: k12[14][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "floor_ms", "backsub_ms",
+                                    "backsub_plain_ms")},
+         "library_ms": None, "shapes": "step 14 of a restart-80 cycle",
+         **{f"ms_i{i}": k12[i]["ms"] for i in steps},
+         "backsub_max_abs_err": max(r["backsub_max_abs_err"]
+                                    for r in k12.values())},
     ]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr, flush=True)
