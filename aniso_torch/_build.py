@@ -4,8 +4,9 @@ Two kinds, both with a plain C interface loaded by ctypes:
 
   * CUDA kernels (K1 and K1-S m2l_translate.cu, K2 and K2-S
     near_contract.cu, K3 offsets_translate.cu, K9d diffusion_apply.cu, K9
-    pcg.cu, K10 halo_fill.cu, K11 krylov.cu, each with a float32 and a
-    float64 entry, and K12 krylov.cu, float64; K7
+    pcg.cu, K10 halo_fill.cu, K11 krylov.cu, K8 (the up pass, L2L and
+    L2T) transfer.cu, each with a float32 and a float64 entry, and K12
+    krylov.cu, float64; K7
     line_integral.cu, float64 arithmetic, its dense matrices stored in
     float64 or float32): one nvcc
     per source, ``-gencode arch=compute_90a,code=sm_90a -O3 -shared``, no fast
@@ -36,7 +37,8 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 CUDA_SOURCES = ("m2l_translate.cu", "near_contract.cu",
                 "offsets_translate.cu", "diffusion_apply.cu", "pcg.cu",
-                "line_integral.cu", "halo_fill.cu", "krylov.cu")
+                "line_integral.cu", "halo_fill.cu", "krylov.cu",
+                "transfer.cu")
 HOST_SOURCE = "aniso_host.cpp"
 
 NVCC_FLAGS = (

@@ -15,6 +15,7 @@ solver/operator.py:150-152):
   sigma_w    (sz, sz, nq);  coeffs (sz, sz, nq) beside per-offset levels
   the f64 twin (operator.py:462-483) holds near_W (3, 3, nq, nq, 3, 3, nq,
              dx folded in) and coeffs in place of near_E
+  p2m_w (r, nq), l2t (nq, r), m2m (2, 2, r, r)   the static sweep operators
   m2l_cosr   {level: (4, r*27*r)};  near_cosrw, near_static (3, 3, nq_t, nq_s);
   duffy      (nq_t, nq_s, sz, sz)
   dense      k_smooth, k_real: lists of (n, n) per mode (ops/dense.py)
@@ -25,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fmm.apply import stack_mode_statics
+from .fmm.apply import parity_shift_table_np, stack_mode_statics
 from .fmm.smooth import near_E_from_weights
 
 
@@ -87,6 +88,23 @@ def dense_from_jax_numpy(k_smooth, k_real, device, dtype):
                             dtype=dtype, device=device)
 
     return t(k_smooth), t(k_real)
+
+
+def static_from_jax_numpy(static_np: dict, device, dtype) -> dict:
+    """aniso_tpu's static sweep operators (fmm/apply.py:build_fmm_static:
+    'p2m_w' (r, nq), 'l2t' (nq, r), 'm2m' (2, 2, r, r)) -> the port's, in
+    the layouts K8 reads (the same ones), with the int32 parity shift table
+    the M2L kernels read."""
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device=device)
+
+    return {
+        "p2m_w": t(static_np["p2m_w"]), "l2t": t(static_np["l2t"]),
+        "m2m": t(static_np["m2m"]),
+        "shift": torch.as_tensor(parity_shift_table_np(), dtype=torch.int32,
+                                 device=device),
+    }
 
 
 def mode_static_from_jax_numpy(ms_np: dict, device, dtype) -> dict:

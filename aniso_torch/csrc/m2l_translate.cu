@@ -97,7 +97,9 @@
 // box, a warp per target point, lanes along the row, with up to
 // kModeChunk modes accumulated per pass over the row: simple and not
 // tuned, for the np no instance is compiled for.  Every r whose 27 r-value
-// row fits 48 KB of shared memory runs, as in the one-mode kernel.  expf / exp, not __expf: the library is built without
+// row fits kMaxRowBytes of the opt-in dynamic shared memory runs, as in the
+// one-mode kernel (np 32 in float64, 46 in float32; kernels/m2l.py:
+// MAX_ROW_BYTES).  expf / exp, not __expf: the library is built without
 // fast math.
 //
 // K1-S, K1 on one shard of a domain decomposition (the one-mode entries
@@ -117,7 +119,12 @@
 
 #include <cuda_runtime.h>
 
+#include "smem_limits.cuh"
+
 namespace {
+
+using aniso::kMaxRowBytes;      // a row of 27 r values, at most
+using aniso::kSmemBlock;
 
 constexpr int kThreads = 256;
 constexpr int kOffsets = 27;
@@ -670,7 +677,7 @@ int launch_one(const void* E, const void* cosr, const void* M,
         && Q.NGRP >= 1 && Q.WG * Q.NGRP <= kOneThreads / 32 - 1
         && Q.S % Q.NGRP == 0
         && (Q.nchunk == 1 || Q.NGRP == 1) && Q.smem == smem
-        && Q.smem <= 227 * 1024;
+        && Q.smem <= kSmemBlock;
     if (!ok) {
         return (int)cudaErrorInvalidValue;
     }
@@ -920,8 +927,8 @@ int launch_modes_r(const void* E, const void* cosr, const void* M,
 }
 
 // The all-modes kernel (D >= 2; one mode is launch_one) takes r = np^2
-// for np 2-7 at compile time and any other r whose row fits 48 KB at run
-// time.
+// for np 2-7 at compile time and any other r whose row fits kMaxRowBytes
+// at run time.
 template <typename T>
 int launch(const void* E, const void* cosr, const void* M, const void* shift,
            void* L, const Plane& P, int r, int D, void* stream) {
@@ -945,8 +952,16 @@ int launch(const void* E, const void* cosr, const void* M, const void* shift,
     }
 #undef ANISO_K1D_R
     const size_t row = (size_t)kOffsets * r * sizeof(T);
-    if (row > 48 * 1024) {
+    if (row > kMaxRowBytes) {
         return (int)cudaErrorInvalidValue;
+    }
+    // beyond 48 KB only by the opt-in attribute, which is per device: set
+    // on every launch
+    const cudaError_t err = cudaFuncSetAttribute(
+        m2l_translate_modes_any_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)row);
+    if (err != cudaSuccess) {
+        return (int)err;
     }
     m2l_translate_modes_any_kernel<T><<<blocks, kThreads, row, st>>>(
         static_cast<const T*>(E), static_cast<const T*>(cosr),

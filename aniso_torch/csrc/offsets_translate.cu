@@ -74,7 +74,11 @@
 //     partial sums, added with the same atomics (one per (box, row, mode)
 //     a chunk touches), one mode at a time: simple, not tuned.  r = 36 and
 //     49 are compile-time instances; other r one runtime-r instance (R = 0),
-//     up to the r whose 27 r-value row fits 48 KB, as K1 takes.
+//     which reads each source row from M (L1) instead of a tile of r x 32
+//     values in shared memory, so that its shared memory does not grow
+//     with r: it takes every r K1 takes (np 32 in float64, 46 in float32;
+//     kernels/m2l.py:max_np).  The chunks of pairs run along the grid's x
+//     with the tiles of boxes, the entries along z.
 // atomicAdd is native for f32 and f64 on sm_90; an L value receives the 27
 // offsets' contributions in an order that changes from run to run, so two
 // runs agree to rounding (about 27 ulp of the largest term), not bitwise.
@@ -82,7 +86,11 @@
 
 #include <cuda_runtime.h>
 
+#include "smem_limits.cuh"
+
 namespace {
+
+using aniso::kMaxRowBytes;      // a row of 27 r values, at most, as K1
 
 constexpr int kOffsets = 27;
 constexpr int kPlanCols = 12;   // c o px py di dj c2 o2 sx sy woff K
@@ -116,8 +124,9 @@ template <typename T, int R> struct Shape {
     // the ring, or X over it; then the tile's source multipoles
     static constexpr size_t main_bytes =
         ring_bytes > x_bytes ? ring_bytes : x_bytes;
+    // R = 0 reads the sources from M and keeps no tile of them
     static size_t smem_bytes(int r) {
-        return main_bytes + 2 * (size_t)r * kNB * sizeof(T);
+        return main_bytes + (R == 0 ? 0 : 2 * (size_t)r * kNB * sizeof(T));
     }
 };
 
@@ -152,6 +161,21 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// The row of M at the V-list source of (class c, offset o) for target box
+// (x, y), or null off the parity plane.
+template <typename T>
+__device__ __forceinline__ const T* source_row(const T* M, const int* shift,
+                                               int c, int o, int x, int y,
+                                               int m2, int r) {
+    const int* t = shift + (c * kOffsets + o) * 4;
+    const int bx = x + t[2] - 1;
+    const int by = y + t[3] - 1;
+    if (bx < 0 || bx >= m2 || by < 0 || by >= m2) {
+        return nullptr;
+    }
+    return M + ((size_t)(2 * bx + t[0]) * (2 * m2) + (2 * by + t[1])) * r;
 }
 
 // M at the V-list source of (class c, offset o) for target box (x, y), or 0
@@ -209,7 +233,7 @@ offsets_translate_kernel(
     const int* __restrict__ shift,    // (4, 27, 4)
     const int* __restrict__ plan,     // (entries, kPlanCols)
     T* __restrict__ Lc,               // (D, 4, m2, r, m2), zeroed
-    int sz, int nq, int m2, int B, int D, int r_rt, int pair_chunks) {
+    int sz, int nq, int m2, int B, int D, int r_rt) {
     using S = Shape<T, R>;
     constexpr int NT = S::NT, PP = S::PP, BS = S::BS, XS = S::XS;
     const int r = R > 0 ? R : r_rt;
@@ -221,9 +245,12 @@ offsets_translate_kernel(
     T* Md = reinterpret_cast<T*>(smem + S::main_bytes);
     T* Mm = Md + r * kNB;                                   // (r, kNB) each
 
-    // the block's entry and, split, its chunk of pairs [p0, p0 + PP)
-    const int entry = S::kSplit ? blockIdx.z / pair_chunks : blockIdx.z;
-    const int p0 = S::kSplit ? (blockIdx.z - entry * pair_chunks) * PP : 0;
+    // the block's entry, tile of boxes and, split, chunk of pairs
+    // [p0, p0 + PP) (chunks along x after the tiles)
+    const int entry = blockIdx.z;
+    const int tiles = (m2 + kNB - 1) / kNB;
+    const int tile = blockIdx.x % tiles;
+    const int p0 = S::kSplit ? (int)(blockIdx.x / tiles) * PP : 0;
     const int* e = plan + entry * kPlanCols;
     const int c = e[0], o = e[1], px = e[2], py = e[3], di = e[4], dj = e[5];
     const int c2 = e[6], o2 = e[7], sx = e[8], sy = e[9];
@@ -231,7 +258,7 @@ offsets_translate_kernel(
     const int K = e[11];
     const int bby = (abs(dj) + 1) * B;
     const int x = blockIdx.y;
-    const int y0 = blockIdx.x * kNB;
+    const int y0 = tile * kNB;
     const int xt = x + sx;
     const int row0 = px * B + min(0, di * B) + 2 * B * x;
     const int col0 = py * B + min(0, dj * B) + 2 * B * y0;
@@ -242,8 +269,8 @@ offsets_translate_kernel(
     const int t = lane & 3;           // fragment thread in group
 
     // the direct and mirror source multipoles of the tile: Md[b][n],
-    // Mm[a][n], zero off the plane and past the last box
-    for (int i = tid; i < 2 * r * kNB; i += kThreads) {
+    // Mm[a][n], zero off the plane and past the last box (R = 0: none)
+    for (int i = tid; i < (R == 0 ? 0 : 2 * r * kNB); i += kThreads) {
         const int mirror = i >= r * kNB;
         const int k = (i / kNB) % r;
         const int n = i % kNB;
@@ -413,6 +440,26 @@ offsets_translate_kernel(
     const int yt = y + sy;
     const bool on_plane = xt >= 0 && xt < m2 && yt >= 0 && yt < m2;
     if constexpr (S::kSplit) {
+        // the lane's source rows, from the tile or (R = 0) from M
+        const T* rowd = R == 0 ? source_row(M, shift, c, o, x, y, m2, r)
+                               : nullptr;
+        const T* rowm = R == 0 && on_plane
+                            ? source_row(M, shift, c2, o2, xt, yt, m2, r)
+                            : nullptr;
+        auto md = [&](int b) -> T {
+            if constexpr (R == 0) {
+                return rowd ? rowd[b] : T(0);
+            } else {
+                return Md[b * kNB + n];
+            }
+        };
+        auto mm = [&](int a) -> T {
+            if constexpr (R == 0) {
+                return rowm ? rowm[a] : T(0);
+            } else {
+                return Mm[a * kNB + n];
+            }
+        };
         // the chunk's pairs p0 <= a r + b < p0 + pn: partial sums over the
         // chunk's b (direct) and a (mirror), one mode at a time
         const int pn = min(PP, P - p0);
@@ -428,7 +475,7 @@ offsets_translate_kernel(
             for (int d = 0; d < D; ++d) {
                 T s = T(0);
                 for (int b = b_lo; b < b_hi; ++b) {
-                    s += Xs[(a * r + b - p0) * XS + n] * Md[b * kNB + n]
+                    s += Xs[(a * r + b - p0) * XS + n] * md(b)
                          * __ldg(tab + d * mode_stride + b);
                 }
                 atomicAdd(out + d * out_stride, s);
@@ -454,7 +501,7 @@ offsets_translate_kernel(
             for (int d = 0; d < D; ++d) {
                 T s = T(0);
                 for (int a = a0; a <= a1; ++a) {
-                    s += Xs[(a * r + b - p0) * XS + n] * Mm[a * kNB + n]
+                    s += Xs[(a * r + b - p0) * XS + n] * mm(a)
                          * __ldg(tab + d * mode_stride + a);
                 }
                 atomicAdd(out + d * out_stride, s);
@@ -501,7 +548,9 @@ int launch_r(const void* Wo, const void* coeffs, const void* cosr,
     using S = Shape<T, R>;
     const size_t smem = S::smem_bytes(r);
     const int pair_chunks = S::kSplit ? (r * r + S::PP - 1) / S::PP : 1;
-    if ((long long)n_entries * pair_chunks > 65535) {
+    const int tiles = (m2 + kNB - 1) / kNB;
+    if (n_entries > 65535 || m2 > 65535
+        || (long long)tiles * pair_chunks > 0x7fffffffLL) {
         return (int)cudaErrorInvalidValue;
     }
     auto kernel = offsets_translate_kernel<T, R>;
@@ -511,17 +560,17 @@ int launch_r(const void* Wo, const void* coeffs, const void* cosr,
     if (err != cudaSuccess) {
         return (int)err;
     }
-    const dim3 grid((m2 + kNB - 1) / kNB, m2, n_entries * pair_chunks);
+    const dim3 grid(tiles * pair_chunks, m2, n_entries);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(Wo), static_cast<const T*>(coeffs),
         static_cast<const T*>(cosr), static_cast<const T*>(M),
         static_cast<const int*>(shift), static_cast<const int*>(plan),
-        static_cast<T*>(L), sz, nq, m2, B, D, r, pair_chunks);
+        static_cast<T*>(L), sz, nq, m2, B, D, r);
     return (int)cudaGetLastError();
 }
 
-// r = np^2: np 2-7 compiled for their r, any other r at run time up to the
-// r whose row of 27 r values fits 48 KB (as K1)
+// r = np^2: np 2-7 compiled for their r, any other r at run time up to
+// K1's row limit (kMaxRowBytes)
 template <typename T>
 int launch(const void* Wo, const void* coeffs, const void* cosr,
            const void* M, const void* shift, const void* plan,
@@ -543,7 +592,7 @@ int launch(const void* Wo, const void* coeffs, const void* cosr,
             break;
     }
 #undef ANISO_K3_R
-    if (r < 1 || (size_t)kOffsets * r * sizeof(T) > 48 * 1024) {
+    if (r < 1 || (size_t)kOffsets * r * sizeof(T) > kMaxRowBytes) {
         return (int)cudaErrorInvalidValue;
     }
     return launch_r<T, 0>(Wo, coeffs, cosr, M, shift, plan, n_entries, L, sz,

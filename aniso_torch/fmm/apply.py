@@ -28,8 +28,10 @@ launch serves every mode from one read of E: the locals are one stacked
 to avoid padded layouts of its device, aniso_tpu apply.py:723-729; nothing
 of that applies here.)
 
-P2M, M2M, L2L and L2T are small matmuls left to torch (kernel table K8),
-batched over the mode axis.  Not ported, deliberately: _loop_variant_zero (aniso_tpu apply.py:258), an
+P2M, M2M, L2L and L2T are K8 (kernels.transfer): the up pass in one or
+two launches, and, once every level's T is formed, the L2L chain with the
+leaf's L2T, near-field add and 1/2pi scale in one or two more.  Not
+ported, deliberately: _loop_variant_zero (aniso_tpu apply.py:258), an
 XLA loop-invariant-hoisting workaround that eager torch has no use for; the
 dense-translate orientation branches (:341-372), one GPU layout serves all;
 _row_chunk and the transient caps (:197-255, :567-574); the factored patch@W
@@ -39,7 +41,6 @@ levels of _level_E (:411-424).
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import torch
@@ -48,6 +49,7 @@ from ..core.geometry import Grid
 from ..kernels.m2l import m2l_translate
 from ..kernels.near import near_contract
 from ..kernels.offsets import offsets_translate
+from ..kernels.transfer import down, up_pass
 from .cheb import cheb_grid_2d, m2m_tensor, p2m_matrix
 from .smooth import near_pair_geometry
 from .structure import TreeConfig, coarsest_m2l_level, vlist_offsets
@@ -57,10 +59,15 @@ def build_fmm_static(grid: Grid, np_cheb: int, device, dtype) -> dict:
     """Static sweep operators shared by every mode and every sigma."""
     p2m = p2m_matrix(grid.qx, grid.qy, np_cheb)      # (r, nq)
     wglob = grid.w2d * 0.25 * grid.dx * grid.dx
+
+    def t(a):       # contiguous, as K8 reads them
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
     return {
-        "p2m_w": torch.as_tensor(p2m * wglob[None, :], dtype=dtype, device=device),
-        "l2t": torch.as_tensor(p2m.T, dtype=dtype, device=device),
-        "m2m": torch.as_tensor(m2m_tensor(np_cheb), dtype=dtype, device=device),
+        "p2m_w": t(p2m * wglob[None, :]),
+        "l2t": t(p2m.T),
+        "m2m": t(m2m_tensor(np_cheb)),
         "shift": torch.as_tensor(
             parity_shift_table_np(), dtype=torch.int32, device=device
         ),
@@ -155,17 +162,14 @@ def parity_shift_table_np() -> np.ndarray:
     return out
 
 
-def _up_pass(static, leaf_level: int, u: torch.Tensor) -> dict:
-    """Leaf charges -> multipoles per level: {level: (m, m, r)}; on a
-    shard's (lx, ly) block of squares, the block's boxes at each level."""
-    m2m = static["m2m"]
-    M = {leaf_level: torch.einsum("ck,ijk->ijc", static["p2m_w"], u)}
-    for level in range(leaf_level, coarsest_m2l_level(), -1):
-        child = M[level]
-        r = child.shape[-1]
-        c4 = child.reshape(child.shape[0] // 2, 2, child.shape[1] // 2, 2, r)
-        M[level - 1] = torch.einsum("hgac,xhygc->xya", m2m, c4)
-    return M
+def _up_pass(static, leaf_level: int, u: torch.Tensor, stop=None) -> dict:
+    """Leaf charges -> multipoles per level, {level: (m, m, r)}, from the
+    leaf up to level `stop` (default: the coarsest M2L level) by K8
+    (kernels.transfer); on a shard's (lx, ly) block of squares, the
+    block's boxes at each level."""
+    lo = coarsest_m2l_level() if stop is None else stop
+    Ms = up_pass(static["p2m_w"], static["m2m"], u, leaf_level - lo)
+    return {leaf_level - s: M for s, M in enumerate(Ms)}
 
 
 def stack_mode_statics(mode_statics: list) -> dict:
@@ -197,35 +201,49 @@ def mode_view(mode_stack: dict, d: int) -> dict:
     }
 
 
-def _down_pass(static, leaf_level: int, M: dict, m2l_E: dict,
-               m2l_cosr: dict, coeffs=None, translate_fn=None) -> torch.Tensor:
-    """Per level K1 (a dense E tensor) or K3 (a per-offset level {'Wo'},
-    re-formed from `coeffs`; aniso_tpu _level_E :411-424), then L2L into
-    the next level (one einsum).  With cosr tables that carry a mode axis
-    the locals do too: (D, m, m, r).
+def _translates(static, leaf_level: int, M: dict, m2l_E: dict,
+                m2l_cosr: dict, coeffs=None, translate_fn=None,
+                lo=None) -> list:
+    """Every level's T from level `lo` (default: the coarsest) to the leaf:
+    per level K1 (a dense E tensor) or K3 (a per-offset level {'Wo'},
+    re-formed from `coeffs`; aniso_tpu _level_E :411-424).  With cosr
+    tables that carry a mode axis, T does too: (D, m, m, r).
 
     translate_fn: the translate of one shard of a domain decomposition
     (parallel.api, after aniso_tpu apply.py:524-547), called (level, E_l,
     cosr_l, M_l) with the shard's M; it returns the shard's T, or None for
     the level's own K1 / K3."""
-    m2m = static["m2m"]
-    L = None
-    for level in range(coarsest_m2l_level(), leaf_level + 1):
+    T = []
+    for level in range(lo or coarsest_m2l_level(), leaf_level + 1):
         E_l = m2l_E[level]
-        T = None
+        T_l = None
         if translate_fn is not None:
-            T = translate_fn(level, E_l, m2l_cosr[level], M[level])
-        if T is None and isinstance(E_l, dict):
-            T = offsets_translate(E_l["Wo"], coeffs, m2l_cosr[level],
-                                  M[level], static["shift"])
-        elif T is None:
-            T = m2l_translate(E_l, m2l_cosr[level], M[level], static["shift"])
-        if L is None:
-            L = T
-        else:
-            Lc = torch.einsum("hgac,...xya->...xhygc", m2m, L)
-            L = Lc.reshape(T.shape) + T
-    return L
+            T_l = translate_fn(level, E_l, m2l_cosr[level], M[level])
+        if T_l is None and isinstance(E_l, dict):
+            T_l = offsets_translate(E_l["Wo"], coeffs, m2l_cosr[level],
+                                    M[level], static["shift"])
+        elif T_l is None:
+            T_l = m2l_translate(E_l, m2l_cosr[level], M[level],
+                                static["shift"])
+        T.append(T_l)
+    return T
+
+
+def _down_pass(static, leaf_level: int, M: dict, m2l_E: dict,
+               m2l_cosr: dict, coeffs=None, translate_fn=None, near=None,
+               start=None):
+    """Every level's T (_translates) before any L2L, then K8's chain
+    (kernels.transfer.down): L2L level by level with T added and, given
+    `near` (K2's output), the leaf epilogue, so that the corrected matvec
+    comes back; without `near`, the leaf's locals.  start: (level, L) the
+    shard's locals at a level from which its chain continues (the coarser
+    levels computed whole, parallel.api); T is then formed for the finer
+    levels only."""
+    T = _translates(static, leaf_level, M, m2l_E, m2l_cosr, coeffs,
+                    translate_fn, None if start is None else start[0] + 1)
+    L0, Ts = (T[0], T[1:]) if start is None else (start[1], T)
+    return down(static["m2m"], L0, Ts,
+                None if near is None else static["l2t"], near)
 
 
 def _near_apply(caches, mode_static, mode: int, u: torch.Tensor):
@@ -242,7 +260,8 @@ def _near_apply(caches, mode_static, mode: int, u: torch.Tensor):
 
 
 def fmm_apply_mode(leaf_level, static, caches, mode_static, mode, u,
-                   translate_fn=None, near_fn=None, multipoles=None):
+                   translate_fn=None, near_fn=None, multipoles=None,
+                   start=None):
     """Corrected mode matvec K_m u including the 1/2pi scaling.
 
     caches: {'near_E', 'm2l_E', 'sigma_w'[, 'coeffs']} (sigma-dependent,
@@ -251,34 +270,34 @@ def fmm_apply_mode(leaf_level, static, caches, mode_static, mode, u,
     back.  The kernels' wrappers dispatch on the tables' mode axis, so
     tables stacked by stack_mode_statics (with mode = 0: slot 0 is mode 0
     and takes the diagonal) give every mode at once, (D, sz, sz, nq);
-    fmm_apply_all_modes names that call.
+    fmm_apply_all_modes names that call.  K8 runs the up pass, then K1 /
+    K3 every level's T and K2 the near field, then K8 the L2L chain and
+    the leaf's L2T, near add and scale in one pass.
 
     One shard of a domain decomposition (parallel.api.sharded_solver, after
     aniso_tpu apply.py:684-711) passes its block u, its slices of the
     caches, its multipoles from _up_pass (`multipoles`: the sweep's up
     passes run on every shard before any down pass, so that the halos of
-    a level exist when its first shard needs them), translate_fn (see
-    _down_pass) and near_fn, called (caches, mode_static, mode, u), which
-    returns the shard's near field or None for K2.
+    a level exist when its first shard needs them), translate_fn and
+    `start` (see _down_pass) and near_fn, called (caches, mode_static,
+    mode, u), which returns the shard's near field or None for K2.
     """
     M = multipoles if multipoles is not None else _up_pass(
         static, leaf_level, u)
-    L = _down_pass(static, leaf_level, M, caches["m2l_E"],
-                   mode_static["m2l_cosr"], caches.get("coeffs"),
-                   translate_fn)
-    far = torch.einsum("kc,...ijc->...ijk", static["l2t"], L)
     near = near_fn(caches, mode_static, mode, u) if near_fn else None
     if near is None:
         near = _near_apply(caches, mode_static, mode, u)
-    return (far + near) / (2.0 * math.pi)
+    return _down_pass(static, leaf_level, M, caches["m2l_E"],
+                      mode_static["m2l_cosr"], caches.get("coeffs"),
+                      translate_fn, near, start)
 
 
 def fmm_apply_all_modes(leaf_level, static, caches, mode_stack, u):
     """K_d u for every mode d = 0..D-1 at once: (D, sz, sz, nq).
 
     Counterpart of aniso_tpu fmm_apply_all_modes (:714-768): one up pass,
-    per level one K1 or K3 launch for all modes, L2L and L2T batched over
-    the mode axis, one K2 launch.  mode_stack: stack_mode_statics' tables,
-    mode d at index d.
+    per level one K1 or K3 launch for all modes, one K2 launch, and K8's
+    down pass for all modes at once (a block a box and mode).  mode_stack:
+    stack_mode_statics' tables, mode d at index d.
     """
     return fmm_apply_mode(leaf_level, static, caches, mode_stack, 0, u)

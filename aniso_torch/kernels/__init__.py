@@ -7,9 +7,10 @@ def launch_counters() -> list:
     captured CUDA graph's replays must add to (solver.gmres)."""
     from . import (
         attenuation, diffusion, halo, krylov, m2l, near, offsets, pcg,
+        transfer,
     )
 
     dicts = [m.launches for m in (attenuation, diffusion, halo, krylov, m2l,
-                                  near, offsets, pcg)]
+                                  near, offsets, pcg, transfer)]
     dicts.append(krylov.givens_launches)
     return [(d, key) for d in dicts for key in d]

@@ -11,8 +11,10 @@ whose producer warp streams each box's rows of E into a ring in shared
 memory by bulk copies, beside the box's sources, while the table rows stay
 resident; plan_one cuts its work.  The all-modes kernel (D > 1) is built
 for r = np^2 with np 2-7; any other r runs in its runtime-r instance.  Both
-forms take every r whose row of 27 r values fits 48 KB (np 15 in float64,
-21 in float32).
+forms take every r whose row of 27 r values fits MAX_ROW_BYTES of the
+opt-in dynamic shared memory (np 32 in float64, 46 in float32: max_np),
+as K3 does; TransportSolver refuses a larger np on the card before it
+builds anything (check_np).
 
     L[d, 2x+px, 2y+py, a] = sum_{o,b} exp(-E[c,x,y,a,o,b]) * cosr[d,c,a,o,b]
                                       * M[2(x+shx)+sx, 2(y+shy)+sy, b]
@@ -46,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -82,7 +85,35 @@ STAGE_BYTES = 32768
 MIN_BLOCKS = 128          # blocks a level, at least, where its rows allow
 MAX_CONSUMERS = 8         # consumer warps a block (kOneThreads in the source)
 STAGES = (4, 3, 2)        # ring depths tried; ties go to the deepest
-MAX_ROW_BYTES = 48 * 1024  # a row of 27 r values, at most
+# a row of 27 r values, at most: the one-mode kernel keeps one table row
+# resident beside two stages of a chunk of E and its sources, the
+# all-modes runtime-r instance one row of sources; both in the opt-in
+# dynamic shared memory (cudaFuncAttributeMaxDynamicSharedMemorySize)
+MAX_ROW_BYTES = SMEM_BLOCK - 1024
+
+
+def max_np(itemsize: int) -> int:
+    """The largest np_cheb whose row of 27 np^2 values of `itemsize` bytes
+    the M2L kernels (K1, K1-D, K1-S, K3) take: 32 in float64, 46 in
+    float32."""
+    return math.isqrt(MAX_ROW_BYTES // (27 * itemsize))
+
+
+def check_np(np_cheb: int, dtype) -> None:
+    """Raise ValueError, naming the limit, where the card's M2L kernels do
+    not take np_cheb in `dtype`."""
+    item = torch.finfo(dtype).bits // 8
+    if np_cheb > max_np(item):
+        raise ValueError(
+            f"np_cheb {np_cheb} in {dtype}: the card's M2L kernels take np "
+            f"up to {max_np(item)} (a row of 27 np^2 values within "
+            f"{MAX_ROW_BYTES} bytes of shared memory)")
+
+
+def _row_check(r: int, item: int) -> None:
+    if 27 * r * item > MAX_ROW_BYTES:
+        raise ValueError(f"r = {r}: a row of 27 r values exceeds "
+                         f"{MAX_ROW_BYTES} bytes")
 
 
 class Plan(NamedTuple):
@@ -148,8 +179,7 @@ def plan_one(m2x: int, m2y: int, r: int, item: int,
     warps (the G rows spread evenly), each group the only reader of its
     stages."""
     row = 27 * r
-    if row * item > MAX_ROW_BYTES:
-        raise ValueError(f"r = {r}: a row of 27 r values exceeds 48 KB")
+    _row_check(r, item)
     vw = 16 // item if row * item % 16 == 0 else 1
     nb = m2x * m2y
     G = _cdiv(r, _cdiv(r, max(1, min(r, STAGE_BYTES // (row * item)))))
@@ -329,8 +359,7 @@ def m2l_translate(E, cosr, M, shift) -> torch.Tensor:
     _cuda.check("cosr", cosr, (D, 4, r, ob), E.dtype)
     _cuda.check("M", M, (2 * m2, 2 * m2, r), E.dtype)
     _cuda.check("shift", shift, (4, 27, 4), torch.int32)
-    if ob * E.element_size() > MAX_ROW_BYTES:
-        raise ValueError(f"r = {r}: a row of 27 r values exceeds 48 KB")
+    _row_check(r, E.element_size())
     return _translate_cuda(E, cosr, M, shift, 0)
 
 
@@ -346,8 +375,7 @@ def m2l_translate_shard(E, cosr, Mext, shift) -> torch.Tensor:
     D = cosr.shape[0]
     if ob != 27 * r:
         raise ValueError(f"E: last dim {ob}, expected 27 r = {27 * r}")
-    if ob * E.element_size() > MAX_ROW_BYTES:
-        raise ValueError(f"r = {r}: a row of 27 r values exceeds 48 KB")
+    _row_check(r, E.element_size())
     _cuda.check_all(E.dtype, ("E", E, (4, m2x, m2y, r, ob)),
                     ("cosr", cosr, (D, 4, r, ob)),
                     ("Mext", Mext, (2 * m2x + 4, 2 * m2y + 4, r)))

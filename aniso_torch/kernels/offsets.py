@@ -29,8 +29,9 @@ without the mode axis, (4, r, 27r), is one mode and returns L (2m2, 2m2, r).
 The kernel adds into a class-major scratch (D, 4, m2, r, m2), boxes along
 y last, so that a warp's atomic adds are contiguous; interleave_class_major
 turns it into L.  The kernel is built for r = np^2 with np 2-7; any other r
-runs in its runtime-r instance, up to the r whose row of 27 r values fits
-48 KB (as K1): np 15 in float64, 21 in float32.
+runs in its runtime-r instance, which reads the sources from M (no r-sized
+tile in shared memory), up to K1's limit (m2l.max_np: np 32 in float64, 46
+in float32).
 
 offsets_translate takes offsets_translate_plain for CPU tensors and launches
 the kernel for CUDA tensors (float32 or float64); `launches` counts kernel
@@ -48,7 +49,7 @@ import torch
 
 from ..fmm.smooth import _fine_offset_entries, box_windows, pad_coeffs
 from . import _cuda
-from .m2l import vlist_gather
+from .m2l import _row_check, vlist_gather
 
 SOURCE = "offsets_translate.cu"
 SYMBOLS = {"f32": "aniso_offsets_translate_f32",
@@ -158,8 +159,7 @@ def offsets_translate(Wo, coeffs, cosr, M, shift) -> torch.Tensor:
     m2 = m // 2
     sz, nq = coeffs.shape[0], coeffs.shape[-1]
     np_cheb = math.isqrt(r)
-    if 27 * r * Wo.element_size() > 48 * 1024:
-        raise ValueError(f"r = {r}: a row of 27 r values exceeds 48 KB")
+    _row_check(r, Wo.element_size())
     if m < 4 or sz % m:
         raise ValueError(f"M {tuple(M.shape)} does not tile a {sz}^2 field")
     B = sz // m

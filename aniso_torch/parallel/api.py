@@ -10,19 +10,27 @@ torch has no partitioner, so here the decomposition is written out:
   * per-square and per-box caches and fields are Sharded: each shard holds
     its block, made contiguous once at placement; small operators and
     whatever does not divide the mesh are Replicated, one copy a device;
-  * a matvec runs the up pass, L2L and L2T per shard; the near field and the
-    fine dense M2L levels per shard on halo-extended blocks (K10, then K2-S
-    and K1-S, parallel.halo); the other levels (a level whose parity plane
-    does not divide the mesh, a per-offset level) on the whole level on each
-    device from the gathered M (K1 or K3), each shard keeping its block of T;
+  * a matvec runs the up pass (K8) per shard from the leaf to the coarsest
+    level whose boxes fall into whole shard blocks (`stop`); the levels
+    above it on the whole level on each device, from the gathered M of
+    `stop`; the near field and the fine dense M2L levels per shard on
+    halo-extended blocks (K10, then K2-S and K1-S, parallel.halo); the
+    other levels (a level whose parity plane does not divide the mesh, a
+    per-offset level) on the whole level on each device from the gathered
+    M (K1 or K3), each shard keeping its block of T; the locals of the
+    levels down to `stop` whole on each device, then per shard from its
+    block of them the L2L chain and the leaf's L2T (K8);
+  * a field that does not divide the mesh at all (a power-of-two grid on a
+    mesh axis of 3) is replicated whole, as shard_pytree replicates what
+    does not divide: its Sharded lives on mesh.whole, one shard on this
+    process's first device, which computes all of it;
   * GMRES runs on Sharded fields: the basis stays with each shard, CGS2 and
     the norms sum per-shard contractions over the shards (solver.gmres).
 
 Shards that share a device are the port's counterpart of JAX's virtual host
 devices (tests/conftest.py): on one card, or on the CPU, every step above
-runs, and the halos are copies within the device.  Every mesh axis must
-divide 4, the boxes of level 2 along it, so that every level of the tree
-splits into whole blocks (at most 16 shards).
+runs, and the halos are copies within the device.  Any mesh make_mesh
+builds is taken, as in JAX.
 """
 
 from __future__ import annotations
@@ -34,9 +42,11 @@ from typing import Optional
 import torch
 
 from ..fmm.apply import _up_pass, fmm_apply_mode
+from ..fmm.structure import coarsest_m2l_level
 from ..kernels.krylov import state_layout
 from ..kernels.m2l import m2l_translate
 from ..kernels.offsets import offsets_translate
+from ..kernels.transfer import down, up_from
 from . import distributed
 from .halo import (
     fine_translate_local, gather_full, halo_exchange, near_apply_local,
@@ -62,6 +72,14 @@ class Mesh:
     @property
     def multiprocess(self) -> bool:
         return self.world > 1
+
+    @functools.cached_property
+    def whole(self) -> "Mesh":
+        """One shard on this process's first device: where a field that
+        does not divide this mesh lives, whole (each process holds and
+        computes all of it)."""
+        return Mesh((1, 1), [self.devices[self.local[0]]], [self.rank],
+                    self.rank)
 
     def coords(self, k: int) -> tuple:
         return divmod(k, self.shape[1])
@@ -302,8 +320,13 @@ def shard(mesh: Mesh, x: torch.Tensor, dims=(0, 1)) -> Sharded:
 
 
 def shard_field(mesh: Mesh, arr) -> Sharded:
-    """Place an (sz, sz, ...) per-square array sharded over the mesh."""
-    return shard(mesh, torch.as_tensor(arr), (0, 1))
+    """Place an (sz, sz, ...) per-square array sharded over the mesh; one
+    that does not divide it whole on mesh.whole."""
+    x = torch.as_tensor(arr)
+    if _divisible(x.shape, mesh, 0, 1):
+        return shard(mesh, x, (0, 1))
+    whole = mesh.whole
+    return Sharded(whole, [x.to(whole.devices[0]).contiguous()])
 
 
 def replicate(mesh: Mesh, arr) -> Replicated:
@@ -364,14 +387,20 @@ def _local(tree, mesh: Mesh, k: int):
 
 
 class _Sweep:
-    """One sharded matvec's exchanges, each done once for every shard when
-    its first shard asks (the shards' up passes all ran before): the
-    halo-extended M of a sharded level, the whole-level T of a
-    replicated-route level per device, the gathered coefficient field, the
-    halo-extended u."""
+    """One sharded matvec's exchanges and whole-level work, each done once
+    for every shard when its first shard asks (the shards' up passes all
+    ran before, from the leaf to level `stop`): the halo-extended M of a
+    sharded level, a level's M gathered whole on each device (above `stop`:
+    the up pass from the gathered M of `stop`), the whole-level T of a
+    replicated-route level, the locals of the levels down to `stop`, the
+    gathered coefficient field, the halo-extended u."""
 
-    def __init__(self, mesh, caches, M, u):
+    def __init__(self, mesh, views, caches, M, u, stop):
         self.mesh, self.caches, self.M, self.u = mesh, caches, M, u
+        self.stop = stop
+        # every device's view of the replicated operators and tables
+        self.dev = {device: views[ks[0]]
+                    for device, ks in mesh.local_groups().items()}
         self.memo = {}
 
     def _once(self, key, fn):
@@ -382,6 +411,24 @@ class _Sweep:
     def _level(self, level):
         return [None if m is None else m[level] for m in self.M]
 
+    def _block(self, k, whole, level):
+        """Shard k's block of a whole level's (..., m, m, r) array."""
+        bx, by = self.M[k][level].shape[:2]
+        ix, iy = self.mesh.coords(k)
+        return whole[..., ix * bx:(ix + 1) * bx, iy * by:(iy + 1) * by, :]
+
+    def whole_M(self, level) -> dict:
+        """{device: the whole level's M}: gathered at `stop` and below, by
+        K8's up pass on each device above it."""
+        if level >= self.stop:
+            return self._once(("M", level), lambda: gather_full(
+                self.mesh, self._level(level)))
+        ups = self._once("up", lambda: {
+            device: up_from(self.dev[device][0]["m2m"], M,
+                            self.stop - coarsest_m2l_level())
+            for device, M in self.whole_M(self.stop).items()})
+        return {device: Ms[self.stop - level] for device, Ms in ups.items()}
+
     def translate(self, k, shift, level, E_l, cosr_l, M_l):
         """Shard k's T at `level` (the _down_pass hook)."""
         if isinstance(self.caches["m2l_E"][level], Sharded):
@@ -390,29 +437,42 @@ class _Sweep:
             return fine_translate_local(E_l, cosr_l, ext[k], shift)
         # replicated route: the whole level on each device, from the
         # gathered M; each shard keeps its block of T
-        device = self.mesh.devices[k]
-        T = self._once(("T", level), lambda: self._whole_level(
-            level, cosr_l, shift))[device]
-        bx, by = M_l.shape[:2]
-        ix, iy = self.mesh.coords(k)
-        return T[..., ix * bx:(ix + 1) * bx, iy * by:(iy + 1) * by, :]
+        T = self._once(("T", level), lambda: self._whole_T(level))
+        return self._block(k, T[self.mesh.devices[k]], level).contiguous()
 
-    def _whole_level(self, level, cosr_l, shift):
+    def _whole_T(self, level):
         """{device: the whole level's T} by K1 or K3 on each device; the
-        tables and E are replicated, so any shard's view on the device
-        serves."""
+        tables and E are replicated."""
         out = {}
-        Mfull = gather_full(self.mesh, self._level(level))
-        for device, ks in self.mesh.local_groups().items():
-            E_l = _local(self.caches["m2l_E"][level], self.mesh, ks[0])
+        for device, Mw in self.whole_M(level).items():
+            static, caches, ms = self.dev[device]
+            E_l, cosr_l = caches["m2l_E"][level], ms["m2l_cosr"][level]
             if isinstance(E_l, dict):
                 coeffs = self._once("coeffs", lambda: gather_full(
                     self.mesh, self.caches["coeffs"].blocks))[device]
                 out[device] = offsets_translate(E_l["Wo"], coeffs, cosr_l,
-                                                Mfull[device], shift)
+                                                Mw, static["shift"])
             else:
-                out[device] = m2l_translate(E_l, cosr_l, Mfull[device], shift)
+                out[device] = m2l_translate(E_l, cosr_l, Mw, static["shift"])
         return out
+
+    def start(self, k):
+        """(stop, shard k's block of the locals at `stop`), the levels down
+        to it run whole on each device by K8's L2L chain; None where `stop`
+        is the coarsest level (the shard's chain starts with its T)."""
+        lo = coarsest_m2l_level()
+        if self.stop == lo:
+            return None
+
+        def whole_L():
+            T = [self._once(("T", lv), lambda lv=lv: self._whole_T(lv))
+                 for lv in range(lo, self.stop + 1)]
+            return {device: down(self.dev[device][0]["m2m"], T[0][device],
+                                 [t[device] for t in T[1:]])
+                    for device in self.dev}
+
+        L = self._once("L", whole_L)[self.mesh.devices[k]]
+        return self.stop, self._block(k, L, self.stop).contiguous()
 
     def near(self, k, caches, ms, mode, u):
         """Shard k's near field (the fmm_apply_mode hook)."""
@@ -423,20 +483,35 @@ class _Sweep:
                                 ms["duffy"], ue[k], mode)
 
 
-def _sharded_apply(mesh, leaf, static, caches, ms, mode, u: Sharded):
+def stop_level(block, leaf: int) -> int:
+    """The coarsest level (not above the coarsest M2L level) whose boxes
+    fall into whole blocks of (bx, by) squares."""
+    bx, by = block
+    level = leaf
+    while (level > coarsest_m2l_level()
+           and bx % (1 << (leaf - level + 1)) == 0
+           and by % (1 << (leaf - level + 1)) == 0):
+        level -= 1
+    return level
+
+
+def _sharded_apply(leaf, static, caches, ms, mode, u: Sharded):
+    mesh = u.mesh
     views = {k: (_local(static, mesh, k), _local(caches, mesh, k),
                  _local(ms, mesh, k)) for k in mesh.local}
+    stop = stop_level(u.blocks[mesh.local[0]].shape[:2], leaf)
     M = [None] * mesh.size
     for k in mesh.local:
-        M[k] = _up_pass(views[k][0], leaf, u.blocks[k])
-    sweep = _Sweep(mesh, caches, M, u)
+        M[k] = _up_pass(views[k][0], leaf, u.blocks[k], stop)
+    sweep = _Sweep(mesh, views, caches, M, u, stop)
     out = [None] * mesh.size
     for k in mesh.local:
         st, cch, msk = views[k]
         out[k] = fmm_apply_mode(
             leaf, st, cch, msk, mode, u.blocks[k],
             translate_fn=functools.partial(sweep.translate, k, st["shift"]),
-            near_fn=functools.partial(sweep.near, k), multipoles=M[k])
+            near_fn=functools.partial(sweep.near, k), multipoles=M[k],
+            start=sweep.start(k))
     return Sharded(mesh, out)
 
 
@@ -449,20 +524,18 @@ def sharded_solver(solver, mesh: Mesh, halo: str = "gspmd"):
     halo: JAX's two names are kept.  torch has no partitioner, so "gspmd"
     and "shardmap" both run the explicit exchange (parallel.halo: K10 halos,
     K2-S and K1-S per shard, whole-level K1 / K3 where a level does not
-    split); any other value raises ValueError, as in JAX.
+    split); any other value raises ValueError, as in JAX.  Any mesh: what
+    does not divide it is replicated, and a field that does not divide it
+    at all (shard_field) is computed whole on each process.
     """
     if halo not in ("gspmd", "shardmap"):
         raise ValueError(f"unknown halo mode {halo!r}")
     if solver.backend_name != "fmm" or solver._caches is None:
         raise ValueError("sharded_solver needs an fmm solver after "
                          "set_coeff")
-    mx, my = mesh.shape
-    if 4 % mx or 4 % my:
-        raise ValueError(f"mesh {mesh.shape}: each axis must divide 4 (the "
-                         "boxes of level 2 along it)")
     static = shard_pytree(mesh, solver._fmm_static)
     caches = shard_pytree(mesh, solver._caches)
     mode_statics = [shard_pytree(mesh, ms) for ms in solver._mode_statics]
-    apply_fn = functools.partial(_sharded_apply, mesh,
-                                 solver._tcfg.leaf_level, static)
+    apply_fn = functools.partial(_sharded_apply, solver._tcfg.leaf_level,
+                                 static)
     return apply_fn, caches, mode_statics

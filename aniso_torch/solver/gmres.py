@@ -189,14 +189,16 @@ def _capture(plan: _Plan, step, counters) -> None:
     """One eager step on an inactive state (first-use builds, attributes,
     plans), then the step captured on a side stream, as torch.cuda.graph
     does but without its garbage collection and emptied allocator cache
-    (0.2-0.4 s in a large process); the counters keep only real launches."""
+    (0.2-0.4 s in a large process); the counters keep only real launches.
+    The graph keeps its cudaGraph_t beside the instantiated one, so that a
+    check can count its kernel nodes (raw_cuda_graph)."""
     dev = plan.state.device
     plan.state[DONE] = 1.0
     step(0)
     stats["steps"] += 1
     torch.cuda.synchronize(dev)
     before = [_get(h, k) for h, k in counters]
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     side = torch.cuda.Stream(dev)
     t0 = time.perf_counter()
     with torch.cuda.stream(side):
@@ -205,6 +207,7 @@ def _capture(plan: _Plan, step, counters) -> None:
             step(0)
         finally:
             graph.capture_end()
+    graph.instantiate()
     torch.cuda.current_stream(dev).wait_stream(side)
     stats["capture_s"] += time.perf_counter() - t0
     stats["captures"] += 1

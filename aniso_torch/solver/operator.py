@@ -18,7 +18,7 @@ kernel K7) and applies them with two GEMVs plus the near stencil, which
 carries the coarse removal term; exact, for validation and the reference
 CLI's grids (2 D n^2 itemsize bytes).  backend="fmm" builds the
 mode-independent E caches once (fmm.smooth) and runs the FMM matvec
-(fmm.apply) through the CUDA kernels K1, K2 and K3; for each charge a one
+(fmm.apply) through the CUDA kernels K1, K2, K3 and K8; for each charge a one
 all-modes sweep (fmm.apply.fmm_apply_all_modes) gives K_d(v_a) for every d
 from one read of the E caches.  Both run in float32 or float64.  With
 refine=True (fmm, dtype float32), set_coeff also builds the f64 twin of
@@ -54,6 +54,7 @@ from ..fmm.smooth import (
 )
 from ..fmm.structure import tree_config
 from ..kernels._cuda import resolve_device
+from ..kernels.m2l import check_np
 from ..ops import dense as dense_ops
 from ..ops.compat import to_local_equivalent
 from ..ops.fields import evaluate_at_nodes_np
@@ -112,6 +113,12 @@ class TransportSolver:
             )
         self.device = resolve_device(device)
         self.dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+        if backend == "fmm" and self.device.type == "cuda":
+            # the card's M2L kernels take np up to a limit (a row of 27 np^2
+            # values in shared memory): refuse before anything is built
+            for dt in {self.dtype, torch.float64 if cfg.refine else None}:
+                if dt is not None:
+                    check_np(cfg.np_cheb, dt)
         self.cfg = cfg
         self.backend_name = backend
         self.grid = make_grid(cfg.domain_size, cfg.quad_rule)
@@ -469,8 +476,8 @@ class TransportSolver:
 
     def _forward_reads(self) -> list:
         """Every object forward() reads from the caches (the leaves of
-        sigma_s, _caches and the dense matrices), whose addresses a captured
-        step holds."""
+        sigma_s, _caches, the dense matrices and the sweep operators that
+        K8 reads), whose addresses a captured step holds."""
         leaves = []
 
         def walk(v):
@@ -483,7 +490,8 @@ class TransportSolver:
             elif v is not None:
                 leaves.append(v)
 
-        walk([self.sigma_s, self._caches, self._k_smooth, self._k_real])
+        walk([self.sigma_s, self._caches, self._k_smooth, self._k_real,
+              getattr(self, "_fmm_static", None)])
         return leaves
 
     def inner_gmres(self, b, tol, x0=None, precond=None) -> GmresResult:

@@ -8,6 +8,7 @@ card and skip without one (run them there with
 `python -m pytest tests/test_torch_device.py -m cuda --noconftest`).
 """
 
+import math
 import os
 import shutil
 import subprocess
@@ -24,7 +25,7 @@ from aniso_torch.core.geometry import make_grid, project_field
 from aniso_torch.fmm.smooth import build_m2l_offsets_fine
 from aniso_torch.fmm.structure import tree_config
 from aniso_torch.kernels import (
-    _cuda, attenuation, diffusion, halo, m2l, near, offsets, pcg,
+    _cuda, attenuation, diffusion, halo, m2l, near, offsets, pcg, transfer,
 )
 from aniso_torch.ops.attenuation import make_line_integral
 from aniso_torch.ops.dense import build_dense_smooth
@@ -202,10 +203,11 @@ def test_wrappers_refuse_other_dtypes(kernel):
 
 
 @pytest.mark.parametrize("kernel", [m2l, near, offsets, diffusion,
-                                    attenuation, pcg, halo])
+                                    attenuation, pcg, halo, transfer])
 def test_kernel_load_raises_without_cuda(no_cuda, kernel):
+    symbols = getattr(kernel, "SYMBOLS", getattr(kernel, "UP_SYMBOLS", None))
     with pytest.raises(RuntimeError):
-        _cuda.load(kernel.SOURCE, next(iter(kernel.SYMBOLS.values())), ())
+        _cuda.load(kernel.SOURCE, next(iter(symbols.values())), ())
 
 
 def test_k7_wrappers_refuse_tensors_off_the_cpu_without_a_kernel():
@@ -328,16 +330,24 @@ def test_m2l_kernel_matches_plain_on_card(cuda_device, dtype, m2, np_cheb):
                                      (torch.float64, 11 * 11)])
 def test_m2l_kernel_at_the_row_limit_matches_plain_on_card(cuda_device,
                                                            dtype, r):
-    """The longest rows the wrapper takes (27 r values within 48 KB: np 21
-    in float32, 15 in float64, and r = 448, whose rows fill 16-byte
-    vectors) run one row a group, cut into chunks over the stages; np 11 in
-    float64 one whole row a stage.  A row over 48 KB is refused."""
+    """Long rows (np 21 in float32, 15 in float64, and r = 448, whose rows
+    fill 16-byte vectors) run one row a group, cut into chunks over the
+    stages; np 11 in float64 one whole row a stage.  A row over the opt-in
+    limit (m2l.MAX_ROW_BYTES: np 33 in float64, 47 in float32) is
+    refused."""
     args = _k1_inputs(cuda_device, dtype, m2=2, r=r)
     _gate(m2l.m2l_translate(*args), m2l.m2l_translate_plain(*args), dtype)
     del args
-    over = 49152 // (27 * (4 if dtype == torch.float32 else 8)) + 1
+    item = 4 if dtype == torch.float32 else 8
+    over = (m2l.max_np(item) + 1) ** 2
+    z = dict(dtype=dtype, device=cuda_device)
     with pytest.raises(ValueError):
-        m2l.m2l_translate(*_k1_inputs(cuda_device, dtype, m2=1, r=over))
+        m2l.m2l_translate(torch.zeros((4, 1, 1, over, 27 * over), **z),
+                          torch.zeros((4, over, 27 * over), **z),
+                          torch.zeros((2, 2, over), **z),
+                          torch.as_tensor(parity_shift_table_np(),
+                                          dtype=torch.int32,
+                                          device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -882,3 +892,228 @@ def test_sharded_matvec_on_card_matches_one_device(cuda_device, dtype):
             near.launches["shard_" + inst] - n[2],
             m2l.launches[inst] - n[3]) == (4, 24, 8, 1)
     _gate(out, s.apply_mode(0, u), s.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,stop,shards", [((1, 8), 3, 8),
+                                               ((2, 3), 2, 1)])
+def test_sharded_matvec_on_other_meshes_on_card(cuda_device, shape, stop,
+                                                shards):
+    """The sharded matvec where the mesh's blocks do not split every
+    level: (1, 8) at 32^2 (blocks of 32 x 4: the shards' up pass stops at
+    level 3, K8's up_from and whole L2L chain run above it, each shard
+    takes its block of the whole locals) and (2, 3), which the field does
+    not divide (whole on mesh.whole); against the card's one-device
+    matvec, with K8's launches."""
+    from aniso_torch.parallel import api
+
+    s = TransportSolver(SolverConfig(domain_size=32, quad_rule=3, np_cheb=4,
+                                     g=0.5, dtype="float32", sing_rule=8),
+                        backend="fmm", device=cuda_device)
+    g = s.grid
+    sig = 8 * (1 - np.cos(2 * np.pi * g.nodes_x))
+    s.set_coeff(sig, sig + 0.2)
+    u = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (32, 32, g.nq)), dtype=s.dtype, device=cuda_device)
+    mesh = api.Mesh(shape, [torch.device(cuda_device)] * (shape[0]
+                                                          * shape[1]))
+    apply_fn, caches, ms = api.sharded_solver(s, mesh)
+    su = api.shard_field(mesh, u)
+    assert su.mesh.size == shards
+    block = tuple(su.blocks[su.mesh.local[0]].shape[:2])
+    assert api.stop_level(block, 5) == stop
+    n0 = dict(transfer.launches)
+    out = apply_fn(caches, ms[0], 0, su).full()
+    r, item = 16, 4
+    n = 5 - stop
+    up = shards * len(transfer.up_plan(*block, n, r, item)) + len(
+        transfer.up_plan(1 << stop, 1 << stop, stop - 2, r, item, False))
+    down = shards * len(transfer.down_plan(block[0] >> n, block[1] >> n, n,
+                                           r, item)) + len(
+        transfer.down_plan(4, 4, stop - 2, r, item, False))
+    assert (transfer.launches["up_f32"] - n0["up_f32"],
+            transfer.launches["down_f32"] - n0["down_f32"]) == (up, down)
+    _gate(out, s.apply_mode(0, u), s.dtype)
+
+
+# K8 (kernels.transfer) against its plain versions: 1e-6 of the largest
+# value in float32 (sums of up to 4 r terms a level, in another order), 1e-13
+# in float64
+_K8_GATE = {torch.float32: 1e-6, torch.float64: 1e-13}
+
+
+def _k8_gate(got, want, dtype):
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= \
+        _K8_GATE[dtype] * float(want.abs().max())
+
+
+def _k8_static(device, dtype, np_cheb, deg=3):
+    from aniso_torch.fmm.apply import build_fmm_static
+    return build_fmm_static(make_grid(8, deg), np_cheb, device, dtype)
+
+
+def test_k8_wrappers_refuse_tensors_off_the_cpu_and_other_dtypes():
+    """A meta tensor goes to the kernel's checks, never to the plain
+    version; float16 is refused before any launch."""
+    st = _k8_static("meta", torch.float64, 3)
+    u = torch.zeros((8, 8, 9), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError):
+        transfer.up_pass(st["p2m_w"], st["m2m"], u, 1)
+    L0 = torch.zeros((4, 4, 9), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError):
+        transfer.down(st["m2m"], L0, [])
+    with pytest.raises(TypeError):
+        transfer.down(st["m2m"], L0.half(), [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("np_cheb", [2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("lx,ly", [(64, 64), (32, 16), (512, 512)])
+def test_k8_up_matches_plain_on_card(cuda_device, dtype, np_cheb, lx, ly):
+    """K8's up pass from the leaf to level 2 of a whole grid (64^2: one
+    launch; 512^2: two) and of a shard's rectangle, then the coarse up
+    pass of a domain decomposition from one level's M."""
+    st = _k8_static(cuda_device, dtype, np_cheb)
+    n = int(math.log2(min(lx, ly))) - 2 if lx == ly else 3
+    u = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (lx, ly, 9)), dtype=dtype).to(cuda_device)
+    inst = _cuda.INSTANCES[dtype]
+    r = np_cheb * np_cheb
+    n0 = transfer.launches["up_" + inst]
+    got = transfer.up_pass(st["p2m_w"], st["m2m"], u, n)
+    assert transfer.launches["up_" + inst] - n0 == len(transfer.up_plan(
+        lx, ly, n, r, u.element_size()))
+    want = transfer.up_pass_plain(st["p2m_w"], st["m2m"], u, n)
+    for g, w in zip(got, want):
+        _k8_gate(g, w, dtype)
+    got = transfer.up_from(st["m2m"], want[1], n - 1)
+    for g, w in zip(got, want[1:]):
+        _k8_gate(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [None, 1, 5, 9])
+@pytest.mark.parametrize("np_cheb", [2, 4, 7])
+@pytest.mark.parametrize("lx,ly,n", [(64, 64, 4), (256, 128, 7), (16, 8, 0)])
+def test_k8_down_matches_plain_on_card(cuda_device, dtype, D, np_cheb, lx,
+                                       ly, n):
+    """K8's down pass: the L2L chain with T added from level 2 to the leaf
+    and the epilogue (L2T, near, 1/2pi), one mode (no mode axis) or D
+    modes, on a whole grid and a shard's rectangle, and the epilogue alone
+    (n = 0); the chain without the epilogue returns the leaf's L."""
+    st = _k8_static(cuda_device, dtype, np_cheb)
+    r = np_cheb * np_cheb
+    rng = np.random.default_rng(6)
+    lead = () if D is None else (D,)
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(lead + shape),
+                               dtype=dtype).to(cuda_device)
+
+    L0 = t((lx >> n, ly >> n, r))
+    Ts = [t((lx >> (n - j), ly >> (n - j), r)) for j in range(1, n + 1)]
+    near_ = t((lx, ly, 9))
+    inst = _cuda.INSTANCES[dtype]
+    n0 = transfer.launches["down_" + inst]
+    got = transfer.down(st["m2m"], L0, Ts, st["l2t"], near_)
+    assert transfer.launches["down_" + inst] - n0 == len(transfer.down_plan(
+        lx >> n, ly >> n, n, r, L0.element_size()))
+    _k8_gate(got, transfer.down_plain(st["m2m"], L0, Ts, st["l2t"], near_),
+             dtype)
+    if n:
+        _k8_gate(transfer.down(st["m2m"], L0, Ts),
+                 transfer.down_plain(st["m2m"], L0, Ts), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k8_at_np16_reads_its_weights_from_global_memory_on_card(cuda_device,
+                                                                 dtype):
+    """np 16 (r = 256): m2m (1 MB in float32, 2 MB in float64) does not
+    fit beside the tile, so the passes read their weights in place; the up
+    pass and the down pass with its epilogue on 16^2 against their plain
+    versions.  A level's sums run over 4 r = 1024 terms, 16 times np 4's:
+    float32 is held to 1e-5 of the largest value (chip_smoke.py's kernel
+    gate), float64 to 1e-13."""
+    gate = {torch.float32: 1e-5, torch.float64: 1e-13}[dtype]
+
+    def hold(got, want):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= \
+            gate * float(want.abs().max())
+
+    st = _k8_static(cuda_device, dtype, 16)
+    rng = np.random.default_rng(8)
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=dtype).to(cuda_device)
+
+    u = t((16, 16, 9))
+    for g, w in zip(transfer.up_pass(st["p2m_w"], st["m2m"], u, 2),
+                    transfer.up_pass_plain(st["p2m_w"], st["m2m"], u, 2)):
+        hold(g, w)
+    L0, Ts = t((3, 4, 4, 256)), [t((3, 8, 8, 256)), t((3, 16, 16, 256))]
+    near_ = t((3, 16, 16, 9))
+    hold(transfer.down(st["m2m"], L0, Ts, st["l2t"], near_),
+         transfer.down_plain(st["m2m"], L0, Ts, st["l2t"], near_))
+
+
+@pytest.mark.cuda
+def test_k8_float64_is_the_same_bit_for_bit_run_to_run(cuda_device):
+    """No atomics: two runs of the f64 sweep's passes agree exactly."""
+    st = _k8_static(cuda_device, torch.float64, 4)
+    u = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (512, 512, 9))).to(cuda_device)
+    a = transfer.up_pass(st["p2m_w"], st["m2m"], u, 7)
+    b = transfer.up_pass(st["p2m_w"], st["m2m"], u, 7)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    Ts = [m[None].expand(9, -1, -1, -1).contiguous() for m in a[::-1]]
+    near_ = u[None].expand(9, -1, -1, -1).contiguous()
+    x = transfer.down(st["m2m"], Ts[0], Ts[1:], st["l2t"], near_)
+    y = transfer.down(st["m2m"], Ts[0], Ts[1:], st["l2t"], near_)
+    assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,np_cheb", [(torch.float64, 16),
+                                           (torch.float32, 22)])
+def test_m2l_kernels_at_large_np_match_plain_on_card(cuda_device, dtype,
+                                                     np_cheb):
+    """Rows of 27 r values over 48 KB (np 16 in float64: 55 KB; np 22 in
+    float32: 52 KB) through the opt-in shared memory: K1 one mode, K1-D
+    (D = 3), K1-S on a 2 x 1 shard plane and K3 (its runtime-r instance,
+    sources read from M) at 8^2's levels, against their plain versions."""
+    r = np_cheb * np_cheb
+    args = _k1_inputs(cuda_device, dtype, m2=2, r=r)
+    _gate(m2l.m2l_translate(*args), m2l.m2l_translate_plain(*args), dtype)
+    E, _, M, shift = args
+    cosr = _mode_tables((4, r, 27 * r), 3, cuda_device, dtype, 19)
+    _gate(m2l.m2l_translate(E, cosr, M, shift),
+          m2l.m2l_translate_plain(E, cosr, M, shift), dtype)
+    del args, E, cosr
+    sargs = _k1s_inputs(cuda_device, dtype, m2x=2, m2y=1, r=r)
+    _gate(m2l.m2l_translate_shard(*sargs),
+          m2l.m2l_translate_shard_plain(*sargs), dtype)
+    del sargs
+    g = make_grid(8, 1)
+    sig = 8 * (1 - np.cos(2 * np.pi * g.nodes_x)) + 0.2
+    rng = np.random.default_rng(9)
+    Wo = build_m2l_offsets_fine(g, tree_config(8), 3, np_cheb, dtype,
+                                "cpu")["Wo"].to(cuda_device)
+    coeffs = torch.as_tensor(project_field(g, sig), dtype=dtype).to(
+        cuda_device)
+    M = torch.as_tensor(rng.standard_normal((8, 8, r)), dtype=dtype).to(
+        cuda_device)
+    for D in (1, 3):
+        cosr = _mode_tables((4, r, 27 * r), D, cuda_device, dtype, 20)
+        if D == 1:
+            cosr = cosr[0]
+        n0 = offsets.launches[_cuda.INSTANCES[dtype]]
+        got = offsets.offsets_translate(Wo, coeffs, cosr, M, shift)
+        assert offsets.launches[_cuda.INSTANCES[dtype]] == n0 + 1
+        _gate(got, offsets.offsets_translate_plain(Wo, coeffs, cosr, M,
+                                                   shift), dtype)

@@ -120,8 +120,8 @@ def _check_plan(m2x, m2y, np_cheb, item, ext):
 def test_plan_covers_each_row_once_with_aligned_copies(m2x, m2y, ext, nps,
                                                        item):
     """Whole levels and shards (odd m2y among them), np 2-8, and on the
-    small planes the largest np whose row fits 48 KB (15 in float64, 21 in
-    float32)."""
+    small planes np 15 in float64 and 21 in float32 (rows cut into
+    chunks over the stages)."""
     nps = list(nps)
     if m2x * m2y <= 64:
         nps.append(15 if item == 8 else 21)
@@ -141,10 +141,15 @@ def test_plan_coarse_levels_spread_and_leaf_is_one_wave():
 
 
 def test_plan_refuses_rows_over_48_kb():
+    """Rows past 48 KB now run in the opt-in shared memory (np 16 in
+    float64, 22 in float32); the plan refuses the first np past
+    m2l.MAX_ROW_BYTES (33 in float64, 47 in float32)."""
+    for r, item in ((16 * 16, 8), (22 * 22, 4)):
+        assert m2l.plan_one(2, 2, r, item).smem <= m2l.SMEM_BLOCK
     with pytest.raises(ValueError):
-        m2l.plan_one(2, 2, 16 * 16, 8)
+        m2l.plan_one(2, 2, 33 * 33, 8)
     with pytest.raises(ValueError):
-        m2l.plan_one(2, 2, 22 * 22, 4)
+        m2l.plan_one(2, 2, 47 * 47, 4)
 
 
 @pytest.mark.parametrize("consts", [

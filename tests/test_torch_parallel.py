@@ -12,7 +12,10 @@ with compat on and off; a per-offset leaf (a zero dense budget) takes the
 replicated route through K3's plain version.  The sharded GMRES against the
 one-device solve (iterations +- 1, x to 1e-8).  The collective accounting:
 CollectiveStats as JAX's, and the O(halo) bound of
-tests/test_halo_wired.py:68-82 on the port's counters.
+tests/test_halo_wired.py:68-82 on the port's counters.  Any mesh: on (1, 8)
+the shards' up pass stops below level 2 and the coarse levels run whole; on
+(2, 3) no power-of-two grid divides the mesh and the field is computed
+whole; every mesh make_mesh builds for 3-32 devices.
 """
 
 import functools
@@ -286,3 +289,67 @@ def test_sharded_matvec_moves_o_halo_bytes():
     assert st.counts.get("permute", 0) >= 8, st
     assert st.bytes.get("all-gather", 0) <= 16 * 1024, st
     assert st.total_bytes() < mesh.size * field_bytes, st
+
+
+def cpu_mesh(shape):
+    return api.Mesh(shape, [torch.device("cpu")] * (shape[0] * shape[1]))
+
+
+@pytest.mark.parametrize("block,stop", [((16, 2), 3), ((8, 4), 2),
+                                        ((4, 2), 3), ((1, 1), 4),
+                                        ((16, 16), 2), ((2, 8), 3)])
+def test_stop_level_is_the_coarsest_level_of_whole_boxes(block, stop):
+    assert api.stop_level(block, 4) == stop
+
+
+def test_shard_field_replicates_a_field_that_does_not_divide():
+    s = port_solver(16)
+    mesh = cpu_mesh((2, 3))
+    u = seeded(s.grid)
+    sh = api.shard_field(mesh, u)
+    assert sh.mesh is mesh.whole and sh.mesh.shape == (1, 1)
+    assert sh.mesh.local == [0] and not sh.mesh.multiprocess
+    assert torch.equal(sh.blocks[0], u) and torch.equal(sh.full(), u)
+
+
+@pytest.mark.parametrize("sz", [16, 32])
+@pytest.mark.parametrize("shape", [(1, 8), (2, 3)])
+def test_sharded_matvec_on_any_mesh_matches_one_device(shape, sz):
+    """(1, 8): blocks of sz x sz / 8 squares, whose boxes stop being whole
+    above level 3 (16^2) or 4 (32^2): the coarse up pass and locals run
+    whole from the gathered M; (2, 3): the field whole on one shard."""
+    s = port_solver(sz)
+    mesh = cpu_mesh(shape)
+    apply_fn, caches, ms = api.sharded_solver(s, mesh)
+    u = seeded(s.grid, 3)
+    out = apply_fn(caches, ms[0], 0, api.shard_field(mesh, u))
+    assert rel(out.full(), s.apply_mode(0, u)) < 1e-12
+
+
+@pytest.mark.parametrize("n", [3, 5, 6, 7, 12, 32])
+def test_sharded_solver_takes_every_mesh_make_mesh_builds(n):
+    s = port_solver(16, N=2)
+    mesh = api.make_mesh(devices=["cpu"] * n)
+    apply_fn, caches, ms = api.sharded_solver(s, mesh)
+    u = seeded(s.grid, n)
+    out = apply_fn(caches, ms[1], 1, api.shard_field(mesh, u))
+    assert rel(out.full(), s.apply_mode(1, u)) < 1e-12
+
+
+@pytest.mark.parametrize("shape", [(1, 8), (2, 3)])
+def test_sharded_gmres_on_any_mesh_matches_one_device(shape):
+    s = port_solver(16)
+    g = s.grid
+    q = torch.as_tensor(np.exp(-25 * ((g.nodes_x - 0.5) ** 2
+                                      + (g.nodes_y - 0.5) ** 2)))
+    b = s.apply_mode(0, q)
+    ref = gmres(lambda v: v - s.apply_mode(0, s.sigma_s * v), b,
+                restart=30, max_iter=60, tol=1e-10)
+    mesh = cpu_mesh(shape)
+    apply_fn, caches, ms = api.sharded_solver(s, mesh)
+    sig = api.shard_field(mesh, s.sigma_s)
+    bs = apply_fn(caches, ms[0], 0, api.shard_field(mesh, q))
+    res = gmres(lambda v: v - apply_fn(caches, ms[0], 0, sig * v), bs,
+                restart=30, max_iter=60, tol=1e-10)
+    assert res.converged and res.iterations == ref.iterations
+    assert rel(res.x.full(), ref.x) < 1e-8

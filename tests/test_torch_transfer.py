@@ -1,0 +1,300 @@
+"""K8 (aniso_torch.kernels.transfer), the FMM's transfer passes, against
+aniso_tpu's, in float64 on the CPU.
+
+The same inputs, made from a numpy seed, go through the JAX function and
+the port's plain version: the up pass (P2M and M2M, aniso_tpu/fmm/apply.py:
+_up_pass) on whole grids and on a rectangular block, the L2L chain with a
+given T per level (:549-551) and the leaf's L2T with the near field and the
+1/2pi scale (:707-711), for one mode and with a mode axis.  Tolerance 1e-13
+relative: the same f64 products summed in another order.  Then the launch
+plan (a pure function of the shapes; the kernels themselves run only on
+the card, tests/test_torch_device.py), the static operators carried across
+from JAX (convert.static_from_jax_numpy) and the np limit of the card's M2L
+kernels (kernels.m2l.max_np), which TransportSolver checks before it
+builds anything.
+"""
+
+import functools
+import math
+import pathlib
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aniso_tpu.core.config import SolverConfig as JConfig
+from aniso_tpu.core.geometry import make_grid as j_make_grid
+from aniso_tpu.fmm import apply as j_apply
+from aniso_tpu.solver.operator import TransportSolver as JSolver
+
+from aniso_torch import convert
+from aniso_torch.core.config import SolverConfig
+from aniso_torch.core.geometry import make_grid
+from aniso_torch.fmm import apply as t_apply
+from aniso_torch.kernels import m2l, transfer
+from aniso_torch.solver import operator
+from aniso_torch.solver.operator import TransportSolver
+
+F64 = torch.float64
+TOL = 1e-13
+
+
+def rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+@functools.lru_cache(maxsize=None)
+def statics(deg, np_cheb):
+    """(JAX's build_fmm_static in f64, the port's on the CPU)."""
+    jg, tg = j_make_grid(8, deg), make_grid(8, deg)
+    return (j_apply.build_fmm_static(jg, np_cheb, jnp.float64),
+            t_apply.build_fmm_static(tg, np_cheb, "cpu", F64))
+
+
+def normal(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape)
+
+
+@pytest.mark.parametrize("deg", [1, 2, 3])
+@pytest.mark.parametrize("sz,np_cheb", [(8, 2), (16, 3), (32, 4), (32, 5)])
+def test_up_pass_plain_matches_jax(sz, np_cheb, deg):
+    js, ts = statics(deg, np_cheb)
+    leaf = int(math.log2(sz))
+    u = normal((sz, sz, (deg * deg)), 100 * sz + 10 * np_cheb + deg)
+    want = j_apply._up_pass(js, leaf, jnp.asarray(u))
+    got = t_apply._up_pass(ts, leaf, torch.as_tensor(u))
+    assert sorted(got) == sorted(want) == list(range(2, leaf + 1))
+    for level in want:
+        assert rel(got[level], want[level]) < TOL
+
+
+def test_up_pass_on_a_rectangular_block_is_the_whole_grids_rows():
+    """A 16 x 8 block of a 32^2 grid (a shard's) up to level 2 of its own
+    boxes: the same values as the whole grid's up pass at those boxes."""
+    _, ts = statics(3, 4)
+    u = torch.as_tensor(normal((32, 32, 9), 7))
+    whole = t_apply._up_pass(ts, 5, u)
+    x0, y0 = 16, 8
+    block = t_apply._up_pass(ts, 5, u[x0:x0 + 16, y0:y0 + 8].contiguous(),
+                             stop=2)
+    assert sorted(block) == [2, 3, 4, 5]
+    for level, M in block.items():
+        s = 5 - level
+        assert M.shape == (16 >> s, 8 >> s, 16)
+        assert torch.equal(M, whole[level][x0 >> s:(x0 >> s) + (16 >> s),
+                                           y0 >> s:(y0 >> s) + (8 >> s)])
+
+
+def jax_l2l_chain(m2m, L, Ts):
+    """aniso_tpu apply.py:549-551, one mode."""
+    for T in Ts:
+        m2, r = L.shape[0], L.shape[-1]
+        Lc = jnp.einsum("hgac,xya->xhygc", m2m, L,
+                        precision="highest")
+        L = Lc.reshape(2 * m2, 2 * m2, r) + T
+    return L
+
+
+@pytest.mark.parametrize("D", [None, 3])
+def test_l2l_chain_plain_matches_jax(D):
+    """Levels 2-5 of a 32^2 grid at np 4, a given T per level."""
+    js, ts = statics(3, 4)
+    lead = () if D is None else (D,)
+    L0 = normal(lead + (4, 4, 16), 1)
+    Ts = [normal(lead + (4 << j, 4 << j, 16), 2 + j) for j in range(1, 4)]
+    got = transfer.down(ts["m2m"], torch.as_tensor(L0),
+                        [torch.as_tensor(T) for T in Ts])
+    for d in range(D or 1):
+        pick = (lambda a: a) if D is None else (lambda a: a[d])
+        want = jax_l2l_chain(js["m2m"], jnp.asarray(pick(L0)),
+                             [jnp.asarray(pick(T)) for T in Ts])
+        assert rel(pick(got.numpy()), want) < TOL
+
+
+@pytest.mark.parametrize("D", [None, 3])
+def test_l2t_near_and_scale_plain_match_jax(D):
+    """The leaf epilogue alone (no level to L2L) and after two levels: far
+    field, near add, 1/2pi (aniso_tpu apply.py:707-711)."""
+    js, ts = statics(3, 4)
+    lead = () if D is None else (D,)
+    for n in (0, 2):
+        L0 = normal(lead + (16 >> n, 16 >> n, 16), 3 + n)
+        Ts = [normal(lead + (16 >> (n - j), 16 >> (n - j), 16), 5 + j)
+              for j in range(1, n + 1)]
+        near = normal(lead + (16, 16, 9), 9)
+        got = transfer.down(ts["m2m"], torch.as_tensor(L0),
+                            [torch.as_tensor(T) for T in Ts], ts["l2t"],
+                            torch.as_tensor(near))
+        for d in range(D or 1):
+            pick = (lambda a: a) if D is None else (lambda a: a[d])
+            L = jax_l2l_chain(js["m2m"], jnp.asarray(pick(L0)),
+                              [jnp.asarray(pick(T)) for T in Ts])
+            far = jnp.einsum("kc,ijc->ijk", js["l2t"], L,
+                             precision="highest")
+            want = (far + jnp.asarray(pick(near))) / (2.0 * jnp.pi)
+            assert rel(pick(got.numpy()), want) < TOL
+
+
+def coverage(p, j, down):
+    """How many times the blocks of phase p cover each box of the level j
+    below their top box (down) or j above their tile's finest level (up):
+    block (bx, by) owns a square of 2^(j or k - j) boxes there."""
+    n = 1 << (j if down else p.k - j)
+    cnt = np.zeros((p.ax * n, p.ay * n), dtype=int)
+    for bx in range(p.ax):
+        for by in range(p.ay):
+            cnt[bx * n:(bx + 1) * n, by * n:(by + 1) * n] += 1
+    return cnt
+
+
+# the shapes of chip_smoke.py's phases: bench / oracle64 (64^2), oracle128,
+# the 512^2 phases in f32 and the twin's f64, a sharded512 shard (256 x 128),
+# np6 (32^2, r 36), the np16 phase (16^2, r 256, f32 and its f64 twin) and
+# the card test's np 22 (8^2, r 484)
+PLANS = [(64, 64, 4, 16, 4), (128, 128, 5, 16, 4), (512, 512, 7, 16, 4),
+         (512, 512, 7, 16, 8), (256, 128, 7, 16, 4), (32, 32, 3, 36, 4),
+         (32, 32, 3, 36, 8), (16, 16, 2, 256, 4), (16, 16, 2, 256, 8),
+         (8, 8, 1, 484, 4)]
+
+
+@pytest.mark.parametrize("lx,ly,n,r,item", PLANS)
+def test_launch_plan_covers_every_box_once(lx, ly, n, r, item):
+    """Up from the leaf (level offset 0) to offset n, down back: each
+    launch's blocks cover every box of each of its levels once, the
+    launches chain level to level, and each fits a block's shared
+    memory."""
+    up = transfer.up_plan(lx, ly, n, r, item)
+    dn = transfer.down_plan(lx >> n, ly >> n, n, r, item)
+    assert [p.k for p in dn] == [p.k for p in reversed(up)]
+    s = 0
+    for p in up:
+        for j in range(p.k + 1):
+            cnt = coverage(p, j, down=False)
+            assert cnt.shape == (lx >> (s + j), ly >> (s + j))
+            assert (cnt == 1).all()
+        s += p.k
+    assert s == n
+    for p in dn:
+        assert (p.ax, p.ay) == (lx >> s, ly >> s)
+        for j in range(p.k + 1):
+            cnt = coverage(p, j, down=True)
+            assert cnt.shape == (lx >> (s - j), ly >> (s - j))
+            assert (cnt == 1).all()
+        s -= p.k
+    assert s == 0
+    for p in up + dn:
+        assert 0 <= p.k <= transfer.MAX_K
+        assert p.smem == transfer.tile_bytes(p.k, r, item)
+        assert p.smem <= transfer.SMEM_BLOCK
+    if r == 16:
+        # np 4: one launch a pass at 64^2 (4 levels), two at 512^2
+        assert len(up) == len(dn) == -(-n // transfer.MAX_K)
+
+
+def test_launch_plan_is_cached_and_splits_large_r():
+    assert transfer.pass_plan(7, 16, 4) is transfer.pass_plan(7, 16, 4)
+    assert transfer.pass_plan(7, 16, 4) == (4, 3)
+    assert transfer.pass_plan(7, 16, 4, down=True) == (3, 4)
+    assert transfer.pass_plan(0, 16, 4) == (0,)
+    # np 16 in f64: a 16 x 16 tile (680 KB) does not fit; 8 x 8 does
+    assert transfer.max_k(256, 8) == 3
+    assert transfer.tile_bytes(3, 256, 8) <= transfer.SMEM_BLOCK
+    assert transfer.max_k(1024, 8) >= 1
+
+
+@functools.lru_cache(maxsize=None)
+def jax_solver():
+    kw = dict(domain_size=16, quad_rule=2, kernel_size=1, g=0.9, sing_rule=8,
+              np_cheb=3, dtype="float64")
+    js = JSolver(JConfig(**kw), backend="fmm")
+    s = 8 * 0.5 * (1 - np.cos(2 * np.pi * js.grid.nodes_x))
+    js.set_coeff(s, s + 0.2)
+    ts = TransportSolver(SolverConfig(**kw), backend="fmm", device="cpu")
+    ts.set_coeff(s, s + 0.2)
+    return js, ts
+
+
+def test_static_from_jax_equals_the_ports_own():
+    js, ts = jax_solver()
+    got = convert.static_from_jax_numpy(
+        {k: np.asarray(v) for k, v in js._fmm_static.items()}, "cpu", F64)
+    assert sorted(got) == sorted(ts._fmm_static)
+    for key in ("p2m_w", "l2t", "m2m"):
+        assert rel(got[key], ts._fmm_static[key]) < 1e-15
+    assert torch.equal(got["shift"], ts._fmm_static["shift"])
+
+
+def test_sweep_on_jax_statics_matches_jax():
+    """The port's caches and tables with JAX's static operators: the
+    corrected matvec equals JAX's to 1e-12 (the whole sweep's f64 sums)."""
+    js, ts = jax_solver()
+    static = convert.static_from_jax_numpy(
+        {k: np.asarray(v) for k, v in js._fmm_static.items()}, "cpu", F64)
+    u = normal((16, 16, 4), 21)
+    got = t_apply.fmm_apply_mode(ts._tcfg.leaf_level, static, ts._caches,
+                                 ts._mode_statics[0], 0, torch.as_tensor(u))
+    want = np.asarray(js.apply_mode(0, jnp.asarray(u)))
+    assert rel(got.numpy(), want) < 1e-12
+
+
+@pytest.mark.parametrize("item,limit", [(8, 32), (4, 46)])
+def test_np_limit_of_the_m2l_kernels(item, limit):
+    """The largest np whose row of 27 np^2 values the one-mode K1 plan,
+    K1-D's runtime-r instance (one row of sources) and K3 (which shares
+    K1's bound) take in opt-in shared memory; one more is refused."""
+    dtype = torch.float64 if item == 8 else torch.float32
+    assert m2l.max_np(item) == limit
+    r = limit * limit
+    assert 27 * r * item <= m2l.MAX_ROW_BYTES < m2l.SMEM_BLOCK
+    assert m2l.plan_one(2, 2, r, item).smem <= m2l.SMEM_BLOCK
+    assert transfer.max_k(r, item) >= 1
+    m2l.check_np(limit, dtype)
+    with pytest.raises(ValueError, match=f"np up to {limit}"):
+        m2l.check_np(limit + 1, dtype)
+    with pytest.raises(ValueError):
+        m2l.plan_one(2, 2, (limit + 1) ** 2, item)
+
+
+@pytest.mark.parametrize("dtype,refine", [("float64", False),
+                                          ("float32", True)])
+def test_solver_refuses_np_beyond_the_limit_before_building(monkeypatch,
+                                                            dtype, refine):
+    """On a CUDA device TransportSolver raises for np 33 in float64 (or
+    float32 refined: its f64 twin) in its constructor, before any table
+    or cache; np 32 passes that check."""
+    monkeypatch.setattr(operator, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    built = []
+    monkeypatch.setattr(TransportSolver, "_init_fmm",
+                        lambda self, near: built.append(1))
+    monkeypatch.setattr(operator, "build_near_stencil",
+                        lambda *a, **k: built.append(1) or (None, None))
+    monkeypatch.setattr(TransportSolver, "_couplings",
+                        lambda self, dt: (None, None))
+
+    def cfg(np_cheb):
+        return SolverConfig(domain_size=8, quad_rule=1, kernel_size=1,
+                            g=0.5, sing_rule=4, np_cheb=np_cheb, dtype=dtype,
+                            refine=refine)
+
+    with pytest.raises(ValueError, match="np up to 32"):
+        TransportSolver(cfg(33), backend="fmm")
+    assert not built
+    TransportSolver(cfg(32), backend="fmm")
+    assert built
+
+
+def test_shared_memory_limits_agree_with_the_cuda_header():
+    """csrc/smem_limits.cuh, which K1, K3 and K8 include, states the same
+    block maximum and row limit as kernels/m2l.py, which plans their
+    launches; K8's plan uses the same block maximum."""
+    csrc = pathlib.Path(m2l.__file__).parent.parent / "csrc"
+    text = (csrc / "smem_limits.cuh").read_text()
+    block = re.search(r"kSmemBlock = (\d+) \* 1024;", text)
+    row = re.search(r"kMaxRowBytes = kSmemBlock - (\d+);", text)
+    assert int(block.group(1)) * 1024 == m2l.SMEM_BLOCK == transfer.SMEM_BLOCK
+    assert m2l.SMEM_BLOCK - int(row.group(1)) == m2l.MAX_ROW_BYTES

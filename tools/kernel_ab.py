@@ -80,6 +80,16 @@ GROUPS = {
     "k2d_f64_dsa64": ("near_contract.cu",
                       lambda k, cs: k.k2(64, "f64", D=5, nq=4)),
     "k2s_f32": ("near_contract.cu", lambda k, cs: k.k2s(256, 128, "f32")),
+    # K8: bench 64^2 (f32), 512^2 (f32; f64, the twin's), mm512's D = 9
+    # and a sharded512 shard (256 x 128), each level above the leaf to 2
+    "k8_f32_64": ("transfer.cu", lambda k, cs: k.k8(64, 64, 4, "f32")),
+    "k8_f32_512": ("transfer.cu", lambda k, cs: k.k8(512, 512, 7, "f32")),
+    "k8_f64_512": ("transfer.cu", lambda k, cs: k.k8(512, 512, 7, "f64")),
+    "k8d_f32_512": ("transfer.cu",
+                    lambda k, cs: k.k8(512, 512, 7, "f32", D=9)),
+    "k8d_f64_512": ("transfer.cu",
+                    lambda k, cs: k.k8(512, 512, 7, "f64", D=9)),
+    "k8s_f32": ("transfer.cu", lambda k, cs: k.k8(256, 128, 7, "f32")),
     # K10: sharded512's u (w 1) and leaf M (w 2) exchanges, 8 shards
     "k10_f32": ("halo_fill.cu",
                 lambda k, cs: (k.k10("f32", 256, 128, cs.NQ, 1)
