@@ -23,10 +23,13 @@ solver/operator.py:150-152):
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from .fmm.apply import parity_shift_table_np, stack_mode_statics
+from .fmm.cheb import child_transfer, m2m_from_1d
 from .fmm.smooth import near_E_from_weights
 
 
@@ -93,15 +96,25 @@ def dense_from_jax_numpy(k_smooth, k_real, device, dtype):
 def static_from_jax_numpy(static_np: dict, device, dtype) -> dict:
     """aniso_tpu's static sweep operators (fmm/apply.py:build_fmm_static:
     'p2m_w' (r, nq), 'l2t' (nq, r), 'm2m' (2, 2, r, r)) -> the port's, in
-    the layouts K8 reads (the same ones), with the int32 parity shift table
-    the M2L kernels read."""
+    the layouts K8 reads (p2m_w and l2t the same ones), with the int32
+    parity shift table the M2L kernels read.  In place of m2m the port
+    keeps its one-dimensional factor m2m_1d (2, np, np), r = np^2
+    (fmm/cheb.py:child_transfer); JAX's m2m must be its tensor product
+    (ValueError otherwise)."""
     def t(a):
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
                             device=device)
 
+    m2m = np.asarray(static_np["m2m"])
+    n = math.isqrt(m2m.shape[-1])
+    tc = child_transfer(n)
+    err = np.abs(m2m_from_1d(tc) - m2m).max()
+    if n * n != m2m.shape[-1] or err > 1e-12 * np.abs(m2m).max():
+        raise ValueError("m2m is not the tensor product of the child "
+                         f"transfer at np {n} (max error {err})")
     return {
         "p2m_w": t(static_np["p2m_w"]), "l2t": t(static_np["l2t"]),
-        "m2m": t(static_np["m2m"]),
+        "m2m_1d": t(tc),
         "shift": torch.as_tensor(parity_shift_table_np(), dtype=torch.int32,
                                  device=device),
     }

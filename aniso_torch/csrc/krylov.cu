@@ -36,44 +36,55 @@
 // separate operations and JAX's do.
 //
 // Bound on the H100: bytes.  K11 must read V[:i+1] and w and write V[i+1]
-// and u: ((i + 1) + 3) n itemsize bytes at 3.35 TB/s (CGS2 as written reads
-// V three times: 3 (i + 1) n itemsize).  K12 moves a few KB of state: its
-// floor is one launch's latency, which floor_kernel measures alone.
+// and u: ((i + 1) + 3) n itemsize bytes at 3.35 TB/s (CGS2 from device
+// memory reads V three times: 3 (i + 1) n itemsize).  K12 moves a few KB of
+// state: its floor is one launch's latency, which floor_kernel measures
+// alone.
 //
-// Design.  K11 is six launches on the caller's stream, no atomics, with
-// 16-byte loads and stores where n and the vectors allow (one value a load
-// otherwise):
-//   (a) dots_kernel: each block sums V[k] w over its grid-stride share for
-//       8 rows at a time held in registers (8 independent loads in
-//       flight a thread), then one block sum a row: one partial a row;
-//   finish_kernel: one block sums the partials of each row over the blocks
-//       in block order (one warp a row) into the state;
-//   (b) update_dots_kernel: w' = w - h1 V, stored, and h2's partials from
-//       the same read of V: a thread keeps its elements of V's first 16
-//       rows in shared memory, its own slots, and reads rows beyond that
-//       again (from the L1 / L2 where they still are); a warp's butterfly
-//       a row a tile, summed in the warp's slot;
-//   finish_kernel for h2;
-//   (c) norm_kernel: w'' = w' - h2 V, stored, and |w''|^2's partials;
-//   (d) scale_kernel: every block sums the norm's partials in the same
-//       order, then V[i+1] = u = w'' / scale; block 0 writes the column.
-// Every sum runs in a fixed order, so a replay repeats bitwise.  K12 is one
-// thread of one block: its work is O(i) dependent operations.
+// Design.  K11 is one cooperative launch a step (cgs2_kernel, on the
+// caller's stream, captured in the step's graph as K9 is), a grid the card
+// holds at once, a block of 512 threads on each SM or fewer for a short n;
+// block b owns the contiguous chunk [b chunk, (b + 1) chunk) of every row.
+// Three phases, separated by grid barriers:
+//   (a) h1 = V[:i+1] w: each block writes one partial a row;
+//   (b) every block sums the partials of each row in the same order
+//       (h1), w' = w - h1 V, and h2's partials, V w';
+//   (c) h2 likewise, w'' = w' - h2 V and |w''|^2's partials; after the last
+//       barrier every block sums the norm's partials in the same order,
+//       writes V[i+1] = u = w'' / (|w''| or 1) and w'' into w, and block 0
+//       the column col = h1 + h2, col[i+1] = |w''|, and h2 into the state.
+// Where the block's chunk of the m rows of V and of w fits its shared
+// memory (kernels/krylov.py:cgs2_plan; bench's 64^2 field in float32 and
+// float64), (a) copies it there (cp.async, every copy in flight at once)
+// and (a), (b), (c) run from shared memory: V is read once.  Otherwise
+// (512^2) V is read three times with 16-byte loads: (a) 8 rows at a time in
+// registers; (b) a tile of 128, 256 or 512 vectors at a time (the widest
+// whose rows fit the row buffer), its rows split over 4, 2 or 1 groups of
+// threads and kept in shared memory, w' from the groups' sums, then a warp
+// a row for h2's partials; (c) a thread's elements row by row.  The partials are laid out
+// a row at a time, so that a warp reads a row's contiguously, every load of
+// a batch of rows in flight together.  Every sum is float64 in a fixed order and no value
+// is added atomically, so a replay repeats bitwise.  An inactive step
+// returns in every block before the first barrier: every block reads the
+// same header.  K12 is one thread of one block: its work is O(i) dependent
+// operations.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
+
+#include "smem_limits.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;        // (a), (c), (d) and the finishes
+constexpr int kThreads = 512;        // K11's block (kernels/krylov.py THREADS)
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;             // rows (a) holds in registers
-constexpr int kStashThreads = 128;   // (b): one 16-byte pack a thread a tile
-constexpr int kStashWarps = kStashThreads / 32;
-constexpr int kStashRows = 16;       // rows (b) keeps in shared memory
-constexpr int kBlocksPerSm = 4;      // the grid of (a), (c), (d)
+constexpr int kRows = 8;             // rows (a) holds in registers, streamed
+constexpr int kTile = 128;           // narrowest streamed (b) tile (TILE)
 
 enum { kI = 0, kJ = 1, kDone = 2, kNormb = 3, kTol = 4, kMaxIt = 5,
        kResid = 6, kHeader = 8 };
@@ -119,11 +130,6 @@ struct alignas(sizeof(T) * VEC) Pack {
 };
 
 template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> load(const T* p, long long e) {
-    return *reinterpret_cast<const Pack<T, VEC>*>(p + e);
-}
-
-template <typename T, int VEC>
 __device__ __forceinline__ Pack<T, VEC> zero_pack() {
     Pack<T, VEC> x;
 #pragma unroll
@@ -133,237 +139,345 @@ __device__ __forceinline__ Pack<T, VEC> zero_pack() {
     return x;
 }
 
-// (a): part[b * (m + 1) + k] = block b's sum of V[k][e] w[e], k <= i:
-// kRows rows at a time in registers, every element of the block's
-// grid-stride share, then one block sum a row.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-dots_kernel(const T* __restrict__ V, const T* __restrict__ w,
-            const double* __restrict__ st, double* __restrict__ part,
-            long long n, int m) {
-    const int i = active_row(st, m);
-    if (i < 0) {
-        return;
+__device__ __forceinline__ double dot(const Pack<T, VEC>& x,
+                                      const Pack<T, VEC>& y) {
+    double s = 0.0;
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) {
+        s += (double)x.v[q] * (double)y.v[q];
     }
-    const int rows = i + 1;
-    const long long nv = n / VEC;
-    __shared__ double sh[kWarps][kRows];
+    return s;
+}
+
+// The head of K11's shared memory, in doubles: h1, h2 (m + 1 each) and the
+// warps' row sums (kWarps x max(m + 1, kRows)), rounded up to 16 bytes
+// (kernels/krylov.py:cgs2_plan agrees).
+__host__ __device__ inline int cgs2_head(int m) {
+    return (2 * (m + 1) + kWarps * (m + 1 > kRows ? m + 1 : kRows) + 1) & ~1;
+}
+
+// h[k] = sum over b < nb of part[k nb + b], k < rows, in the same order in
+// every block: a warp a row (kJ rows a warp at once), a lane the partials
+// b = lane, lane + 32, ... in that order, then the butterfly; every load of
+// a batch in flight together (read from L2: other blocks wrote them).
+__device__ void grid_rows(const double* part, int nb, int rows, double* h) {
+    constexpr int kJ = 6, kQ = 8;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int k0 = 0; k0 < rows; k0 += kRows) {
-        double acc[kRows];
+    for (int k0 = warp; k0 < rows; k0 += kWarps * kJ) {
+        double acc[kJ];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-            acc[r] = 0.0;
+        for (int j = 0; j < kJ; ++j) {
+            acc[j] = 0.0;
         }
-        for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-             e < nv; e += (long long)gridDim.x * kThreads) {
-            const Pack<T, VEC> wv = load<T, VEC>(w, e * VEC);
+        for (int b0 = lane; b0 < nb; b0 += 32 * kQ) {
 #pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-                if (k0 + r < rows) {
-                    const Pack<T, VEC> v =
-                        load<T, VEC>(V + (long long)(k0 + r) * n, e * VEC);
+            for (int j = 0; j < kJ; ++j) {
+                const int k = k0 + j * kWarps;
 #pragma unroll
-                    for (int q = 0; q < VEC; ++q) {
-                        acc[r] += (double)v.v[q] * (double)wv.v[q];
+                for (int q = 0; q < kQ; ++q) {
+                    const int b = b0 + 32 * q;
+                    if (k < rows && b < nb) {
+                        acc[j] += __ldcg(part + (long long)k * nb + b);
                     }
                 }
             }
         }
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-            acc[r] = warp_sum(acc[r]);
-        }
-        if (lane == 0) {
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-                sh[warp][r] = acc[r];
+        for (int j = 0; j < kJ; ++j) {
+            const double s = warp_sum(acc[j]);
+            if (lane == 0 && k0 + j * kWarps < rows) {
+                h[k0 + j * kWarps] = s;
             }
         }
-        __syncthreads();
-        if (threadIdx.x < kRows && k0 + (int)threadIdx.x < rows) {
-            double s = 0.0;
-            for (int wp = 0; wp < kWarps; ++wp) {
-                s += sh[wp][threadIdx.x];
-            }
-            part[(long long)blockIdx.x * (m + 1) + k0 + threadIdx.x] = s;
-        }
-        __syncthreads();
-    }
-}
-
-// st[dst + k] = sum over b < nb of part[b * (m + 1) + k], k <= i: one warp
-// a row, lane l taking b = l, l + 32, ..., then the butterfly.
-__global__ void __launch_bounds__(kThreads)
-finish_kernel(const double* __restrict__ part, double* st, int nb, int m,
-              int dst) {
-    const int i = active_row(st, m);
-    if (i < 0) {
-        return;
-    }
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int k = warp; k <= i; k += kWarps) {
-        double s = 0.0;
-        for (int b = lane; b < nb; b += 32) {
-            s += part[(long long)b * (m + 1) + k];
-        }
-        s = warp_sum(s);
-        if (lane == 0) {
-            st[dst + k] = s;
-        }
-    }
-}
-
-// Shared memory of (b) before its stash, in doubles: h1 and the warps'
-// sums, rounded to 16 bytes.
-__host__ __device__ inline int stash_offset(int m) {
-    return (1 + kStashWarps) * (m + 1) + 1 & ~1;
-}
-
-// (b): w' = w - sum_k h1[k] V[k] (stored in w) and block b's partials of
-// V[k] w' into part, from one read of V's first kStashRows rows: a thread
-// keeps its elements of them in shared memory (its own slots, read back by
-// itself alone); rows beyond are read again.  h1 in the state's col.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kStashThreads)
-update_dots_kernel(const T* __restrict__ V, T* __restrict__ w,
-                   const double* __restrict__ st, double* __restrict__ part,
-                   long long n, int m) {
-    const int i = active_row(st, m);
-    if (i < 0) {
-        return;
-    }
-    const Layout L = layout(m);
-    const int rows = i + 1;
-    const long long nv = n / VEC;
-    extern __shared__ double sm[];
-    double* h1 = sm;                            // [m + 1]
-    double* wsum = sm + (m + 1);                // [kStashWarps][m + 1]
-    Pack<T, VEC>* stash =                       // [kStashRows][threads]
-        reinterpret_cast<Pack<T, VEC>*>(sm + stash_offset(m));
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int k = threadIdx.x; k < rows; k += kStashThreads) {
-        h1[k] = st[L.col + k];
-    }
-    for (int k = threadIdx.x; k < kStashWarps * (m + 1);
-         k += kStashThreads) {
-        wsum[k] = 0.0;
     }
     __syncthreads();
-    // every thread of a warp runs every tile: the butterflies need all lanes
-    for (long long t0 = (long long)blockIdx.x * kStashThreads; t0 < nv;
-         t0 += (long long)gridDim.x * kStashThreads) {
-        const long long e = t0 + threadIdx.x;
-        const bool in = e < nv;
-        double acc[VEC];
-        {
-            const Pack<T, VEC> wv =
-                in ? load<T, VEC>(w, e * VEC) : zero_pack<T, VEC>();
+}
+
+// One VEC-value copy from global into shared memory in flight (cp.async).
+template <typename P>
+__device__ __forceinline__ void copy_async(P* dst, const P* src) {
+    __pipeline_memcpy_async(dst, src, sizeof(P));
+}
+
+// Pass (b) of the streamed branch: tiles of TW = kThreads / G vectors;
+// thread (g, l) takes the rows k = g mod G of the tile's vector l, keeping
+// the first `kept` rows in shared memory (buf: the row buffer of cap
+// packs, then the tile's w', then the groups' sums); w' from the groups'
+// sums of h1[k] V[k] in a fixed order; then a warp a row sums V[k] w' over
+// the tile into red[k] (rows past the buffer read again); h2's partials of
+// this block into pb.
+template <typename T, int VEC, int G>
+__device__ void streamed_b(const Pack<T, VEC>* Vb, Pack<T, VEC>* wb,
+                           const double* h1, double* red,
+                           Pack<T, VEC>* buf, double* pb, int cv,
+                           long long nv, int rows, int nb, int cap) {
+    using P = Pack<T, VEC>;
+    constexpr int TW = kThreads / G;
+    const int kept = rows < cap / TW ? rows : cap / TW;
+    P* rowbuf = buf;                             // [kept][TW]
+    P* wt = buf + cap;                           // [TW] w' of the tile
+    double* wpart = reinterpret_cast<double*>(wt + kThreads);
+    const int g = threadIdx.x / TW, l = threadIdx.x % TW;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int k = threadIdx.x; k < rows; k += kThreads) {
+        red[k] = 0.0;
+    }
+    for (int t0 = 0; t0 < cv; t0 += TW) {
+        const int v = t0 + l;
+        const bool in = v < cv;
+        const P wv = in && g == 0 ? wb[v] : zero_pack<T, VEC>();
+        double a[VEC];
 #pragma unroll
-            for (int q = 0; q < VEC; ++q) {
-                acc[q] = (double)wv.v[q];
-            }
+        for (int q = 0; q < VEC; ++q) {
+            a[q] = 0.0;
         }
-#pragma unroll 4
-        for (int k = 0; k < rows; ++k) {
-            const Pack<T, VEC> v =
-                in ? load<T, VEC>(V + (long long)k * n, e * VEC)
-                   : zero_pack<T, VEC>();
-            if (k < kStashRows) {
-                stash[k * kStashThreads + threadIdx.x] = v;
+#pragma unroll 8
+        for (int k = g; k < rows; k += G) {
+            const P x = in ? Vb[k * nv + v] : zero_pack<T, VEC>();
+            if (k < kept) {
+                rowbuf[k * TW + l] = x;
             }
             const double h = h1[k];
 #pragma unroll
             for (int q = 0; q < VEC; ++q) {
-                acc[q] -= h * (double)v.v[q];
+                a[q] += h * (double)x.v[q];
             }
         }
-        Pack<T, VEC> wr;
 #pragma unroll
         for (int q = 0; q < VEC; ++q) {
-            wr.v[q] = (T)acc[q];
+            wpart[(g * TW + l) * VEC + q] = a[q];
         }
-        if (in) {
-            *reinterpret_cast<Pack<T, VEC>*>(w + e * VEC) = wr;
-        }
-#pragma unroll 2
-        for (int k = 0; k < rows; ++k) {
-            const Pack<T, VEC> v =
-                k < kStashRows ? stash[k * kStashThreads + threadIdx.x]
-                : in ? load<T, VEC>(V + (long long)k * n, e * VEC)
-                     : zero_pack<T, VEC>();
-            double p = 0.0;
+        __syncthreads();
+        if (g == 0) {
+            P y;
 #pragma unroll
             for (int q = 0; q < VEC; ++q) {
-                p += (double)v.v[q] * (double)wr.v[q];
+                double s = 0.0;
+#pragma unroll
+                for (int gg = 0; gg < G; ++gg) {
+                    s += wpart[(gg * TW + l) * VEC + q];
+                }
+                y.v[q] = (T)((double)wv.v[q] - s);
+            }
+            wt[l] = y;
+            if (in) {
+                wb[v] = y;
+            }
+        }
+        __syncthreads();
+        for (int k = warp; k < rows; k += kWarps) {
+            double p = 0.0;
+#pragma unroll
+            for (int ll = lane; ll < TW; ll += 32) {
+                if (t0 + ll < cv) {
+                    const P x = k < kept ? rowbuf[k * TW + ll]
+                                         : Vb[k * nv + t0 + ll];
+                    p += dot(x, wt[ll]);
+                }
             }
             p = warp_sum(p);
             if (lane == 0) {
-                wsum[warp * (m + 1) + k] += p;
+                red[k] += p;
             }
         }
+        __syncthreads();
     }
-    __syncthreads();
-    for (int k = threadIdx.x; k < rows; k += kStashThreads) {
-        double s = 0.0;
-        for (int wp = 0; wp < kStashWarps; ++wp) {
-            s += wsum[wp * (m + 1) + k];
-        }
-        part[(long long)blockIdx.x * (m + 1) + k] = s;
+    for (int k = threadIdx.x; k < rows; k += kThreads) {
+        pb[(long long)k * nb + blockIdx.x] = red[k];
     }
 }
 
-// (c): w'' = w' - sum_k h2[k] V[k] (stored in w) and block b's partial of
-// |w''|^2 in part[b].
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-norm_kernel(const T* __restrict__ V, T* __restrict__ w,
-            const double* __restrict__ st, double* __restrict__ part,
-            long long n, int m) {
+// K11, one step's CGS2 in one cooperative launch (the header states the
+// phases).  part: (a)'s and (b)'s partials, (m + 1) nb each as [row][block],
+// then (c)'s, nb.  RES: the chunk of V's rows and of w held in shared
+// memory from (a) on; otherwise `stash` rows of a tile of (b).
+template <typename T, int VEC, bool RES>
+__global__ void __launch_bounds__(kThreads, 1)
+cgs2_kernel(T* __restrict__ V, T* __restrict__ w, T* __restrict__ u,
+            double* st, double* __restrict__ part, long long n, int m,
+            long long chunk, int stash) {
     const int i = active_row(st, m);
     if (i < 0) {
         return;
     }
+    using P = Pack<T, VEC>;
+    cg::grid_group grid = cg::this_grid();
+    extern __shared__ __align__(16) double sm[];
+    double* h1 = sm;                            // [m + 1]
+    double* h2 = h1 + (m + 1);                  // [m + 1]
+    double* red = h2 + (m + 1);                 // [kWarps][m + 1 or kRows]
+    P* buf = reinterpret_cast<P*>(sm + cgs2_head(m));
     const Layout L = layout(m);
     const int rows = i + 1;
-    const long long nv = n / VEC;
-    extern __shared__ double h2[];             // [rows], then [kWarps]
-    for (int k = threadIdx.x; k < rows; k += kThreads) {
-        h2[k] = st[L.h2 + k];
+    const int nb = gridDim.x, b = blockIdx.x;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long c0 = (long long)b * chunk;
+    const int cv = (int)((c0 < n ? (n - c0 < chunk ? n - c0 : chunk) : 0)
+                         / VEC);               // vectors of this block
+    const long long cvmax = chunk / VEC;
+    const long long nv = n / VEC;               // a row, in vectors
+    const P* Vb = reinterpret_cast<const P*>(V + c0);
+    P* wb = reinterpret_cast<P*>(w + c0);
+    double* pa = part;
+    double* pb = pa + (long long)(m + 1) * nb;
+    double* pc = pb + (long long)(m + 1) * nb;
+    P* ws = buf;                                // RES: [cvmax] w, w', w''
+    P* Vs = buf + cvmax;                        // RES: [m][cvmax]
+
+    // (a): h1's partials
+    if constexpr (RES) {
+        for (int v = threadIdx.x; v < cv; v += kThreads) {
+            copy_async(ws + v, wb + v);
+        }
+        for (int e = threadIdx.x; e < rows * cv; e += kThreads) {
+            const int k = e / cv, v = e % cv;
+            copy_async(Vs + k * cvmax + v, Vb + k * nv + v);
+        }
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        for (int k = warp; k < rows; k += kWarps) {
+            double acc = 0.0;
+            for (int v = lane; v < cv; v += 32) {
+                acc += dot(Vs[k * cvmax + v], ws[v]);
+            }
+            acc = warp_sum(acc);
+            if (lane == 0) {
+                pa[(long long)k * nb + b] = acc;
+            }
+        }
+    } else {
+        for (int k0 = 0; k0 < rows; k0 += kRows) {
+            double acc[kRows];
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+                acc[r] = 0.0;
+            }
+#pragma unroll 2
+            for (int v = threadIdx.x; v < cv; v += kThreads) {
+                const P wv = wb[v];
+#pragma unroll
+                for (int r = 0; r < kRows; ++r) {
+                    if (k0 + r < rows) {
+                        acc[r] += dot(Vb[(k0 + r) * nv + v], wv);
+                    }
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+                acc[r] = warp_sum(acc[r]);
+            }
+            if (lane == 0) {
+#pragma unroll
+                for (int r = 0; r < kRows; ++r) {
+                    red[warp * kRows + r] = acc[r];
+                }
+            }
+            __syncthreads();
+            if (threadIdx.x < kRows && k0 + (int)threadIdx.x < rows) {
+                double s = 0.0;
+                for (int wp = 0; wp < kWarps; ++wp) {
+                    s += red[wp * kRows + threadIdx.x];
+                }
+                pa[(long long)(k0 + threadIdx.x) * nb + b] = s;
+            }
+            __syncthreads();
+        }
     }
-    __syncthreads();
-    double nrm = 0.0;
-    for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-         e < nv; e += (long long)gridDim.x * kThreads) {
-        double acc[VEC];
-        {
-            const Pack<T, VEC> wv = load<T, VEC>(w, e * VEC);
+    grid.sync();
+    grid_rows(pa, nb, rows, h1);
+
+    // (b): w' = w - h1 V and h2's partials
+    if constexpr (RES) {
+        for (int v = threadIdx.x; v < cv; v += kThreads) {
+            double a[VEC];
+            const P x0 = ws[v];
 #pragma unroll
             for (int q = 0; q < VEC; ++q) {
-                acc[q] = (double)wv.v[q];
+                a[q] = (double)x0.v[q];
+            }
+#pragma unroll 4
+            for (int k = 0; k < rows; ++k) {
+                const P x = Vs[k * cvmax + v];
+                const double h = h1[k];
+#pragma unroll
+                for (int q = 0; q < VEC; ++q) {
+                    a[q] -= h * (double)x.v[q];
+                }
+            }
+            P y;
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) {
+                y.v[q] = (T)a[q];
+            }
+            ws[v] = y;
+        }
+        __syncthreads();
+        for (int k = warp; k < rows; k += kWarps) {
+            double acc = 0.0;
+            for (int v = lane; v < cv; v += 32) {
+                acc += dot(Vs[k * cvmax + v], ws[v]);
+            }
+            acc = warp_sum(acc);
+            if (lane == 0) {
+                pb[(long long)k * nb + b] = acc;
+            }
+        }
+    } else {
+        // tiles of kThreads / G vectors, G = 1, 2 or 4 groups of threads
+        // (the widest tile whose rows all fit the row buffer)
+        const int cap = stash * kTile;
+        if (rows * kThreads <= cap) {
+            streamed_b<T, VEC, 1>(Vb, wb, h1, red, buf, pb, cv, nv, rows, nb,
+                                  cap);
+        } else if (rows * (kThreads / 2) <= cap) {
+            streamed_b<T, VEC, 2>(Vb, wb, h1, red, buf, pb, cv, nv, rows, nb,
+                                  cap);
+        } else {
+            streamed_b<T, VEC, 4>(Vb, wb, h1, red, buf, pb, cv, nv, rows, nb,
+                                  cap);
+        }
+    }
+    grid.sync();
+    grid_rows(pb, nb, rows, h2);
+
+    // (c): w'' = w' - h2 V and |w''|^2's partials
+    double nrm = 0.0;
+#pragma unroll 2
+    for (int v = threadIdx.x; v < cv; v += kThreads) {
+        double a[VEC];
+        {
+            const P x0 = RES ? ws[v] : wb[v];
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) {
+                a[q] = (double)x0.v[q];
             }
         }
 #pragma unroll 4
         for (int k = 0; k < rows; ++k) {
-            const Pack<T, VEC> v = load<T, VEC>(V + (long long)k * n, e * VEC);
+            const P x = RES ? Vs[k * cvmax + v] : Vb[k * nv + v];
             const double h = h2[k];
 #pragma unroll
             for (int q = 0; q < VEC; ++q) {
-                acc[q] -= h * (double)v.v[q];
+                a[q] -= h * (double)x.v[q];
             }
         }
-        Pack<T, VEC> wr;
+        P y;
 #pragma unroll
         for (int q = 0; q < VEC; ++q) {
-            wr.v[q] = (T)acc[q];
-            nrm += (double)wr.v[q] * (double)wr.v[q];
+            y.v[q] = (T)a[q];
+            nrm += (double)y.v[q] * (double)y.v[q];
         }
-        *reinterpret_cast<Pack<T, VEC>*>(w + e * VEC) = wr;
+        if (RES) {
+            ws[v] = y;
+        } else {
+            wb[v] = y;
+        }
     }
-    double* red = h2 + rows;
     nrm = warp_sum(nrm);
-    if ((threadIdx.x & 31) == 0) {
-        red[threadIdx.x >> 5] = nrm;
+    if (lane == 0) {
+        red[warp] = nrm;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
@@ -371,54 +485,40 @@ norm_kernel(const T* __restrict__ V, T* __restrict__ w,
         for (int wp = 0; wp < kWarps; ++wp) {
             s += red[wp];
         }
-        part[blockIdx.x] = s;
+        pc[b] = s;
     }
-}
-
-// (d): wnorm from the nb partials (the same order in every block), then
-// V[i+1] = u = w'' / (wnorm or 1); block 0 writes col = h1 + h2 and
-// col[i+1] = wnorm.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-scale_kernel(T* __restrict__ V, const T* __restrict__ w, T* __restrict__ u,
-             double* st, const double* __restrict__ part, int nb,
-             long long n, int m) {
-    const int i = active_row(st, m);
-    if (i < 0) {
-        return;
+    grid.sync();
+    // |w''| from the nb partials, the same order in every warp of every
+    // block; then V[i+1] = u = w'' / (|w''| or 1)
+    double s = 0.0;
+    for (int bb = lane; bb < nb; bb += 32) {
+        s += __ldcg(pc + bb);
     }
-    const Layout L = layout(m);
-    __shared__ double wn;
-    if (threadIdx.x < 32) {
-        double s = 0.0;
-        for (int b = threadIdx.x; b < nb; b += 32) {
-            s += part[b];
-        }
-        s = warp_sum(s);
-        if (threadIdx.x == 0) {
-            wn = sqrt(s);
-        }
-    }
-    __syncthreads();
-    const double wnorm = wn;
+    const double wnorm = sqrt(warp_sum(s));
     const double scale = wnorm == 0.0 ? 1.0 : wnorm;
-    if (blockIdx.x == 0) {
-        for (int k = threadIdx.x; k <= i + 1; k += kThreads) {
-            st[L.col + k] = k <= i ? st[L.col + k] + st[L.h2 + k] : wnorm;
-        }
-    }
-    T* out = V + (long long)(i + 1) * n;
-    const long long nv = n / VEC;
-    for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < nv;
-         e += (long long)gridDim.x * kThreads) {
-        const Pack<T, VEC> wv = load<T, VEC>(w, e * VEC);
-        Pack<T, VEC> v;
+    P* Vn = reinterpret_cast<P*>(V + (long long)(i + 1) * n + c0);
+    P* ub = reinterpret_cast<P*>(u + c0);
+#pragma unroll 4
+    for (int v = threadIdx.x; v < cv; v += kThreads) {
+        const P x = RES ? ws[v] : wb[v];
+        P y;
 #pragma unroll
         for (int q = 0; q < VEC; ++q) {
-            v.v[q] = (T)((double)wv.v[q] / scale);
+            y.v[q] = (T)((double)x.v[q] / scale);
         }
-        *reinterpret_cast<Pack<T, VEC>*>(out + e * VEC) = v;
-        *reinterpret_cast<Pack<T, VEC>*>(u + e * VEC) = v;
+        Vn[v] = y;
+        ub[v] = y;
+        if (RES) {
+            wb[v] = x;
+        }
+    }
+    if (b == 0) {
+        for (int k = threadIdx.x; k <= i + 1; k += kThreads) {
+            st[L.col + k] = k <= i ? h1[k] + h2[k] : wnorm;
+            if (k <= i) {
+                st[L.h2 + k] = h2[k];
+            }
+        }
     }
 }
 
@@ -511,97 +611,113 @@ int sm_count() {
     return sms;
 }
 
-long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
-
-template <typename T, int VEC>
-int cgs2_vec(T* V, T* w, T* u, double* sd, double* pd, long long part_len,
-             long long n, int m, cudaStream_t st) {
-    const int sms = sm_count();
-    if (sms == 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    const Layout L = layout(m);
-    const int rows = m + 1;
-    const int smem_b = stash_offset(m) * (int)sizeof(double)
-                       + kStashRows * kStashThreads * (int)sizeof(Pack<T, VEC>);
-    // set once per size (the first call, outside any graph capture)
-    static int smem_set = 48 * 1024, occ_at = -1, occ = 0;
-    cudaError_t err = cudaSuccess;
-    if (smem_b > smem_set) {
-        err = cudaFuncSetAttribute(update_dots_kernel<T, VEC>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem_b);
-        if (err != cudaSuccess) {
-            return (int)err;
-        }
-        smem_set = smem_b;
-    }
-    if (occ_at != smem_b) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &occ, update_dots_kernel<T, VEC>, kStashThreads, smem_b);
-        if (err != cudaSuccess) {
-            return (int)err;
-        }
-        occ_at = smem_b;
-    }
-    const long long nv = n / VEC;
-    const int nb_a = (int)std::min(cdiv(nv, kThreads),
-                                   (long long)kBlocksPerSm * sms);
-    const int nb_b = (int)std::min(cdiv(nv, kStashThreads),
-                                   (long long)std::max(occ, 1) * sms);
-    if ((long long)std::max(nb_a, nb_b) * rows > part_len) {
-        return (int)cudaErrorInvalidValue;
-    }
-    dots_kernel<T, VEC><<<nb_a, kThreads, 0, st>>>(V, w, sd, pd, n, m);
-    finish_kernel<<<1, kThreads, 0, st>>>(pd, sd, nb_a, m, L.col);
-    update_dots_kernel<T, VEC><<<nb_b, kStashThreads, smem_b, st>>>(
-        V, w, sd, pd, n, m);
-    finish_kernel<<<1, kThreads, 0, st>>>(pd, sd, nb_b, m, L.h2);
-    norm_kernel<T, VEC><<<nb_a, kThreads, (rows + kWarps) * sizeof(double),
-                          st>>>(V, w, sd, pd, n, m);
-    scale_kernel<T, VEC><<<nb_a, kThreads, 0, st>>>(V, w, u, sd, pd, nb_a, n,
-                                                     m);
-    return (int)cudaGetLastError();
+// The shared memory a plan needs: the head, then the chunk of m rows of V
+// and of w (resident) or `stash` rows of a (b) tile, its w' and the
+// groups' sums (cgs2_plan agrees).
+long long cgs2_smem(int m, long long chunk, int vec, int item, int resident,
+                    int stash) {
+    const long long pack = (long long)vec * item;
+    const long long head = 8LL * cgs2_head(m);
+    return resident ? head + (m + 1) * (chunk / vec) * pack
+                    : head + (long long)stash * kTile * pack
+                          + kThreads * (pack + 8LL * vec);
 }
 
-// 16-byte loads when every row and vector starts on 16 bytes, one value a
-// load otherwise.
-template <typename T>
-int cgs2(void* V, void* w, void* u, void* state, void* part,
-         long long part_len, long long n, int m, void* stream) {
-    if (n <= 0 || m < 1) {
-        return (int)cudaErrorInvalidValue;
+template <typename T, int VEC, bool RES>
+int cgs2_launch(void* V, void* w, void* u, void* state, void* part,
+                long long n, int m, int blocks, long long chunk, int stash,
+                int smem, cudaStream_t st) {
+    auto kern = cgs2_kernel<T, VEC, RES>;
+    int dev = 0, coop = 0, occ = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     }
-    constexpr int kVec = 16 / sizeof(T);
-    const bool aligned =
-        n % kVec == 0
-        && ((reinterpret_cast<uintptr_t>(V) | reinterpret_cast<uintptr_t>(w)
-             | reinterpret_cast<uintptr_t>(u)) & 15) == 0;
+    if (err == cudaSuccess && !coop) {
+        err = cudaErrorNotSupported;
+    }
+    if (err == cudaSuccess) {
+        err = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    }
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern,
+                                                            kThreads, smem);
+    }
+    if (err != cudaSuccess) {
+        return (int)err;
+    }
+    // a cooperative grid must fit the card at once
+    if ((long long)occ * sm_count() < blocks) {
+        return (int)cudaErrorCooperativeLaunchTooLarge;
+    }
     T* Vt = static_cast<T*>(V);
     T* wt = static_cast<T*>(w);
     T* ut = static_cast<T*>(u);
     double* sd = static_cast<double*>(state);
     double* pd = static_cast<double*>(part);
+    void* args[] = {&Vt, &wt, &ut, &sd, &pd, &n, &m, &chunk, &stash};
+    err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks),
+                                      dim3(kThreads), args, smem, st);
+    if (err != cudaSuccess) {
+        return (int)err;
+    }
+    return (int)cudaGetLastError();
+}
+
+// The plan's numbers checked again, then the instance of its vector width
+// and branch.
+template <typename T>
+int cgs2(void* V, void* w, void* u, void* state, void* part,
+         long long part_len, long long n, int m, int blocks, long long chunk,
+         int resident, int stash, int vec, int smem, void* stream) {
+    constexpr int kVec = 16 / sizeof(T);
+    const bool aligned =
+        ((reinterpret_cast<uintptr_t>(V) | reinterpret_cast<uintptr_t>(w)
+          | reinterpret_cast<uintptr_t>(u)) & 15) == 0;
+    if (n <= 0 || m < 1 || blocks < 1 || chunk < 1
+        || (vec != 1 && (vec != kVec || n % vec || !aligned))
+        || chunk % vec || (long long)blocks * chunk < n
+        || (long long)(blocks - 1) * chunk >= n
+        || stash < 0 || stash > m
+        || part_len < (2LL * (m + 1) + 1) * blocks
+        || cgs2_smem(m, chunk, vec, (int)sizeof(T), resident, stash) > smem
+        || (size_t)smem > aniso::kSmemBlock) {
+        return (int)cudaErrorInvalidValue;
+    }
     const cudaStream_t st = (cudaStream_t)stream;
-    return aligned
-               ? cgs2_vec<T, kVec>(Vt, wt, ut, sd, pd, part_len, n, m, st)
-               : cgs2_vec<T, 1>(Vt, wt, ut, sd, pd, part_len, n, m, st);
+#define ANISO_K11(VC, RS)                                                   \
+    cgs2_launch<T, VC, RS>(V, w, u, state, part, n, m, blocks, chunk, stash, \
+                           smem, st)
+    if (vec == 1) {
+        return resident ? ANISO_K11(1, true) : ANISO_K11(1, false);
+    }
+    return resident ? ANISO_K11(kVec, true) : ANISO_K11(kVec, false);
+#undef ANISO_K11
 }
 
 }  // namespace
 
 // K11: V (m + 1, n), w (n), u (n) in the field's type; state (layout(m).len)
-// float64; part: at least part_len = 16 x SMs x (m + 1) float64 of scratch.
+// float64; part: at least part_len = (2 (m + 1) + 1) blocks float64 of
+// scratch; blocks, chunk, resident, stash, vec and smem from
+// kernels/krylov.py:cgs2_plan, checked again here.
 extern "C" int aniso_cgs2_f32(void* V, void* w, void* u, void* state,
                               void* part, long long part_len, long long n,
-                              int m, void* stream) {
-    return cgs2<float>(V, w, u, state, part, part_len, n, m, stream);
+                              int m, int blocks, long long chunk,
+                              int resident, int stash, int vec, int smem,
+                              void* stream) {
+    return cgs2<float>(V, w, u, state, part, part_len, n, m, blocks, chunk,
+                       resident, stash, vec, smem, stream);
 }
 
 extern "C" int aniso_cgs2_f64(void* V, void* w, void* u, void* state,
                               void* part, long long part_len, long long n,
-                              int m, void* stream) {
-    return cgs2<double>(V, w, u, state, part, part_len, n, m, stream);
+                              int m, int blocks, long long chunk,
+                              int resident, int stash, int vec, int smem,
+                              void* stream) {
+    return cgs2<double>(V, w, u, state, part, part_len, n, m, blocks, chunk,
+                        resident, stash, vec, smem, stream);
 }
 
 // K12: the Givens step of an active step (a no-op otherwise).

@@ -50,7 +50,7 @@ from ..kernels.m2l import m2l_translate
 from ..kernels.near import near_contract
 from ..kernels.offsets import offsets_translate
 from ..kernels.transfer import down, up_pass
-from .cheb import cheb_grid_2d, m2m_tensor, p2m_matrix
+from .cheb import cheb_grid_2d, child_transfer, p2m_matrix
 from .smooth import near_pair_geometry
 from .structure import TreeConfig, coarsest_m2l_level, vlist_offsets
 
@@ -67,7 +67,7 @@ def build_fmm_static(grid: Grid, np_cheb: int, device, dtype) -> dict:
     return {
         "p2m_w": t(p2m * wglob[None, :]),
         "l2t": t(p2m.T),
-        "m2m": t(m2m_tensor(np_cheb)),
+        "m2m_1d": t(child_transfer(np_cheb)),
         "shift": torch.as_tensor(
             parity_shift_table_np(), dtype=torch.int32, device=device
         ),
@@ -168,7 +168,7 @@ def _up_pass(static, leaf_level: int, u: torch.Tensor, stop=None) -> dict:
     (kernels.transfer); on a shard's (lx, ly) block of squares, the
     block's boxes at each level."""
     lo = coarsest_m2l_level() if stop is None else stop
-    Ms = up_pass(static["p2m_w"], static["m2m"], u, leaf_level - lo)
+    Ms = up_pass(static["p2m_w"], static["m2m_1d"], u, leaf_level - lo)
     return {leaf_level - s: M for s, M in enumerate(Ms)}
 
 
@@ -242,7 +242,7 @@ def _down_pass(static, leaf_level: int, M: dict, m2l_E: dict,
     T = _translates(static, leaf_level, M, m2l_E, m2l_cosr, coeffs,
                     translate_fn, None if start is None else start[0] + 1)
     L0, Ts = (T[0], T[1:]) if start is None else (start[1], T)
-    return down(static["m2m"], L0, Ts,
+    return down(static["m2m_1d"], L0, Ts,
                 None if near is None else static["l2t"], near)
 
 

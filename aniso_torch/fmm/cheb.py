@@ -66,7 +66,13 @@ def child_transfer(n: int) -> np.ndarray:
 
 def m2m_tensor(n: int) -> np.ndarray:
     """(2, 2, n^2, n^2): R[hx, hy][parent_c, child_c] tensor-product transfer."""
-    tc = child_transfer(n)
+    return m2m_from_1d(child_transfer(n))
+
+
+def m2m_from_1d(tc: np.ndarray) -> np.ndarray:
+    """(2, 2, n^2, n^2): the tensor product of the child transfer tc (2, n,
+    n), R[hx, hy][(a, b), (i, j)] = tc[hx][i, a] tc[hy][j, b]."""
+    n = tc.shape[-1]
     out = np.einsum("xia,yjb->xyabij", tc, tc)
     return out.reshape(2, 2, n * n, n * n)
 

@@ -13,8 +13,10 @@ test (:154-156, :191-192), and the back-substitution that follows it
       _givens :66-86) and, at a cycle's end, y from the leading i x i block.
 
 The CUDA kernels are csrc/krylov.cu; its header states the bound (bytes for
-K11, a launch's latency for K12) and the design (K11 in six launches with
-fixed-order sums, float64 accumulators; K12 one thread).  The step's i, j,
+K11, a launch's latency for K12) and the design (K11 one cooperative launch
+in three phases between grid barriers, fixed-order float64 sums, V read
+once where a block's chunk of it fits shared memory (cgs2_plan); K12 one
+thread).  The step's i, j,
 stopping flag, tolerances and H, s, cs, sn live in one float64 `state`
 tensor (state_layout); every kernel reads i, j and done from it and does
 nothing when the step is inactive (done, i = m or j > max_iter), so a
@@ -35,13 +37,20 @@ from typing import NamedTuple
 import torch
 
 from . import _cuda
+from .m2l import SMEM_BLOCK
 
 SOURCE = "krylov.cu"
 SYMBOLS = {"f32": "aniso_cgs2_f32", "f64": "aniso_cgs2_f64"}
-_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_longlong, ctypes.c_longlong,
-                                      ctypes.c_int, ctypes.c_void_p)
+_ARGTYPES = ((ctypes.c_void_p,) * 5
+             + (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_longlong)
+             + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
 _STATE_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
-PART_BLOCKS_PER_SM = 16         # the most blocks a pass has per SM
+THREADS = 512                   # K11's block (kThreads in the source)
+WARPS = THREADS // 32
+ROWS = 8                        # rows the streamed pass (a) holds (kRows)
+TILE = 128                      # the narrowest streamed (b) tile (kTile)
+MIN_VECTORS = 32                # a block's least share of a row, in vectors
 
 launches = {"f32": 0, "f64": 0}                  # K11
 givens_launches = {"step": 0, "backsub": 0}      # K12
@@ -116,6 +125,54 @@ def cgs2_plain(V, w, u, state) -> None:
     state[L.h2:L.h2 + i + 1] = h2[:i + 1].to(torch.float64)
 
 
+class Cgs2Plan(NamedTuple):
+    """K11's launch: `blocks` blocks (at most one an SM), each owning
+    `chunk` elements of every row; resident: the block's chunk of V's m
+    rows and of w held in shared memory (V read once), else V streamed
+    three times, pass (b) keeping up to `stash` rows of a tile of TILE
+    vectors (fewer rows of a wider tile) in shared memory, the others read
+    again."""
+    blocks: int
+    chunk: int
+    resident: bool
+    stash: int
+    smem: int       # bytes of dynamic shared memory
+
+
+def _head_bytes(m: int) -> int:
+    """h1, h2 and the warps' row sums (csrc/krylov.cu:cgs2_head)."""
+    return 8 * ((2 * (m + 1) + WARPS * max(m + 1, ROWS) + 1) & ~1)
+
+
+@functools.lru_cache(maxsize=None)
+def cgs2_plan(n: int, m: int, item: int, vec: int, sms: int,
+              smem_max: int = SMEM_BLOCK, resident=None) -> Cgs2Plan:
+    """The launch of K11 on rows of n values of `item` bytes, restart m,
+    vec values a load, on a card of `sms` SMs with `smem_max` bytes of
+    shared memory a block: one block an SM (fewer where a block would own
+    less than MIN_VECTORS vectors), resident where the chunk of m + 1
+    rows fits (resident=None; True or False forces the branch, True
+    raising where it does not fit)."""
+    nv = n // vec
+    cv = -(-nv // max(1, min(sms, -(-nv // MIN_VECTORS))))
+    blocks = -(-nv // cv)
+    pack = vec * item
+    head = _head_bytes(m)
+    res_smem = head + (m + 1) * cv * pack
+    fits = res_smem <= smem_max
+    if resident is None:
+        resident = fits
+    if resident:
+        if not fits:
+            raise ValueError(f"K11: {m + 1} rows of {cv * vec} values do "
+                             "not fit a block's shared memory")
+        return Cgs2Plan(blocks, cv * vec, True, 0, res_smem)
+    fixed = head + THREADS * (pack + 8 * vec)
+    stash = max(0, min(m, (smem_max - fixed) // (TILE * pack)))
+    return Cgs2Plan(blocks, cv * vec, False, stash,
+                    fixed + stash * TILE * pack)
+
+
 @functools.lru_cache(maxsize=None)
 def _check_layout(m: int) -> None:
     """Raise unless csrc/krylov.cu lays the state out as state_layout."""
@@ -123,11 +180,6 @@ def _check_layout(m: int) -> None:
     if n != state_layout(m).len:
         raise RuntimeError(f"krylov.cu's state for restart {m} has {n} "
                            f"values, state_layout {state_layout(m).len}")
-
-
-def part_len(m: int, device) -> int:
-    """float64 scratch values K11's passes need for restart m."""
-    return PART_BLOCKS_PER_SM * _num_sms(device.index or 0) * (m + 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,12 +198,19 @@ def cgs2(V, w, u, state) -> None:
     _cuda.check_all(V.dtype, ("V", V, (m + 1, n)), ("w", w, (n,)),
                     ("u", u, (n,)))
     _check_state(state, m)
-    part = torch.empty(part_len(m, state.device), dtype=torch.float64,
+    item = V.element_size()
+    vec = 16 // item
+    if n % vec or any(t.data_ptr() % 16 for t in (V, w, u)):
+        vec = 1                   # one value a load
+    plan = cgs2_plan(n, m, item, vec, _num_sms(state.device.index or 0))
+    part = torch.empty((2 * (m + 1) + 1) * plan.blocks, dtype=torch.float64,
                        device=state.device)
     symbol = SYMBOLS[inst]
     fn = _cuda.load(SOURCE, symbol, _ARGTYPES)
     rc = fn(_cuda.ptr(V), _cuda.ptr(w), _cuda.ptr(u), _cuda.ptr(state),
-            _cuda.ptr(part), part.numel(), n, m, _cuda.stream(state.device))
+            _cuda.ptr(part), part.numel(), n, m, plan.blocks, plan.chunk,
+            int(plan.resident), plan.stash, vec, plan.smem,
+            _cuda.stream(state.device))
     _cuda.raise_on_error(symbol, rc)
     launches[inst] += 1
 

@@ -336,7 +336,7 @@ def replicate(mesh: Mesh, arr) -> Replicated:
 
 # per-mode tables: small, replicated whatever their shape
 _TABLES = ("m2l_cosr", "near_cosrw", "near_static", "shift", "p2m_w", "l2t",
-           "m2m")
+           "m2m_1d")
 
 
 def shard_pytree(mesh: Mesh, tree):
@@ -424,7 +424,7 @@ class _Sweep:
             return self._once(("M", level), lambda: gather_full(
                 self.mesh, self._level(level)))
         ups = self._once("up", lambda: {
-            device: up_from(self.dev[device][0]["m2m"], M,
+            device: up_from(self.dev[device][0]["m2m_1d"], M,
                             self.stop - coarsest_m2l_level())
             for device, M in self.whole_M(self.stop).items()})
         return {device: Ms[self.stop - level] for device, Ms in ups.items()}
@@ -467,7 +467,7 @@ class _Sweep:
         def whole_L():
             T = [self._once(("T", lv), lambda lv=lv: self._whole_T(lv))
                  for lv in range(lo, self.stop + 1)]
-            return {device: down(self.dev[device][0]["m2m"], T[0][device],
+            return {device: down(self.dev[device][0]["m2m_1d"], T[0][device],
                                  [t[device] for t in T[1:]])
                     for device in self.dev}
 

@@ -16,7 +16,9 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
   redesigned_kernels  ptxas's registers, spills and static shared memory
            of the r = 16 (np 4) instances of K1's one-mode and all-modes
            kernels and of K3 (their dynamic shared memory is in PERF.md),
-           of every K2 and K10 instance and of K7's deg 3 instances
+           of every K2, K10, K8 and K11 instance and of K7's deg 3
+           instances; K8's two kernels and K11's one compiled in both
+           types
   kernels_vs_plain  at every size solved below, each kernel at the shapes
            the paths give it, against its plain version on inputs from a
            seed (random E, M, cosr; the sigma field's coefficients of the
@@ -276,13 +278,14 @@ DSA64_ITERS = {(1, 0.0): {"plain": 18, "dsa": 7},
 # on, f64, tol 1e-12): 35 iterations, 4.18e-3 from the oracle
 ORACLE16_DENSE_ITERS = 35
 
-# the parent tree's (the port before K8 ran as CUDA) device kernels a 64^2
+# the parent tree's (the port before K8 and K11 were redesigned: two K8
+# launches a 512^2 pass, six K11 launches a step) device kernels a 64^2
 # matvec, a replay of bench's captured step and a sharded512 matvec:
 # `python3 tools/kernel_counts.py --tree <parent>` on an NVIDIA H100 80GB
 # HBM3 at 700 W, device records only, as device_ms_per_call counts (PERF.md
 # section 5)
-PARENT_KERNELS = {"matvec_64": 45.0, "captured_step_64": 55.0,
-                  "sharded512_matvec": 561.0}
+PARENT_KERNELS = {"matvec_64": 8.0, "captured_step_64": 18.0,
+                  "sharded512_matvec": 121.0}
 
 
 def emit(obj):
@@ -671,17 +674,21 @@ class Kernels:
                          seed=seed + 99)
         item = u.element_size()
         boxes = sum((lx >> s) * (ly >> s) for s in range(n + 1))
-        ops = item * (r * nq + 4 * r * r)
+        ops = item * (r * nq + 2 * r)
+        # a transfer as two 1-D products: 12 np^3 operations a parent (M2M)
+        # or 6 np^3 + r a child (L2L with T)
+        parents = boxes - lx * ly
+        children = boxes - (lx >> n) * (ly >> n)
         passes = {
-            "up": (lambda: tr.up_pass(st["p2m_w"], st["m2m"], u, n),
-                   lambda: tr.up_pass_plain(st["p2m_w"], st["m2m"], u, n),
+            "up": (lambda: tr.up_pass(st["p2m_w"], st["m2m_1d"], u, n),
+                   lambda: tr.up_pass_plain(st["p2m_w"], st["m2m_1d"], u, n),
                    item * (u.numel() + boxes * r) + ops,
-                   2 * lx * ly * nq * r + 8 * r * r * (boxes - lx * ly)),
-            "down": (lambda: tr.down(st["m2m"], L0, Ts, st["l2t"], near),
-                     lambda: tr.down_plain(st["m2m"], L0, Ts, st["l2t"],
+                   2 * lx * ly * nq * r + 12 * np_cheb ** 3 * parents),
+            "down": (lambda: tr.down(st["m2m_1d"], L0, Ts, st["l2t"], near),
+                     lambda: tr.down_plain(st["m2m_1d"], L0, Ts, st["l2t"],
                                            near),
                      item * nd * (boxes * r + 2 * lx * ly * nq) + ops,
-                     nd * ((2 * r * r + r) * (boxes - (lx >> n) * (ly >> n))
+                     nd * ((6 * np_cheb ** 3 + r) * children
                            + (2 * r + 2) * lx * ly * nq))}
         rows = []
         for name, (fn, plain, nbytes, flops) in passes.items():
@@ -1096,7 +1103,7 @@ def layer_split_ms(torch, solver, u):
         "near_k2": event_ms(torch, lambda: A._near_apply(
             caches, ms_tab, 0, u)),
         "down_pass_k8": event_ms(torch, lambda: transfer.down(
-            static["m2m"], T[0], T[1:], static["l2t"], near)),
+            static["m2m_1d"], T[0], T[1:], static["l2t"], near)),
     }
 
 
@@ -1264,7 +1271,7 @@ def device_profile(torch, fn):
 KERNEL_FUNCTIONS = {
     "k1": "m2l_translate_[a-z_]*kernel", "k2": "near_contract_kernel",
     "k3": "offsets_translate_kernel", "k9d": "diffusion_apply_kernel",
-    "k9": "pcg_kernel", "k10": "halo_fill_kernel", "k11": "scale_kernel",
+    "k9": "pcg_kernel", "k10": "halo_fill_kernel", "k11": "cgs2_kernel",
     "k12_step": "givens_kernel", "k12_backsub": "backsub_kernel",
     "k8": "transfer_(up|down)_kernel",
 }
@@ -1644,13 +1651,13 @@ def k8_launches(s, sweeps, twin_sweeps=0):
     from aniso_torch.kernels import transfer
 
     lx = ly = s.grid.sz
-    n, r = s._tcfg.leaf_level - 2, s.cfg.np_cheb ** 2
+    n, r, nq = s._tcfg.leaf_level - 2, s.cfg.np_cheb ** 2, s.grid.nq
     out = {}
     item = s.dtype.itemsize
     for inst, item, k in (({4: "f32", 8: "f64"}[item], item, sweeps),
                           ("f64", 8, twin_sweeps)):
-        up = k * len(transfer.up_plan(lx, ly, n, r, item))
-        down = k * len(transfer.down_plan(lx >> n, ly >> n, n, r, item))
+        up = k * len(transfer.up_plan(lx, ly, n, r, nq, item))
+        down = k * len(transfer.down_plan(lx, ly, n, r, nq, item))
         for key, v in ((f"k8_up_{inst}", up), (f"k8_down_{inst}", down)):
             if v:
                 out[key] = out.get(key, 0) + v
@@ -2583,7 +2590,7 @@ def sharded_k8(s, mesh):
     from aniso_torch.parallel import api
 
     sz, leaf, lo = s.grid.sz, s._tcfg.leaf_level, 2
-    r, item = s.cfg.np_cheb ** 2, s.dtype.itemsize
+    r, nq, item = s.cfg.np_cheb ** 2, s.grid.nq, s.dtype.itemsize
     inst = {4: "f32", 8: "f64"}[item]
     if sz % mesh.shape[0] or sz % mesh.shape[1]:
         shards, (bx, by) = 1, (sz, sz)
@@ -2592,12 +2599,11 @@ def sharded_k8(s, mesh):
                                        sz // mesh.shape[1])
     stop = api.stop_level((bx, by), leaf)
     n = leaf - stop
-    up = shards * len(transfer.up_plan(bx, by, n, r, item))
-    down = shards * len(transfer.down_plan(bx >> n, by >> n, n, r, item))
-    up += len(transfer.up_plan(1 << stop, 1 << stop, stop - lo, r, item,
-                               p2m=False))
-    down += len(transfer.down_plan(1 << lo, 1 << lo, stop - lo, r, item,
-                                   epilogue=False))
+    up = shards * len(transfer.up_plan(bx, by, n, r, nq, item))
+    down = shards * len(transfer.down_plan(bx, by, n, r, nq, item))
+    up += len(transfer.up_plan(1 << stop, 1 << stop, stop - lo, r, 0, item))
+    down += len(transfer.down_plan(1 << stop, 1 << stop, stop - lo, r, 0,
+                                   item))
     return {f"k8_up_{inst}": up, f"k8_down_{inst}": down}
 
 
@@ -2916,20 +2922,33 @@ def main():
                     for k, rows in usage.items()}})
 
     # the kernels redesigned for the card: K1's one-mode kernel (its four
-    # instances), K1-D and K3 at r = 16 (np 4), every K2 and K10 instance
-    # and K7's deg 3 instances: registers, spills and static shared memory
-    from aniso_torch.kernels import attenuation, halo, m2l, near, offsets
-    emit({"phase": "redesigned_kernels",
-          "ptxas": [row for src in (m2l.SOURCE, offsets.SOURCE)
-                    for row in usage.get(src, [])
-                    if "m2l_translate_one_kernel" in row["function"]
-                    or "Li16E" in row["function"]
-                    and any(k in row["function"] for k in (
-                        "m2l_translate_modes_kernel",
-                        "offsets_translate_kernel"))]
-          + usage.get(near.SOURCE, []) + usage.get(halo.SOURCE, [])
-          + [row for row in usage.get(attenuation.SOURCE, [])
-             if "ILi3E" in row["function"]]})
+    # instances), K1-D and K3 at r = 16 (np 4), every K2, K10 and K8
+    # instance, K7's deg 3 instances and K11's eight: registers, spills and
+    # static shared memory
+    from aniso_torch.kernels import (
+        attenuation, halo, krylov, m2l, near, offsets, transfer,
+    )
+    redesigned = ([row for src in (m2l.SOURCE, offsets.SOURCE)
+                   for row in usage.get(src, [])
+                   if "m2l_translate_one_kernel" in row["function"]
+                   or "Li16E" in row["function"]
+                   and any(k in row["function"] for k in (
+                       "m2l_translate_modes_kernel",
+                       "offsets_translate_kernel"))]
+                  + usage.get(near.SOURCE, []) + usage.get(halo.SOURCE, [])
+                  + [row for row in usage.get(attenuation.SOURCE, [])
+                     if "ILi3E" in row["function"]]
+                  + usage.get(transfer.SOURCE, [])
+                  + [row for row in usage.get(krylov.SOURCE, [])
+                     if "cgs2_kernel" in row["function"]])
+    emit({"phase": "redesigned_kernels", "ptxas": redesigned})
+    # K8's two kernels and K11's one, compiled in both instances
+    for fam, src in (("k8", transfer.SOURCE), ("k11", krylov.SOURCE)):
+        pat = re.compile(KERNEL_FUNCTIONS[fam])
+        for inst in ("If", "Id"):          # float, double in the mangling
+            check(any(pat.search(row["function"]) and inst in row["function"]
+                      for row in usage.get(src, [])),
+                  f"{src}: no {KERNEL_FUNCTIONS[fam]} {inst} compiled")
 
     scratch = torch.empty(96 * 1024 * 1024 // 4, device=DEVICE)
 
@@ -3110,17 +3129,25 @@ def main():
     dl = demo["plain"]["launches"]
     # device kernels per matvec and per captured step, beside the parent
     # tree's counted the same way
+    per_matvec = {
+        "k8_launches_per_matvec_64": (
+            bench["launches"]["k8_up_f32"]
+            + bench["launches"]["k8_down_f32"]) / bench["matvecs"],
+        "k8_launches_per_matvec_sharded512": (
+            sh512["launches"]["k8_up_f32"]
+            + sh512["launches"]["k8_down_f32"]) / sh512["matvecs"]}
     emit({"phase": "kernels_per_matvec",
           "matvec_64": bench["matvec_device_kernels"],
           "captured_step_64": bench["captured_step_kernels"],
           "sharded512_matvec": sh512["sharded_matvec_device_kernels"],
           **{"parent_" + k: v for k, v in PARENT_KERNELS.items()},
-          "k8_launches_per_matvec_64": (
-              bench["launches"]["k8_up_f32"]
-              + bench["launches"]["k8_down_f32"]) / bench["matvecs"],
-          "k8_launches_per_matvec_sharded512": (
-              sh512["launches"]["k8_up_f32"]
-              + sh512["launches"]["k8_down_f32"]) / sh512["matvecs"]})
+          **per_matvec})
+    # K8 is one launch a pass: the plan's count at bench's 64^2
+    from aniso_torch.kernels import transfer
+    plan64 = (len(transfer.up_plan(64, 64, 4, R, NQ, 4))
+              + len(transfer.down_plan(64, 64, 4, R, NQ, 4)))
+    check(per_matvec["k8_launches_per_matvec_64"] == plan64,
+          f"K8 launches a 64^2 matvec {per_matvec}, the plan's {plan64}")
 
     def k8_line(name, inst, pass_, launches, replaces, **extra):
         """K8's up or down pass: times at bench's 64^2 (f32) or the

@@ -80,7 +80,8 @@ def test_cpu_runs_only_when_asked():
     assert resolve_device("cpu") == torch.device("cpu")
     s = TransportSolver(SolverConfig(domain_size=8, quad_rule=2, np_cheb=3),
                         backend="fmm", device="cpu")
-    assert s.device.type == "cpu" and s._fmm_static["m2m"].device.type == "cpu"
+    assert (s.device.type == "cpu"
+            and s._fmm_static["m2m_1d"].device.type == "cpu")
 
 
 def _k1_inputs(device, dtype=torch.float32, m2=2, r=16):
@@ -926,11 +927,10 @@ def test_sharded_matvec_on_other_meshes_on_card(cuda_device, shape, stop,
     out = apply_fn(caches, ms[0], 0, su).full()
     r, item = 16, 4
     n = 5 - stop
-    up = shards * len(transfer.up_plan(*block, n, r, item)) + len(
-        transfer.up_plan(1 << stop, 1 << stop, stop - 2, r, item, False))
-    down = shards * len(transfer.down_plan(block[0] >> n, block[1] >> n, n,
-                                           r, item)) + len(
-        transfer.down_plan(4, 4, stop - 2, r, item, False))
+    up = shards * len(transfer.up_plan(*block, n, r, g.nq, item)) + len(
+        transfer.up_plan(1 << stop, 1 << stop, stop - 2, r, 0, item))
+    down = shards * len(transfer.down_plan(*block, n, r, g.nq, item)) + len(
+        transfer.down_plan(1 << stop, 1 << stop, stop - 2, r, 0, item))
     assert (transfer.launches["up_f32"] - n0["up_f32"],
             transfer.launches["down_f32"] - n0["down_f32"]) == (up, down)
     _gate(out, s.apply_mode(0, u), s.dtype)
@@ -938,7 +938,9 @@ def test_sharded_matvec_on_other_meshes_on_card(cuda_device, shape, stop,
 
 # K8 (kernels.transfer) against its plain versions: 1e-6 of the largest
 # value in float32 (sums of up to 4 r terms a level, in another order), 1e-13
-# in float64
+# in float64.  The kernels sum in float64 and round each output once, so the
+# plain version runs in float64 on the same inputs (_plain64): in float32 it
+# would add its own rounding, a level at a time.
 _K8_GATE = {torch.float32: 1e-6, torch.float64: 1e-13}
 
 
@@ -946,6 +948,19 @@ def _k8_gate(got, want, dtype):
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= \
         _K8_GATE[dtype] * float(want.abs().max())
+
+
+def _plain64(fn, *args):
+    """fn (a plain version) on the float64 values of its tensor arguments
+    (exact casts; lists of tensors too)."""
+    def f64(a):
+        if isinstance(a, torch.Tensor):
+            return a.double()
+        if isinstance(a, list):
+            return [f64(x) for x in a]
+        return a
+
+    return fn(*[f64(a) for a in args])
 
 
 def _k8_static(device, dtype, np_cheb, deg=3):
@@ -959,12 +974,12 @@ def test_k8_wrappers_refuse_tensors_off_the_cpu_and_other_dtypes():
     st = _k8_static("meta", torch.float64, 3)
     u = torch.zeros((8, 8, 9), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError):
-        transfer.up_pass(st["p2m_w"], st["m2m"], u, 1)
+        transfer.up_pass(st["p2m_w"], st["m2m_1d"], u, 1)
     L0 = torch.zeros((4, 4, 9), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError):
-        transfer.down(st["m2m"], L0, [])
+        transfer.down(st["m2m_1d"], L0, [])
     with pytest.raises(TypeError):
-        transfer.down(st["m2m"], L0.half(), [])
+        transfer.down(st["m2m_1d"], L0.half(), [])
 
 
 @pytest.mark.cuda
@@ -982,14 +997,16 @@ def test_k8_up_matches_plain_on_card(cuda_device, dtype, np_cheb, lx, ly):
     inst = _cuda.INSTANCES[dtype]
     r = np_cheb * np_cheb
     n0 = transfer.launches["up_" + inst]
-    got = transfer.up_pass(st["p2m_w"], st["m2m"], u, n)
+    got = transfer.up_pass(st["p2m_w"], st["m2m_1d"], u, n)
     assert transfer.launches["up_" + inst] - n0 == len(transfer.up_plan(
-        lx, ly, n, r, u.element_size()))
-    want = transfer.up_pass_plain(st["p2m_w"], st["m2m"], u, n)
+        lx, ly, n, r, 9, u.element_size())) == 1
+    want = _plain64(transfer.up_pass_plain, st["p2m_w"], st["m2m_1d"], u, n)
     for g, w in zip(got, want):
         _k8_gate(g, w, dtype)
-    got = transfer.up_from(st["m2m"], want[1], n - 1)
-    for g, w in zip(got, want[1:]):
+    M1 = want[1].to(dtype)
+    got = transfer.up_from(st["m2m_1d"], M1, n - 1)
+    for g, w in zip(got, _plain64(transfer.up_from_plain, st["m2m_1d"], M1,
+                                  n - 1)):
         _k8_gate(g, w, dtype)
 
 
@@ -1018,14 +1035,14 @@ def test_k8_down_matches_plain_on_card(cuda_device, dtype, D, np_cheb, lx,
     near_ = t((lx, ly, 9))
     inst = _cuda.INSTANCES[dtype]
     n0 = transfer.launches["down_" + inst]
-    got = transfer.down(st["m2m"], L0, Ts, st["l2t"], near_)
+    got = transfer.down(st["m2m_1d"], L0, Ts, st["l2t"], near_)
     assert transfer.launches["down_" + inst] - n0 == len(transfer.down_plan(
-        lx >> n, ly >> n, n, r, L0.element_size()))
-    _k8_gate(got, transfer.down_plain(st["m2m"], L0, Ts, st["l2t"], near_),
-             dtype)
+        lx, ly, n, r, 9, L0.element_size(), D or 1)) == 1
+    _k8_gate(got, _plain64(transfer.down_plain, st["m2m_1d"], L0, Ts,
+                           st["l2t"], near_), dtype)
     if n:
-        _k8_gate(transfer.down(st["m2m"], L0, Ts),
-                 transfer.down_plain(st["m2m"], L0, Ts), dtype)
+        _k8_gate(transfer.down(st["m2m_1d"], L0, Ts),
+                 _plain64(transfer.down_plain, st["m2m_1d"], L0, Ts), dtype)
 
 
 @pytest.mark.cuda
@@ -1053,13 +1070,87 @@ def test_k8_at_np16_reads_its_weights_from_global_memory_on_card(cuda_device,
                                dtype=dtype).to(cuda_device)
 
     u = t((16, 16, 9))
-    for g, w in zip(transfer.up_pass(st["p2m_w"], st["m2m"], u, 2),
-                    transfer.up_pass_plain(st["p2m_w"], st["m2m"], u, 2)):
+    for g, w in zip(transfer.up_pass(st["p2m_w"], st["m2m_1d"], u, 2),
+                    transfer.up_pass_plain(st["p2m_w"], st["m2m_1d"], u, 2)):
         hold(g, w)
     L0, Ts = t((3, 4, 4, 256)), [t((3, 8, 8, 256)), t((3, 16, 16, 256))]
     near_ = t((3, 16, 16, 9))
-    hold(transfer.down(st["m2m"], L0, Ts, st["l2t"], near_),
-         transfer.down_plain(st["m2m"], L0, Ts, st["l2t"], near_))
+    hold(transfer.down(st["m2m_1d"], L0, Ts, st["l2t"], near_),
+         transfer.down_plain(st["m2m_1d"], L0, Ts, st["l2t"], near_))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lx,ly,n", [(256, 128, 7), (512, 64, 6),
+                                     (192, 64, 6)])
+def test_k8_on_rectangles_off_the_big_tile_on_card(cuda_device, dtype, lx,
+                                                   ly, n):
+    """Rectangles whose sides are not a multiple of the 16 x 16 tile's
+    plane (a sharded512 shard, the (1, 8) mesh's 512 x 64 blocks, 192 x
+    64): the up pass, up_from and the down pass with D = 3 modes, each one
+    launch, against their plain versions."""
+    st = _k8_static(cuda_device, dtype, 4)
+    rng = np.random.default_rng(lx + ly)
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=dtype).to(cuda_device)
+
+    inst = _cuda.INSTANCES[dtype]
+    u = t((lx, ly, 9))
+    n0 = dict(transfer.launches)
+    got = transfer.up_pass(st["p2m_w"], st["m2m_1d"], u, n)
+    want = _plain64(transfer.up_pass_plain, st["p2m_w"], st["m2m_1d"], u, n)
+    for g, w in zip(got, want):
+        _k8_gate(g, w, dtype)
+    M0 = got[0]
+    for g, w in zip(transfer.up_from(st["m2m_1d"], M0, n),
+                    _plain64(transfer.up_from_plain, st["m2m_1d"], M0, n)):
+        _k8_gate(g, w, dtype)
+    L0 = t((3, lx >> n, ly >> n, 16))
+    Ts = [t((3, lx >> (n - j), ly >> (n - j), 16)) for j in range(1, n + 1)]
+    near_ = t((3, lx, ly, 9))
+    _k8_gate(transfer.down(st["m2m_1d"], L0, Ts, st["l2t"], near_),
+             _plain64(transfer.down_plain, st["m2m_1d"], L0, Ts, st["l2t"],
+                      near_), dtype)
+    assert (transfer.launches["up_" + inst] - n0["up_" + inst],
+            transfer.launches["down_" + inst] - n0["down_" + inst]) == (2, 1)
+
+
+@pytest.mark.cuda
+def test_k8_float64_repeats_bit_for_bit_in_graph_replays(cuda_device):
+    """The passes captured in a CUDA graph: two replays give the eager
+    launch's bits (the tickets are 0 again after every launch)."""
+    st = _k8_static(cuda_device, torch.float64, 4)
+    rng = np.random.default_rng(9)
+    u = torch.as_tensor(rng.standard_normal((256, 128, 9))).to(cuda_device)
+    L0 = torch.as_tensor(rng.standard_normal((3, 2, 1, 16))).to(cuda_device)
+    Ts = [torch.as_tensor(rng.standard_normal((3, 2 << j, 1 << j, 16)))
+          .to(cuda_device) for j in range(1, 8)]
+    near_ = torch.as_tensor(rng.standard_normal((3, 256, 128, 9))).to(
+        cuda_device)
+
+    def passes():
+        return (transfer.up_pass(st["p2m_w"], st["m2m_1d"], u, 7),
+                transfer.down(st["m2m_1d"], L0, Ts, st["l2t"], near_))
+
+    ups, down_ = passes()
+    eager = [x.clone() for x in ups] + [down_.clone()]
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        ups, down_ = passes()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(2):
+        for x in ups + [down_]:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(ups + [down_], eager))
+    assert not transfer._ticket_buffer(u.device).any()
 
 
 @pytest.mark.cuda
@@ -1068,13 +1159,13 @@ def test_k8_float64_is_the_same_bit_for_bit_run_to_run(cuda_device):
     st = _k8_static(cuda_device, torch.float64, 4)
     u = torch.as_tensor(np.random.default_rng(7).standard_normal(
         (512, 512, 9))).to(cuda_device)
-    a = transfer.up_pass(st["p2m_w"], st["m2m"], u, 7)
-    b = transfer.up_pass(st["p2m_w"], st["m2m"], u, 7)
+    a = transfer.up_pass(st["p2m_w"], st["m2m_1d"], u, 7)
+    b = transfer.up_pass(st["p2m_w"], st["m2m_1d"], u, 7)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     Ts = [m[None].expand(9, -1, -1, -1).contiguous() for m in a[::-1]]
     near_ = u[None].expand(9, -1, -1, -1).contiguous()
-    x = transfer.down(st["m2m"], Ts[0], Ts[1:], st["l2t"], near_)
-    y = transfer.down(st["m2m"], Ts[0], Ts[1:], st["l2t"], near_)
+    x = transfer.down(st["m2m_1d"], Ts[0], Ts[1:], st["l2t"], near_)
+    y = transfer.down(st["m2m_1d"], Ts[0], Ts[1:], st["l2t"], near_)
     assert torch.equal(x, y)
 
 

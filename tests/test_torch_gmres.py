@@ -117,6 +117,45 @@ def test_cgs2_inactive_step_is_a_no_op(why):
     assert torch.equal(st, st0)
 
 
+# bench's field (64^2 squares, deg 3) and refined512's (512^2), restart 80,
+# on an H100 (132 SMs, 227 KB of shared memory a block)
+FIELDS = {"bench": 64 * 64 * 9, "512": 512 * 512 * 9}
+
+
+@pytest.mark.parametrize("item", [4, 8])
+@pytest.mark.parametrize("field", sorted(FIELDS))
+def test_cgs2_plan_reads_v_once_where_it_fits(field, item):
+    """K11's plan is a cached pure function of (n, m, item, vec, SMs,
+    shared memory): on bench's field one block an SM holds its chunk of V's
+    80 rows and of w in shared memory (V read once), in float32 and
+    float64; at 512^2 the chunk does not fit and V streams, with the rows
+    of a tile it keeps; each fits a block; either branch can be asked
+    for, a resident one that does not fit raises."""
+    n, m, vec = FIELDS[field], 80, 16 // item
+    plan = krylov.cgs2_plan(n, m, item, vec, 132)
+    assert plan is krylov.cgs2_plan(n, m, item, vec, 132)
+    assert plan.blocks == 132 and plan.chunk % vec == 0
+    assert (plan.blocks - 1) * plan.chunk < n <= plan.blocks * plan.chunk
+    assert plan.smem <= krylov.SMEM_BLOCK
+    assert plan.resident == (field == "bench")
+    head = 8 * ((2 + krylov.WARPS) * (m + 1))
+    if plan.resident:
+        assert plan.smem >= head + (m + 1) * plan.chunk * item
+    else:
+        assert 0 < plan.stash <= m
+        assert plan.stash == m           # (b) reads V once too
+        assert plan.smem >= head + plan.stash * krylov.TILE * 16
+        with pytest.raises(ValueError, match="do not fit"):
+            krylov.cgs2_plan(n, m, item, vec, 132, resident=True)
+    streamed = krylov.cgs2_plan(n, m, item, vec, 132, resident=False)
+    assert not streamed.resident and streamed.smem <= krylov.SMEM_BLOCK
+    # a short row: fewer blocks, each at least MIN_VECTORS vectors
+    short = krylov.cgs2_plan(4099, m, item, 1, 132)
+    assert short.resident and short.chunk >= krylov.MIN_VECTORS
+    assert (short.blocks - 1) * short.chunk < 4099 <= \
+        short.blocks * short.chunk
+
+
 # -- K12 --
 
 def jax_givens_body(col, cs, sn, s, H, i, normb, tol):
@@ -396,6 +435,61 @@ def test_cgs2_kernel_matches_plain_on_card(cuda_device, dtype, i, n):
     krylov.cgs2(V, w.clone(), torch.zeros_like(w), done)
     krylov.givens_step(done, m)
     assert torch.equal(V, before[0]) and torch.equal(done, before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("n", [64 * 64 * 9, 4099])   # 16-byte packs; not
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("i", [14, 79])
+def test_cgs2_both_branches_and_replays_on_card(cuda_device, monkeypatch,
+                                                dtype, i, n, resident):
+    """K11 with V resident in shared memory and streamed (the plan's
+    branch forced) against cgs2_plain; an inactive step a no-op; the step
+    captured in a CUDA graph, replayed twice from the same inputs, gives
+    the eager launch's bits."""
+    import functools
+
+    monkeypatch.setattr(krylov, "cgs2_plan", functools.partial(
+        krylov.cgs2_plan.__wrapped__, resident=resident))
+    m = 80
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + i)
+    V = torch.randn((m + 1, n), generator=gen, dtype=dtype,
+                    device=cuda_device)
+    V /= torch.linalg.vector_norm(V, dim=1, keepdim=True)
+    w = torch.randn(n, generator=gen, dtype=dtype, device=cuda_device)
+    st = make_state(m, i).to(cuda_device)
+    inputs = [V, w, torch.zeros_like(w), st]
+    args = [x.clone() for x in inputs]
+    want = [x.clone() for x in inputs]
+    krylov.cgs2(*args)
+    krylov.cgs2_plain(*want)
+    L = krylov.state_layout(m)
+    sl = slice(L.col, L.col + i + 2)
+    assert rel(args[0].cpu(), want[0].cpu()) < _GATE[dtype]
+    assert rel(args[1].cpu(), want[1].cpu()) < _GATE[dtype]
+    assert torch.equal(args[2], args[0][i + 1])
+    assert rel(args[3][sl].cpu(), want[3][sl].cpu()) < _GATE[dtype]
+    eager = [x.clone() for x in args]
+    done = make_state(m, i, done=1.0).to(cuda_device)
+    idle = [V.clone(), w.clone(), torch.zeros_like(w), done.clone()]
+    krylov.cgs2(*idle)
+    assert torch.equal(idle[0], V) and torch.equal(idle[1], w)
+    assert not idle[2].any() and torch.equal(idle[3], done)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        krylov.cgs2(*args)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(2):
+        for a, x in zip(args, inputs):
+            a.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, e) for a, e in zip(args, eager))
 
 
 @pytest.mark.cuda

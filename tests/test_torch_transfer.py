@@ -106,7 +106,7 @@ def test_l2l_chain_plain_matches_jax(D):
     lead = () if D is None else (D,)
     L0 = normal(lead + (4, 4, 16), 1)
     Ts = [normal(lead + (4 << j, 4 << j, 16), 2 + j) for j in range(1, 4)]
-    got = transfer.down(ts["m2m"], torch.as_tensor(L0),
+    got = transfer.down(ts["m2m_1d"], torch.as_tensor(L0),
                         [torch.as_tensor(T) for T in Ts])
     for d in range(D or 1):
         pick = (lambda a: a) if D is None else (lambda a: a[d])
@@ -126,7 +126,7 @@ def test_l2t_near_and_scale_plain_match_jax(D):
         Ts = [normal(lead + (16 >> (n - j), 16 >> (n - j), 16), 5 + j)
               for j in range(1, n + 1)]
         near = normal(lead + (16, 16, 9), 9)
-        got = transfer.down(ts["m2m"], torch.as_tensor(L0),
+        got = transfer.down(ts["m2m_1d"], torch.as_tensor(L0),
                             [torch.as_tensor(T) for T in Ts], ts["l2t"],
                             torch.as_tensor(near))
         for d in range(D or 1):
@@ -139,71 +139,167 @@ def test_l2t_near_and_scale_plain_match_jax(D):
             assert rel(pick(got.numpy()), want) < TOL
 
 
-def coverage(p, j, down):
-    """How many times the blocks of phase p cover each box of the level j
-    below their top box (down) or j above their tile's finest level (up):
-    block (bx, by) owns a square of 2^(j or k - j) boxes there."""
-    n = 1 << (j if down else p.k - j)
-    cnt = np.zeros((p.ax * n, p.ay * n), dtype=int)
-    for bx in range(p.ax):
-        for by in range(p.ay):
-            cnt[bx * n:(bx + 1) * n, by * n:(by + 1) * n] += 1
+def up_coverage(p, lx, ly, n):
+    """How many times the up pass's launch p forms each box of each
+    offset s = 0..n above an (lx, ly) plane: a block its tile's boxes up
+    to offset t, then, above, the last of each parent's four children,
+    which takes the parent's ticket.  Returns the counts by offset and the
+    children each ticket counts."""
+    cnt = [np.zeros((lx >> s, ly >> s), dtype=int) for s in range(n + 1)]
+    for bx in range(p.gx):
+        for by in range(p.gy):
+            for s in range(p.t + 1):
+                w = 1 << (p.t - s)
+                cnt[s][bx * w:(bx + 1) * w, by * w:(by + 1) * w] += 1
+    children = []
+    for s in range(p.t + 1, n + 1):
+        kids = np.zeros((lx >> s, ly >> s), dtype=int)
+        for x in range(lx >> (s - 1)):
+            for y in range(ly >> (s - 1)):
+                kids[x >> 1, y >> 1] += 1
+        cnt[s] += kids > 0
+        children.append(kids)
+    return cnt, children
+
+
+def down_coverage(p, lx, ly, n):
+    """How many blocks of the down pass's launch p form each box of each
+    offset s = 0..n: the block of a tile forms its ancestors along its one
+    path from offset n to offset t, then its subtree, whose leaves it
+    finishes (epilogue)."""
+    cnt = [np.zeros((lx >> s, ly >> s), dtype=int) for s in range(n + 1)]
+    for bx in range(p.gx):
+        for by in range(p.gy):
+            for s in range(p.t, n + 1):
+                cnt[s][bx >> (s - p.t), by >> (s - p.t)] += 1
+            for s in range(p.t):
+                w = 1 << (p.t - s)
+                cnt[s][bx * w:(bx + 1) * w, by * w:(by + 1) * w] += 1
     return cnt
 
 
-# the shapes of chip_smoke.py's phases: bench / oracle64 (64^2), oracle128,
-# the 512^2 phases in f32 and the twin's f64, a sharded512 shard (256 x 128),
-# np6 (32^2, r 36), the np16 phase (16^2, r 256, f32 and its f64 twin) and
-# the card test's np 22 (8^2, r 484)
-PLANS = [(64, 64, 4, 16, 4), (128, 128, 5, 16, 4), (512, 512, 7, 16, 4),
-         (512, 512, 7, 16, 8), (256, 128, 7, 16, 4), (32, 32, 3, 36, 4),
-         (32, 32, 3, 36, 8), (16, 16, 2, 256, 4), (16, 16, 2, 256, 8),
-         (8, 8, 1, 484, 4)]
+# extents of chip_smoke.py's phases and of the card tests: bench / oracle64
+# (64^2), oracle128, 512^2 (also the (2, 3) mesh, on which 512^2 lives
+# whole), a sharded512 shard (256 x 128), the (1, 8) mesh's blocks at 512^2
+# (512 x 64, up to level 3) and at 32^2 (32 x 4, up to level 3), the
+# rectangles of the card tests (192 x 64), np6 (32^2), np16 (8^2, 16^2) and
+# the card test's np 22 (8^2)
+EXTENTS = [(64, 64, 4), (128, 128, 5), (512, 512, 7), (256, 128, 7),
+           (512, 64, 6), (32, 4, 2), (192, 64, 6), (32, 32, 3), (16, 16, 2),
+           (8, 8, 1), (16, 8, 0)]
+NPS = [2, 3, 4, 5, 6, 7, 16, 22, 32]
 
 
-@pytest.mark.parametrize("lx,ly,n,r,item", PLANS)
+def plan_cases():
+    """(lx, ly, n, r, item): every extent at np 2-7, the small grids (at
+    most 64^2 squares) at np 16, 22 and 32, in float32 and float64."""
+    for lx, ly, n in EXTENTS:
+        for np_cheb in NPS:
+            if np_cheb > 7 and lx * ly > 64 * 64:
+                continue
+            for item in (4, 8):
+                yield lx, ly, n, np_cheb * np_cheb, item
+
+
+@pytest.mark.parametrize("lx,ly,n,r,item", list(plan_cases()))
 def test_launch_plan_covers_every_box_once(lx, ly, n, r, item):
-    """Up from the leaf (level offset 0) to offset n, down back: each
-    launch's blocks cover every box of each of its levels once, the
-    launches chain level to level, and each fits a block's shared
-    memory."""
-    up = transfer.up_plan(lx, ly, n, r, item)
-    dn = transfer.down_plan(lx >> n, ly >> n, n, r, item)
-    assert [p.k for p in dn] == [p.k for p in reversed(up)]
-    s = 0
-    for p in up:
-        for j in range(p.k + 1):
-            cnt = coverage(p, j, down=False)
-            assert cnt.shape == (lx >> (s + j), ly >> (s + j))
-            assert (cnt == 1).all()
-        s += p.k
-    assert s == n
-    for p in dn:
-        assert (p.ax, p.ay) == (lx >> s, ly >> s)
-        for j in range(p.k + 1):
-            cnt = coverage(p, j, down=True)
-            assert cnt.shape == (lx >> (s - j), ly >> (s - j))
-            assert (cnt == 1).all()
-        s -= p.k
-    assert s == 0
-    for p in up + dn:
-        assert 0 <= p.k <= transfer.MAX_K
-        assert p.smem == transfer.tile_bytes(p.k, r, item)
-        assert p.smem <= transfer.SMEM_BLOCK
-    if r == 16:
-        # np 4: one launch a pass at 64^2 (4 levels), two at 512^2
-        assert len(up) == len(dn) == -(-n // transfer.MAX_K)
+    """One launch a pass; the up pass's blocks and tickets form every box
+    of every level once, each ticket counting four children; the down
+    pass's blocks form each leaf once and each coarser box once a block
+    beneath it; each launch fits a block's shared memory; a tile spans
+    more than one box only where MIN_BLOCKS blocks remain."""
+    nq = 9
+    for D in (1, 9):
+        (up,) = transfer.up_plan(lx, ly, n, r, nq, item)
+        (dn,) = transfer.down_plan(lx, ly, n, r, nq, item, D)
+        for p, blocks in ((up, up.gx * up.gy), (dn, dn.gx * dn.gy * D)):
+            assert 0 <= p.t <= min(n, transfer.MAX_T)
+            assert (p.gx << p.t, p.gy << p.t) == (lx, ly)
+            assert p.blocks == blocks
+            assert p.t == 0 or blocks >= transfer.MIN_BLOCKS
+            assert p.smem <= transfer.SMEM_BLOCK
+        cnt, children = up_coverage(up, lx, ly, n)
+        assert all((c == 1).all() for c in cnt)
+        assert all((k == 4).all() for k in children)
+        assert up.tickets == sum(k.size for k in children)
+        assert up.tickets <= transfer.TICKETS
+        for s, c in enumerate(down_coverage(dn, lx, ly, n)):
+            assert (c == (4 ** (s - dn.t) if s > dn.t else 1)).all()
+    assert up.smem == transfer.smem_bytes(False, up.t, r, nq, item,
+                                          up.staged)
+    assert dn.smem == transfer.smem_bytes(True, dn.t, r, nq, item, dn.staged,
+                                          n)
+    # from a level's M (up_from) and without the epilogue: nq = 0
+    for p in (transfer.up_plan(lx, ly, n, r, 0, item)
+              + transfer.down_plan(lx, ly, n, r, 0, item)):
+        assert not p.staged and p.smem <= transfer.SMEM_BLOCK
+    assert len(transfer.up_plan(lx, ly, n, r, 0, item)) == (n > 0)
 
 
 def test_launch_plan_is_cached_and_splits_large_r():
-    assert transfer.pass_plan(7, 16, 4) is transfer.pass_plan(7, 16, 4)
-    assert transfer.pass_plan(7, 16, 4) == (4, 3)
-    assert transfer.pass_plan(7, 16, 4, down=True) == (3, 4)
-    assert transfer.pass_plan(0, 16, 4) == (0,)
-    # np 16 in f64: a 16 x 16 tile (680 KB) does not fit; 8 x 8 does
-    assert transfer.max_k(256, 8) == 3
-    assert transfer.tile_bytes(3, 256, 8) <= transfer.SMEM_BLOCK
-    assert transfer.max_k(1024, 8) >= 1
+    """The plan is a cached pure function; at np 4 bench's 64^2 pass has at
+    least as many blocks as the card has SMs (132), tiles of 4 x 4 boxes
+    there and of 8 x 8 at 512^2; a large r takes smaller tiles (in float64
+    np 16 4 x 4, np 32 2 x 2) and reads the weights p2m_w / l2t in place
+    where they do not fit beside it (nq 144: deg 12); a plane that 2^n does
+    not divide raises."""
+    assert transfer.up_plan(256, 256, 6, 16, 9, 8)[0].t == 3
+    assert transfer.up_plan(256, 256, 6, 256, 9, 8)[0].t == 2
+    assert transfer.up_plan(256, 256, 6, 1024, 9, 8)[0].t == 1
+    for np_cheb, item in ((4, 4), (4, 8), (16, 4), (16, 8), (32, 8),
+                          (46, 4)):
+        _plan_is_cached_and_splits(np_cheb * np_cheb, item)
+
+
+def _plan_is_cached_and_splits(r, item):
+    up = transfer.up_plan(64, 64, 4, r, 9, item)
+    assert up is transfer.up_plan(64, 64, 4, r, 9, item)
+    assert transfer.down_plan(64, 64, 4, r, 9, item) is \
+        transfer.down_plan(64, 64, 4, r, 9, item)
+    if r == 16:
+        assert up[0].t == 2 and up[0].blocks == 256 >= 132
+        assert transfer.up_plan(512, 512, 7, r, 9, item)[0].t == 3
+        assert transfer.down_plan(64, 64, 4, r, 9, item)[0].blocks >= 132
+        assert transfer.up_plan(64, 64, 4, r, 9, item)[0].staged
+    (big,) = transfer.up_plan(8, 8, 1, r, 144, item)
+    assert big.smem <= transfer.SMEM_BLOCK
+    assert big.staged == (transfer.smem_bytes(False, big.t, r, 144, item,
+                                              True) <= transfer.SMEM_BLOCK)
+    with pytest.raises(ValueError):
+        transfer.up_plan(48, 64, 5, r, 9, item)
+    with pytest.raises(ValueError):
+        transfer.down_plan(64, 64, transfer.MAX_LEVELS, r, 9, item)
+
+
+@pytest.mark.parametrize("np_cheb", [2, 3, 4, 5, 6, 7, 16])
+def test_m2m_is_the_tensor_product_of_the_1d_transfer(np_cheb):
+    """The port's static carries m2m_1d (2, np, np); its tensor product is
+    JAX's m2m (aniso_tpu/fmm/cheb.py:m2m_tensor) to 1e-15, and the port's
+    two 1-D products (the plain M2M and L2L) equal JAX's einsums with m2m
+    to 1e-13."""
+    from aniso_tpu.fmm import cheb as j_cheb
+
+    from aniso_torch.fmm.cheb import m2m_from_1d
+
+    tc = t_apply.build_fmm_static(make_grid(8, 1), np_cheb, "cpu",
+                                  F64)["m2m_1d"].numpy()
+    m2m = np.asarray(j_cheb.m2m_tensor(np_cheb))
+    assert tc.shape == (2, np_cheb, np_cheb)
+    assert np.abs(m2m_from_1d(tc) - m2m).max() <= 1e-15 * np.abs(m2m).max()
+    r = np_cheb * np_cheb
+    child = normal((4, 2, r), np_cheb)
+    got = transfer.up_from_plain(torch.as_tensor(tc), torch.as_tensor(child),
+                                 1)[1]
+    c4 = jnp.asarray(child).reshape(2, 2, 1, 2, r)
+    want = jnp.einsum("hgac,xhygc->xya", jnp.asarray(m2m), c4,
+                      precision="highest")
+    assert rel(got.numpy(), want) < TOL
+    T = normal((2, 2, r), np_cheb + 1)
+    assert rel(transfer.down_plain(torch.as_tensor(tc),
+                                   torch.as_tensor(child[:1, :1]),
+                                   [torch.as_tensor(T)]),
+               jax_l2l_chain(jnp.asarray(m2m), jnp.asarray(child[:1, :1]),
+                             [jnp.asarray(T)])) < TOL
 
 
 @functools.lru_cache(maxsize=None)
@@ -223,8 +319,13 @@ def test_static_from_jax_equals_the_ports_own():
     got = convert.static_from_jax_numpy(
         {k: np.asarray(v) for k, v in js._fmm_static.items()}, "cpu", F64)
     assert sorted(got) == sorted(ts._fmm_static)
-    for key in ("p2m_w", "l2t", "m2m"):
+    for key in ("p2m_w", "l2t", "m2m_1d"):
         assert rel(got[key], ts._fmm_static[key]) < 1e-15
+    # JAX's m2m is refused where it is not the 1-D factor's product
+    bad = {k: np.asarray(v) for k, v in js._fmm_static.items()}
+    bad["m2m"] = bad["m2m"] * 1.001
+    with pytest.raises(ValueError, match="tensor product"):
+        convert.static_from_jax_numpy(bad, "cpu", F64)
     assert torch.equal(got["shift"], ts._fmm_static["shift"])
 
 
@@ -251,7 +352,9 @@ def test_np_limit_of_the_m2l_kernels(item, limit):
     r = limit * limit
     assert 27 * r * item <= m2l.MAX_ROW_BYTES < m2l.SMEM_BLOCK
     assert m2l.plan_one(2, 2, r, item).smem <= m2l.SMEM_BLOCK
-    assert transfer.max_k(r, item) >= 1
+    assert transfer.up_plan(8, 8, 1, r, 9, item)[0].smem <= m2l.SMEM_BLOCK
+    assert transfer.down_plan(8, 8, 1, r, 9, item, 9)[0].smem \
+        <= m2l.SMEM_BLOCK
     m2l.check_np(limit, dtype)
     with pytest.raises(ValueError, match=f"np up to {limit}"):
         m2l.check_np(limit + 1, dtype)

@@ -2,7 +2,7 @@
 (each kernel held against its plain version, then timed: median CUDA-event
 device time, cold L2) for several trees in one call.
 
-    python3 tools/kernel_ab.py [--root DIR ...] [--variants k1|k2|k10] \\
+    python3 tools/kernel_ab.py [--root DIR ...] [--variants k1|k2|k8|k10] \\
         [--only PREFIX,...] [--out FILE]
 
 The trees are each --root (default: this checkout; another one is, say, a
@@ -34,6 +34,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M2L_PY = "aniso_torch/kernels/m2l.py"
 NEAR_CU = "aniso_torch/csrc/near_contract.cu"
 HALO_CU = "aniso_torch/csrc/halo_fill.cu"
+TRANSFER_PY = "aniso_torch/kernels/transfer.py"
+TRANSFER_CU = "aniso_torch/csrc/transfer.cu"
 
 # group -> (source it launches, rows from (chip_smoke.Kernels, chip_smoke)):
 # the shapes of the paths that launch each kernel
@@ -90,6 +92,13 @@ GROUPS = {
     "k8d_f64_512": ("transfer.cu",
                     lambda k, cs: k.k8(512, 512, 7, "f64", D=9)),
     "k8s_f32": ("transfer.cu", lambda k, cs: k.k8(256, 128, 7, "f32")),
+    # K11: GMRES's CGS2 at restart 80, steps 0, 14 and 79, on the one-mode
+    # fields of bench / f64_64 (64^2, deg 3) and of refined512 / its twin
+    # (512^2)
+    **{f"k11_{inst}_{sz}": (
+        "krylov.cu", lambda k, cs, sz=sz, inst=inst: [
+            dict(k.k11(sz, inst, i), step=i) for i in (0, 14, 79)])
+       for inst in ("f32", "f64") for sz in (64, 512)},
     # K10: sharded512's u (w 1) and leaf M (w 2) exchanges, 8 shards
     "k10_f32": ("halo_fill.cu",
                 lambda k, cs: (k.k10("f32", 256, 128, cs.NQ, 1)
@@ -135,6 +144,14 @@ VARIANTS = {
         # ties to the longer runs (committed: to the shorter)
         "longer_runs": [(NEAR_CU, "SLOT * (int)sizeof(T));",
                          "SLOT * (int)sizeof(T)) + 0.01 * SLOT;")],
+    }),
+    "k8": (("k8",), {
+        # the most levels a block's tile spans (committed: 3, 8 x 8 leaf
+        # boxes), 2 or 4
+        "max_t_2": [(TRANSFER_PY, "MAX_T = 3 ", "MAX_T = 2 ")],
+        "max_t_4": [(TRANSFER_PY, "MAX_T = 3 ", "MAX_T = 4 "),
+                    (TRANSFER_CU, "constexpr int kMaxT = 3;",
+                     "constexpr int kMaxT = 4;")],
     }),
     "k10": (("k10",), {
         # an interior run's warps: half as many (one for each 4 x 32 x
