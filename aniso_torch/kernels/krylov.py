@@ -11,12 +11,18 @@ test (:154-156, :191-192), and the back-substitution that follows it
       The new basis vector also goes into u, the next step's matvec input.
   K12 (givens_step, givens_backsub): the Givens bookkeeping (:172-193,
       _givens :66-86) and, at a cycle's end, y from the leading i x i block.
+      On one device the Givens step is K11's epilogue (cgs2_givens: one
+      launch a step); givens_step alone serves the sharded route.  cgs2,
+      K11 without the epilogue, runs on no solver path: it serves to
+      measure K11 apart from the epilogue, and the tests.
 
 The CUDA kernels are csrc/krylov.cu; its header states the bound (bytes for
 K11, a launch's latency for K12) and the design (K11 one cooperative launch
 in three phases between grid barriers, fixed-order float64 sums, V read
-once where a block's chunk of it fits shared memory (cgs2_plan); K12 one
-thread).  The step's i, j,
+once where a block's chunk of it fits shared memory (cgs2_plan), block 0
+running the Givens step after the last barrier; K12's step alone one
+thread; the back-substitution one block, H's triangle in shared memory,
+32-column diagonal blocks solved on one warp).  The step's i, j,
 stopping flag, tolerances and H, s, cs, sn live in one float64 `state`
 tensor (state_layout); every kernel reads i, j and done from it and does
 nothing when the step is inactive (done, i = m or j > max_iter), so a
@@ -25,7 +31,8 @@ captured step can be replayed without the host looking.
 Wrappers: a state on the CPU takes the plain version (JAX's masked
 full-basis pass for K11, the bookkeeping in tensor operations for K12); a
 CUDA one launches the kernel or raises.  `launches` counts K11 launches per
-instance, `givens_launches` K12's two entries.
+instance (with or without the Givens epilogue), `givens_launches` K12's
+two entries of their own.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ SYMBOLS = {"f32": "aniso_cgs2_f32", "f64": "aniso_cgs2_f64"}
 _ARGTYPES = ((ctypes.c_void_p,) * 5
              + (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_int, ctypes.c_longlong)
-             + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+             + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
 _STATE_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
 THREADS = 512                   # K11's block (kThreads in the source)
 WARPS = THREADS // 32
@@ -189,10 +196,25 @@ def _num_sms(index: int) -> int:
 
 def cgs2(V, w, u, state) -> None:
     """K11 on V (m + 1, n), w (n) (left as w''), u (n), state: the step's
-    CGS2 in place."""
-    m = V.shape[0] - 1
+    CGS2 in place, the column into the state."""
     if state.device.type == "cpu":
         return cgs2_plain(V, w, u, state)
+    _launch_cgs2(V, w, u, state, givens=False)
+
+
+def cgs2_givens(V, w, u, state) -> None:
+    """One device's step after its matvec: K11 with K12's Givens step as its
+    epilogue, one launch (cgs2_plain, then givens_step_plain, on the
+    CPU)."""
+    m = V.shape[0] - 1
+    if state.device.type == "cpu":
+        cgs2_plain(V, w, u, state)
+        return givens_step_plain(state, m)
+    _launch_cgs2(V, w, u, state, givens=True)
+
+
+def _launch_cgs2(V, w, u, state, givens: bool) -> None:
+    m = V.shape[0] - 1
     inst = _cuda.instance("V", V)
     n = V.shape[1]
     _cuda.check_all(V.dtype, ("V", V, (m + 1, n)), ("w", w, (n,)),
@@ -209,7 +231,7 @@ def cgs2(V, w, u, state) -> None:
     fn = _cuda.load(SOURCE, symbol, _ARGTYPES)
     rc = fn(_cuda.ptr(V), _cuda.ptr(w), _cuda.ptr(u), _cuda.ptr(state),
             _cuda.ptr(part), part.numel(), n, m, plan.blocks, plan.chunk,
-            int(plan.resident), plan.stash, vec, plan.smem,
+            int(plan.resident), plan.stash, vec, int(givens), plan.smem,
             _cuda.stream(state.device))
     _cuda.raise_on_error(symbol, rc)
     launches[inst] += 1
@@ -280,7 +302,9 @@ def _check_state(state, m):
 
 
 def givens_step(state, m: int) -> None:
-    """K12: the active step's Givens bookkeeping, then i += 1, j += 1."""
+    """K12: the active step's Givens bookkeeping, then i += 1, j += 1, on
+    its own (the sharded route; one device folds it into K11,
+    cgs2_givens)."""
     if state.device.type == "cpu":
         return givens_step_plain(state, m)
     _check_state(state, m)
@@ -289,7 +313,9 @@ def givens_step(state, m: int) -> None:
 
 
 def givens_backsub(state, m: int) -> None:
-    """K12's cycle end: y from the leading i x i block of H and s."""
+    """K12's cycle end: y from the leading i x i block of H and s (one block,
+    H's triangle in shared memory, diagonal blocks of 32 columns on one
+    warp)."""
     if state.device.type == "cpu":
         return givens_backsub_plain(state, m)
     _check_state(state, m)

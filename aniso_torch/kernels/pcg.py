@@ -3,11 +3,12 @@ loop in one kernel launch.
 
 Replaces aniso_tpu/solver/dsa.py:pcg (:114-141), which the JAX package runs
 as one lax.while_loop on the device with its stopping test there too, with
-the diffusion stencil (K9d, kernels.diffusion) inside.  The CUDA kernel is
-csrc/pcg.cu; its header states the bound (bytes: p and the blocks' partial
-sums an iteration; in practice the latency of its grid barriers) and the
-design (one cooperative launch, the state in registers, deterministic grid
-sums that every block takes alike).
+the diffusion stencil (K9d, kernels.diffusion) inside.  The CUDA kernels
+are csrc/pcg.cu; its header states the bound (bytes: p and the blocks'
+partial sums an iteration; in practice the latency of its two barriers an
+iteration) and the design (the state in registers, deterministic sums
+across blocks that every block takes alike, the neighbours' p formed from
+their z and old p so that two barriers an iteration suffice).
 
     A z = sigma_a z - div(D grad z)   (the 5-point stencil of K9d)
     x = 0, r = b, z = r / diag, p = z
@@ -17,37 +18,59 @@ sums that every block takes alike).
 
 Layouts: b, diag, robin, sigma_a (sz, sz); Dx (sz-1, sz); Dy (sz, sz-1).
 
+Two instances, chosen before the launch by pcg_plan, a pure function of
+the grid, the dtype, the card's SMs and each instance's occupancy:
+"cluster", one thread-block cluster of at most MAX_CLUSTER blocks, each
+owning whole rows of the grid in its shared memory (the neighbours' rows
+through distributed shared memory), where one cluster holds the grid, the
+card can schedule it and the grid is no larger than CLUSTER_MAX_SZ; else
+"grid", one cooperative launch of as many blocks as the cells need, if the
+card holds them at once.  A grid neither holds raises.
+
 pcg takes pcg_plain for CPU tensors and launches the kernel for CUDA
 tensors (float32 or float64, by b's dtype); it returns (x, k), k a Python
 int from pcg_plain and a 0-d int32 tensor on the card from the kernel
-(nothing is read back inside the call).  A grid the card cannot hold at
-once in one cooperative launch raises.  `launches` counts kernel launches
-per instance.
+(nothing is read back inside the call).  `launches` counts kernel launches
+per instance and dtype ("cluster_f32", "grid_f64", ...).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
 from . import _cuda
 from .diffusion import diffusion_apply_plain
+from .m2l import SMEM_BLOCK
 
 SOURCE = "pcg.cu"
 SYMBOLS = {"f32": "aniso_pcg_f32", "f64": "aniso_pcg_f64"}
 BARRIER_SYMBOLS = {"f32": "aniso_pcg_barriers_f32",
                    "f64": "aniso_pcg_barriers_f64"}
-_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int, ctypes.c_void_p,
-                                       ctypes.c_int, ctypes.c_double,
-                                       ctypes.c_double, ctypes.c_double,
-                                       ctypes.c_int, ctypes.c_void_p))
-_BARRIER_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_void_p)
+OCCUPANCY_SYMBOLS = {"f32": "aniso_pcg_occupancy_f32",
+                     "f64": "aniso_pcg_occupancy_f64"}
+_ARGTYPES = ((ctypes.c_void_p,) * 10
+             + (ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_double, ctypes.c_double, ctypes.c_double)
+             + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
+_BARRIER_ARGTYPES = ((ctypes.c_void_p,) + (ctypes.c_int,) * 8
+                     + (ctypes.c_void_p,))
+_OCCUPANCY_ARGTYPES = (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 THREADS = 512                   # the kernel's block (kThreads in pcg.cu)
+CELLS = (1, 2, 4, 8, 16)        # cells a thread, the compiled instances
+MAX_CLUSTER = 16                # blocks a cluster (kMaxCluster in pcg.cu)
+# the largest grid side the cluster instance takes: the largest at which it
+# was timed against the grid instance on the same card and beat it
+# (tools/kernel_ab.py --variants k9; at 256^2 the grid's 128 blocks beat a
+# cluster of 16 at 8 cells a thread)
+CLUSTER_MAX_SZ = 128
+INSTANCE_CODES = {"grid": 0, "cluster": 1}    # pcg.cu's kGrid, kCluster
 
-launches = {"f32": 0, "f64": 0}
+launches = {f"{inst}_{dt}": 0
+            for inst in INSTANCE_CODES for dt in ("f32", "f64")}
 
 
 class PcgResult(NamedTuple):
@@ -83,10 +106,91 @@ def pcg_plain(b, diag, Dx, Dy, robin, sigma_a, dx: float, *,
     return PcgResult(x, k)
 
 
-def _partials(n: int) -> int:
-    """Values of the blocks' partial sums: three per block, at most one
-    block per THREADS cells."""
-    return 3 * -(-n // THREADS)
+class PcgPlan(NamedTuple):
+    """K9's launch on a sz x sz grid: the instance, `cells` cells a thread
+    (THREADS a block) and `blocks` blocks; the cluster instance is one
+    cluster of `blocks`, each owning `rows` whole rows of the grid (the
+    last one the rest) with `smem` bytes of dynamic shared memory: their z
+    and old p with a halo row on each side, and the ranks' partial
+    sums."""
+    instance: str       # "cluster" or "grid"
+    cells: int
+    blocks: int
+    rows: int           # cluster: grid rows a block; grid: 0
+    smem: int           # cluster: dynamic shared memory bytes; grid: 0
+
+
+def cluster_smem(rows: int, sz: int, item: int) -> int:
+    """The cluster instance's dynamic shared memory (pcg.cu's
+    cluster_smem): z and the old p of the block's rows and a halo row
+    above and below, then the ranks' three partial sums."""
+    return item * (2 * (rows + 2) * sz + 3 * MAX_CLUSTER)
+
+
+def pcg_plan(sz: int, item: int, sms: int,
+             occupancy: Callable[[str, int, int, int], int],
+             smem_max: int = SMEM_BLOCK) -> PcgPlan:
+    """The instance K9 takes for a sz x sz grid of `item`-byte values on a
+    card of `sms` SMs.  occupancy(instance, cells, blocks, smem): for
+    "cluster" the clusters of `blocks` blocks the card schedules at once
+    (0: none), for "grid" the blocks an SM holds at once.  Up to
+    CLUSTER_MAX_SZ, the cluster instance with the fewest cells a thread
+    whose whole rows make at most MAX_CLUSTER blocks, fit shared memory and
+    can be scheduled; else the
+    grid instance with the fewest cells a thread whose blocks the card
+    holds at once; else ValueError."""
+    if sz < 1:
+        raise ValueError(f"K9: a {sz} x {sz} grid")
+    for cells in CELLS if sz <= CLUSTER_MAX_SZ else ():
+        rows = min(sz, THREADS * cells // sz)
+        if rows < 1:
+            continue
+        blocks = -(-sz // rows)
+        smem = cluster_smem(rows, sz, item)
+        if (blocks <= MAX_CLUSTER and smem <= smem_max
+                and occupancy("cluster", cells, blocks, smem) > 0):
+            return PcgPlan("cluster", cells, blocks, rows, smem)
+    for cells in CELLS:
+        blocks = -(-sz * sz // (THREADS * cells))
+        if blocks <= occupancy("grid", cells, blocks, 0) * sms:
+            return PcgPlan("grid", cells, blocks, 0, 0)
+    raise ValueError(f"K9: a {sz} x {sz} grid fits neither one cluster nor "
+                     f"the blocks the card holds at once at {CELLS[-1]} "
+                     "cells a thread")
+
+
+def _occupancy(index: int, inst: str):
+    """occupancy() for pcg_plan from the card (pcg.cu's occupancy)."""
+    fn = _cuda.load(SOURCE, OCCUPANCY_SYMBOLS[inst], _OCCUPANCY_ARGTYPES)
+
+    @functools.lru_cache(maxsize=None)
+    def occ(instance: str, cells: int, blocks: int, smem: int) -> int:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = fn(INSTANCE_CODES[instance], cells, blocks, smem,
+                    ctypes.byref(out))
+        _cuda.raise_on_error(OCCUPANCY_SYMBOLS[inst], rc)
+        return out.value
+
+    return occ
+
+
+@functools.lru_cache(maxsize=None)
+def plan_on(index: int, sz: int, inst: str) -> PcgPlan:
+    """pcg_plan for card `index`, a sz x sz grid, dtype `inst`."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return pcg_plan(sz, 4 if inst == "f32" else 8, sms,
+                    _occupancy(index, inst))
+
+
+def _scratch(plan: PcgPlan, sz: int, dtype, device):
+    """The grid instance's z and old p buffers and its partial sums (three
+    a block); the cluster keeps them in shared memory."""
+    if plan.instance == "cluster":
+        return None, None, None
+    return (torch.empty((sz, sz), dtype=dtype, device=device),
+            torch.empty((sz, sz), dtype=dtype, device=device),
+            torch.empty(3 * plan.blocks, dtype=dtype, device=device))
 
 
 def pcg(b, diag, Dx, Dy, robin, sigma_a, dx: float, *, tol: float = 1e-8,
@@ -101,31 +205,37 @@ def pcg(b, diag, Dx, Dy, robin, sigma_a, dx: float, *, tol: float = 1e-8,
                     ("Dx", Dx, (sz - 1, sz)), ("Dy", Dy, (sz, sz - 1)),
                     ("robin", robin, (sz, sz)),
                     ("sigma_a", sigma_a, (sz, sz)))
+    plan = plan_on(b.device.index or 0, sz, inst)
     symbol = SYMBOLS[inst]
     fn = _cuda.load(SOURCE, symbol, _ARGTYPES)
     x = torch.empty_like(b)
-    p = torch.empty_like(b)
-    part = torch.empty(_partials(sz * sz), dtype=dt, device=b.device)
+    zb, pb, part = _scratch(plan, sz, dt, b.device)
     k = torch.empty((), dtype=torch.int32, device=b.device)
     rc = fn(_cuda.ptr(Dx), _cuda.ptr(Dy), _cuda.ptr(robin),
             _cuda.ptr(sigma_a), _cuda.ptr(diag), _cuda.ptr(b), _cuda.ptr(x),
-            _cuda.ptr(p), _cuda.ptr(part), part.numel(), _cuda.ptr(k), sz,
+            _cuda.ptr(zb), _cuda.ptr(pb), _cuda.ptr(part),
+            0 if part is None else part.numel(), _cuda.ptr(k), sz,
             1.0 / (dx * dx), 1.0 / dx, tol * tol, max_iter,
-            _cuda.stream(b.device))
+            INSTANCE_CODES[plan.instance], plan.cells, plan.blocks,
+            plan.rows, plan.smem, _cuda.stream(b.device))
     _cuda.raise_on_error(symbol, rc)
-    launches[inst] += 1
+    launches[f"{plan.instance}_{inst}"] += 1
     return PcgResult(x, k)
 
 
-def barrier_loop(n: int, iters: int, dtype, device) -> None:
-    """K9's loop skeleton alone (its block sums, grid sums and three grid
+def barrier_loop(sz: int, iters: int, dtype, device) -> None:
+    """K9's loop skeleton alone (its block sums, sums across blocks and two
     barriers an iteration, no stencil or vector update) for `iters`
-    iterations on the grid K9 takes for n cells: its time is the loop's
-    latency floor.  Not K9: it counts no launch."""
+    iterations in the instance and on the blocks K9 takes for a sz x sz
+    grid: its time is the loop's latency floor.  Not K9: it counts no
+    launch."""
     inst = _cuda.INSTANCES[dtype]
+    device = torch.device(device)
+    plan = plan_on(device.index or 0, sz, inst)
     symbol = BARRIER_SYMBOLS[inst]
     fn = _cuda.load(SOURCE, symbol, _BARRIER_ARGTYPES)
-    part = torch.empty(_partials(n), dtype=dtype, device=device)
-    rc = fn(_cuda.ptr(part), part.numel(), n, iters,
-            _cuda.stream(torch.device(device)))
+    part = _scratch(plan, sz, dtype, device)[2]
+    rc = fn(_cuda.ptr(part), 0 if part is None else part.numel(), sz,
+            INSTANCE_CODES[plan.instance], plan.cells, plan.blocks,
+            plan.rows, plan.smem, iters, _cuda.stream(device))
     _cuda.raise_on_error(symbol, rc)

@@ -43,7 +43,7 @@ import torch
 
 from ..fmm.apply import _up_pass, fmm_apply_mode
 from ..fmm.structure import coarsest_m2l_level
-from ..kernels.krylov import state_layout
+from ..kernels import krylov
 from ..kernels.m2l import m2l_translate
 from ..kernels.offsets import offsets_translate
 from ..kernels.transfer import down, up_from
@@ -229,6 +229,7 @@ class ShardedSpace:
         self.mesh = mesh
         first = mesh.local[0]
         self.device = mesh.devices[first]
+        self._i = 0                     # the cycle's steps since start
 
     def shaped(self, v):
         return v
@@ -252,18 +253,22 @@ class ShardedSpace:
         return ShardedBasis(self.mesh, parts)
 
     def start(self, V: ShardedBasis, u: Sharded, r: Sharded, beta):
-        """V[0] = r / beta; u views it."""
+        """V[0] = r / beta; u views it; the cycle's step count set to 0."""
+        self._i = 0
         for k in self.mesh.local:
             row = V.parts[k][0]
             torch.div(r.blocks[k], beta.to(row.device), out=row)
             u.blocks[k] = row
 
-    def cgs2(self, V: ShardedBasis, w: Sharded, u: Sharded, state, i: int):
-        """CGS2 of w against V[:i + 1] (i the host's count of the cycle's
-        steps: the host runs only active steps, reading each state at
-        once): V[i + 1] = w'' / |w''|, u made its view, the column h1 + h2,
-        |w''| written into the state."""
+    def cgs2_givens(self, V: ShardedBasis, w: Sharded, u: Sharded, state):
+        """CGS2 of w against V[:i + 1] (i this space's count of the cycle's
+        steps since start: the host runs only active steps, reading each
+        state at once): V[i + 1] = w'' / |w''|, u made its view, the column
+        h1 + h2, |w''| written into the state; then K12's Givens step on
+        its own."""
         local = self.mesh.local
+        i, self._i = self._i, self._i + 1
+        m = V.parts[local[0]].shape[0] - 1
         Vf = {k: V.parts[k].view(V.parts[k].shape[0], -1)[: i + 1]
               for k in local}
         wf = {k: w.blocks[k].reshape(-1) for k in local}
@@ -280,8 +285,9 @@ class ShardedSpace:
             row = V.parts[k][i + 1]
             torch.div(wf[k].view(row.shape), scale.to(row.device), out=row)
             u.blocks[k] = row
-        col = state_layout(V.parts[local[0]].shape[0] - 1).col
+        col = krylov.state_layout(m).col
         state[col:col + i + 2] = torch.cat([h1 + h2, wnorm[None]])
+        krylov.givens_step(state, m)
 
     def combine(self, V: ShardedBasis, y, i: int) -> Sharded:
         out = [None] * self.mesh.size

@@ -119,8 +119,8 @@ class DsaPreconditioner:
     h (N, sz, sz, nq) -> h with mode 0 replaced by h0 + prolong(theta z),
     where  (sigma_a - div D grad) z = sigma_s_bar * mean(h0).  It works in
     the solver's dtype on the solver's device, and copies nothing from the
-    host in a call, so a CUDA graph can capture it (K9's cooperative launch
-    included).
+    host in a call, so a CUDA graph can capture it (K9's launch, one
+    cluster or one cooperative grid, included).
 
     `calls` counts the calls since reset() (a solver's captured step adds
     its calls on each replay).  `cg_iterations` lists the CG iterations of

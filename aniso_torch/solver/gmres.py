@@ -18,11 +18,12 @@ The Krylov state lives on the field's device:
     field shape, and u, the matvec's input, which holds V[i];
   * i, j, the stopping flag, normb, tol, max_iter, H, s, cs and sn in one
     float64 tensor (kernels.krylov.state_layout).
-One Arnoldi step is w = A(u), then K11 (kernels.krylov.cgs2: CGS2, V[i+1]
-and u written, the column into the state) and K12 (givens_step: the
-rotations, s, H, the stopping test, i and j).  A step is active iff not
-done, i < restart and j <= max_iter; an inactive one changes neither V, u
-nor the state (its matvec runs and is wasted).
+One Arnoldi step is w = A(u), then the space's cgs2_givens: CGS2 (V[i+1]
+and u written, the column into the state) and the Givens step (the
+rotations, s, H, the stopping test, i and j); on one tensor both are one
+launch, K11 with K12's step as its epilogue (kernels.krylov.cgs2_givens).
+A step is active iff not done, i < restart and j <= max_iter; an inactive
+one changes neither V, u nor the state (its matvec runs and is wasted).
 
 On a CUDA tensor field the step is captured once into a torch.cuda.CUDAGraph
 (after one eager step outside the capture, which makes every first-use
@@ -56,7 +57,8 @@ the one a field brings with it (`krylov_space()`): a sharded field's
 (parallel.api.Sharded) keeps each shard's part of the basis on the shard's
 device, sums each CGS2 pass and each norm over the shards (JAX's "per-shard
 contraction + an (m+1)-scalar psum", aniso_tpu/solver/gmres.py:8-21), and
-runs its steps uncaptured; K12 runs on its copy of the column.  On the CPU
+runs its steps uncaptured; K12's step runs on its own, on its copy of
+the column.  On the CPU
 the same loop runs the kernels' plain versions, no graph.
 """
 
@@ -111,9 +113,11 @@ class TensorSpace:
         V[0] = r / beta
         u.copy_(V[0])
 
-    def cgs2(self, V, w, u, state, i: int):
-        """K11 (i comes from the state)."""
-        krylov.cgs2(V.view(V.shape[0], -1), w.reshape(-1), u.view(-1), state)
+    def cgs2_givens(self, V, w, u, state):
+        """The step after its matvec: K11 with K12's Givens step as its
+        epilogue, one launch (the step's i comes from the state)."""
+        krylov.cgs2_givens(V.view(V.shape[0], -1), w.reshape(-1),
+                           u.view(-1), state)
 
     def combine(self, V, y, i: int):
         """sum_k y[k] V[k] over the first i basis vectors (y on the
@@ -194,7 +198,7 @@ def _capture(plan: _Plan, step, counters) -> None:
     check can count its kernel nodes (raw_cuda_graph)."""
     dev = plan.state.device
     plan.state[DONE] = 1.0
-    step(0)
+    step()
     stats["steps"] += 1
     torch.cuda.synchronize(dev)
     before = [_get(h, k) for h, k in counters]
@@ -204,7 +208,7 @@ def _capture(plan: _Plan, step, counters) -> None:
     with torch.cuda.stream(side):
         graph.capture_begin()
         try:
-            step(0)
+            step()
         finally:
             graph.capture_end()
     graph.instantiate()
@@ -265,10 +269,8 @@ def gmres(
         plan.graph, plan.precond = None, precond
     V, u, st = plan.V, plan.u, plan.state
 
-    def step(i):
-        w = A(u)
-        space.cgs2(V, w, u, st, i)
-        krylov.givens_step(st, m)
+    def step():
+        space.cgs2_givens(V, A(u), u, st)
 
     counters = launch_counters() + list(counters)
     if space.capturable and plan.graph is None:
@@ -276,13 +278,13 @@ def gmres(
     if graphs is not None:
         graphs[key] = plan
 
-    def run(i):
+    def run():
         if plan.graph is not None:
             plan.graph.replay()
             _bump(counters, plan.delta)
             stats["replays"] += 1
         else:
-            step(i)
+            step()
         stats["steps"] += 1
 
     lookahead = _lookahead(plan)
@@ -307,7 +309,7 @@ def gmres(
         inner_done = False
         while not inner_done:
             if t < m and j + t <= max_iter:
-                run(t)
+                run()
                 pending.append(reader.post(st))
                 t += 1
                 if len(pending) <= lookahead:

@@ -38,11 +38,12 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
              64^2 deg 2 (dsa64): K1-D and K2-D f64 at D = 5, less than one
              chunk of modes, and the one-mode K2 f64 at 4 nodes per square;
            K9d (the DSA diffusion stencil) f32/f64 at 64^2, 128^2, 512^2;
-           K9 (the DSA CG, one launch a call) at dsa64's, demo128's and
-           dsa512's grids and dtypes on their medium and first right-hand
-           side, against pcg_plain (counts within 1, x within K9_TOL of
-           |x|), with its time per CG iteration and the barrier floor of
-           its loop; np 6 and 7: K3 f32/f64 at the np6 phase's fine levels,
+           K9 (the DSA CG, one launch a call: one cluster at dsa64's and
+           demo128's grids, one cooperative grid at dsa512's) at those
+           grids and dtypes on their medium and first right-hand side,
+           against pcg_plain (counts within 1, x within K9_TOL of |x|), with
+           the instance its plan took, its time per CG iteration and the
+           barrier floor of that instance's loop; np 6 and 7: K3 f32/f64 at the np6 phase's fine levels,
            K1-D f64 and K3-D f64 at demo128's twin shapes;
            K7 (the exact line integral, f64 arithmetic) at 16^2 and 64^2:
            the whole-matrix form (one launch, E once per unordered pair)
@@ -74,8 +75,13 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            and the column within TOL_KERNEL of their largest value; rows
            other than i + 1 untouched; an inactive step a no-op), timed
            beside its plain version and torch.mv(V[:i+1], w) (library_ms);
-           K12's step against givens_step_plain (1e-14) and its
-           back-substitution (1e-12), beside an empty launch's floor
+           the one-device step's launch, K11 with K12's Givens step as its
+           epilogue, against K11 alone then givens_step_plain (1e-14) and
+           against the two plain versions, timed beside K11 alone; K12's
+           step alone (the sharded route's) against givens_step_plain
+           (1e-14), beside an empty launch's floor, and its
+           back-substitution (1e-12) beside torch.linalg.solve_triangular
+           on the same triangle
   bench    bench.py's problem: 64^2, deg 3, g=0.95, np 4, f32, tol 1e-7,
            GMRES(80): set_coeff, matvec time, solve; 14 +- 1 iterations,
            true residual < 1e-5, K1/K2 launch counts = launches per matvec
@@ -194,15 +200,19 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
 Every solve of one device runs GMRES with its state on the card and its
 Arnoldi step (the matvec, K11, K12; the preconditioner and its K9 in the
 DSA runs) captured as a CUDA graph at the solver's first solve and
-replayed; the sharded phases step the same state uncaptured.  Each solve
+replayed (a captured 64^2 step: CAPTURED_STEP_64_NODES kernel nodes, no
+givens_kernel); the sharded phases step the same state uncaptured.  Each solve
 phase reports its gmres counts (steps, replays, cycles, solves, captures),
 host_reads, steps_after_done, graph_capture_s, and repeat_s, device_s /
 device_busy_share from the same solve repeated under torch.profiler (K9's
 device time there gives the DSA runs' precond_s); gates: the steps
 replayed but one eager step per capture, at most one step after
 convergence and iterations + 2 cycles + 2 host reads per inner solve,
-the matvecs the steps add up to, and K11 / K12 launches = steps (K12's
-back-substitution = cycles) beside every other launch count.  A replay
+the matvecs the steps add up to, and K11 launches = steps on one device,
+K12 step launches = steps sharded and 0 on one device, K12's
+back-substitution = cycles, K9's cluster instance = the preconditioner's
+calls on demo128 and dsa64 and its grid instance on dsa512, beside every
+other launch count.  A replay
 runs no Python, so its launches are counted by the capture's increments:
 each captured step's graph holds them family by family against its kernel
 nodes, read through the driver API (replay_launches); one of each call a
@@ -278,14 +288,17 @@ DSA64_ITERS = {(1, 0.0): {"plain": 18, "dsa": 7},
 # on, f64, tol 1e-12): 35 iterations, 4.18e-3 from the oracle
 ORACLE16_DENSE_ITERS = 35
 
-# the parent tree's (the port before K8 and K11 were redesigned: two K8
-# launches a 512^2 pass, six K11 launches a step) device kernels a 64^2
-# matvec, a replay of bench's captured step and a sharded512 matvec:
-# `python3 tools/kernel_counts.py --tree <parent>` on an NVIDIA H100 80GB
-# HBM3 at 700 W, device records only, as device_ms_per_call counts (PERF.md
+# the parent tree's (the port before K9 and K12 were redesigned: K11 and
+# K12's Givens step two launches a step) device kernels a 64^2 matvec, a
+# replay of bench's captured step and a sharded512 matvec: `python3
+# tools/kernel_counts.py --tree <parent>` on an NVIDIA H100 80GB HBM3 at
+# 700 W, device records only, as device_ms_per_call counts (PERF.md
 # section 5)
-PARENT_KERNELS = {"matvec_64": 8.0, "captured_step_64": 18.0,
-                  "sharded512_matvec": 121.0}
+PARENT_KERNELS = {"matvec_64": 8.0, "captured_step_64": 13.0,
+                  "sharded512_matvec": 105.0}
+# kernel nodes of bench's captured 64^2 step: the matvec's 8, K11 with the
+# Givens step as its epilogue, and the state's copies; no givens_kernel
+CAPTURED_STEP_64_NODES = 12
 
 
 def emit(obj):
@@ -755,7 +768,9 @@ class Kernels:
         iteration) against operations (30 a cell an iteration: the stencil
         17, three dot products 6, the four vector updates 7) at the type's
         peak; beside it the loop's barrier floor (kernels.pcg.barrier_loop
-        for the same k on the same grid)."""
+        for the same k on the same grid, in the same instance: two barriers
+        an iteration).  The row names the instance the plan took (one
+        cluster or one cooperative grid), its cells a thread and blocks."""
         from aniso_torch.solver.dsa import make_diffusion_apply
 
         torch, pcg = self.torch, self.pcg
@@ -786,13 +801,17 @@ class Kernels:
         flops = 30 * n * k
         bms, bby = bound_ms(nbytes, flops, inst)
         ms = event_ms(torch, run, reps=7, flush=self.flush)
-        floor = event_ms(torch, lambda: pcg.barrier_loop(n, k, dtype,
+        floor = event_ms(torch, lambda: pcg.barrier_loop(sz, k, dtype,
                                                          DEVICE),
                          reps=7, flush=self.flush)
+        plan = pcg.plan_on(torch.device(DEVICE).index or 0, sz, inst)
         return [{"max_abs_err": err, "max_abs_err_is": "relative 2-norm",
+                 "instance": plan.instance, "cells_a_thread": plan.cells,
+                 "blocks": plan.blocks,
                  "iterations": k, "iterations_plain": k_plain,
                  "max_iter": max_iter, "ms": ms,
                  "ms_per_cg_iteration": ms / k,
+                 "us_per_cg_iteration": 1e3 * ms / k,
                  "plain_ms": event_ms(torch, plain, reps=3, flush=self.flush,
                                       warmup=1),
                  "bytes": nbytes, "flops": flops, "bound_ms": bms,
@@ -828,7 +847,14 @@ class Kernels:
         w read once, V[i+1] and u written once, ((i + 1) + 3) n itemsize
         (operations: 8 (i + 1) n on the FP64 CUDA cores); beside it the
         bytes of CGS2 as the kernel does it, V read three times, (3 (i + 1)
-        + 8) n itemsize."""
+        + 8) n itemsize.  Then the one-device step's launch, K11 with K12's
+        Givens step as its epilogue (cgs2_givens), on a state with the
+        rotations and s of a seeded earlier cycle: against K11 alone then
+        givens_step_plain (the whole state to 1e-14: the same Givens
+        operations on the same column) and against cgs2_plain then
+        givens_step_plain (TOL_KERNEL on V[i+1] and the rotated column),
+        timed (fused_ms; each call on a fresh copy of the state, since a
+        step moves i) beside its plain pair (fused_plain_ms)."""
         torch, kr = self.torch, self.krylov
         n = sz * sz * nq
         V = self.rand((m + 1, n), inst, normal=True, seed=i)
@@ -879,17 +905,61 @@ class Kernels:
                "bytes_cgs2_three_reads": (3 * (i + 1) + 8) * n * item}
         row["bound_ms_cgs2_three_reads"] = bound_ms(
             row["bytes_cgs2_three_reads"], 0)[0]
+        st = self.krylov_state(m, i, j=i + 1)
+        fused = [V.clone(), w.clone(), torch.zeros_like(w), st.clone()]
+        alone = [V.clone(), w.clone(), torch.zeros_like(w), st.clone()]
+        plain = [V.clone(), w.clone(), torch.zeros_like(w), st.clone()]
+        kr.cgs2_givens(*fused)
+        kr.cgs2(*alone)
+        kr.givens_step_plain(alone[3], m)
+        kr.cgs2_plain(*plain)
+        kr.givens_step_plain(plain[3], m)
+        torch.cuda.synchronize()
+        err_alone = float((fused[3] - alone[3]).abs().max())
+        check(err_alone <= 1e-14 * float(alone[3].abs().max())
+              and all(torch.equal(a, b) for a, b in zip(fused[:3], alone[:3])),
+              f"{what}: the fused Givens step differs from K11 alone then "
+              f"givens_step_plain by {err_alone}")
+        err_f = float((fused[0][i + 1] - plain[0][i + 1]).abs().max())
+        err_fc = float((fused[3][col] - plain[3][col]).abs().max())
+        scale_fc = float(plain[3][col].abs().max())
+        check(err_f <= TOL_KERNEL[inst] * scale
+              and err_fc <= TOL_KERNEL[inst] * scale_fc,
+              f"{what}: the fused step's V[i+1] / column differ from the "
+              f"plain pair's by {err_f} / {err_fc}")
+        states = iter([st.clone() for _ in range(30)])
+        plains = iter([st.clone() for _ in range(10)])
+
+        def plain_pair():
+            fresh = next(plains)
+            kr.cgs2_plain(*want[:3], fresh)
+            kr.givens_step_plain(fresh, m)
+
+        row.update({
+            "fused_max_abs_err_column": err_fc,
+            "fused_max_abs_err_vs_k11_then_plain_givens": err_alone,
+            "fused_ms": event_ms(
+                torch, lambda: kr.cgs2_givens(got[0], got[1], got[2],
+                                              next(states)),
+                flush=self.flush),
+            "fused_plain_ms": event_ms(torch, plain_pair, reps=5,
+                                       flush=self.flush)})
         return row
 
     def k12(self, i, m=80):
-        """K12 at step i (restart m): the Givens step on a seeded state
-        against givens_step_plain (the whole state; gate 1e-14 of its
-        largest value: the same operations, each rounded alike) and the
-        back-substitution against givens_backsub_plain (1e-12: its sums in
-        another order).  Each timed call takes a fresh copy of the state
-        (a step moves i).  Beside it the floor of one empty one-block
-        launch (kernels.krylov.launch_floor).  Bound: bytes of the state
-        it reads and writes, (4 i + 22) x 8."""
+        """K12 at step i (restart m): the Givens step alone (the sharded
+        route's launch; one device folds it into K11, whose row times it
+        there) on a seeded state against givens_step_plain (the whole state;
+        gate 1e-14 of its largest value: the same operations, each rounded
+        alike) and the back-substitution of the i + 1 steps it leaves
+        against givens_backsub_plain (1e-12: its sums in another order).
+        Each timed step takes a fresh copy of the state (a step moves i).
+        Beside it the floor of one empty one-block launch
+        (kernels.krylov.launch_floor), and torch.linalg.solve_triangular on
+        the same (i + 1) x (i + 1) upper triangle and s, made contiguous
+        beforehand (backsub_library_ms; y within 1e-12 of the kernel's).
+        Bound: bytes of the state it reads and writes, (4 i + 22) x 8; the
+        back-substitution's, the triangle, s and y once."""
         torch, kr = self.torch, self.krylov
         st = self.krylov_state(m, i, j=i + 1)
         copies = [st.clone() for _ in range(60)]
@@ -908,9 +978,18 @@ class Kernels:
         scale_y = float(want[L.y:].abs().max())
         check(err_y <= 1e-12 * scale_y,
               f"K12 backsub i={i}: max err {err_y} of {scale_y}")
+        k = i + 1
+        Hk = kr.hessenberg(got, m)[:k, :k].contiguous()
+        sk = got[L.s:L.s + k].clone()[:, None]
+        lib = torch.linalg.solve_triangular(Hk, sk, upper=True)[:, 0]
+        err_lib = float((lib - got[L.y:L.y + k]).abs().max())
+        check(err_lib <= 1e-12 * scale_y,
+              f"K12 backsub i={i}: solve_triangular differs by {err_lib}")
         it = iter(copies)
         nbytes = (4 * i + 22) * 8
         bms, bby = bound_ms(nbytes, 6 * i + 20, "f64")
+        bs_bytes = (k * (k + 1) // 2 + 2 * k) * 8
+        bs_bms, bs_bby = bound_ms(bs_bytes, k * k, "f64")
         it_plain = iter([st.clone() for _ in range(8)])
         return {"i": i, "restart": m, "max_abs_err": err,
                 "max_abs_plain": scale, "backsub_max_abs_err": err_y,
@@ -926,6 +1005,12 @@ class Kernels:
                 "backsub_plain_ms": event_ms(
                     torch, lambda: kr.givens_backsub_plain(want, m), reps=5,
                     flush=self.flush),
+                "backsub_library_ms": event_ms(
+                    torch, lambda: torch.linalg.solve_triangular(
+                        Hk, sk, upper=True), flush=self.flush),
+                "backsub_k": k, "backsub_bytes": bs_bytes,
+                "backsub_bound_ms": bs_bms, "backsub_bound_by": bs_bby,
+                "backsub_library_max_abs_diff": err_lib,
                 "bytes": nbytes, "bound_ms": bms, "bound_by": bby}
 
     def k7(self, sz, nrows, reps=3, deg=3, f32=False):
@@ -1246,19 +1331,25 @@ def device_profile(torch, fn):
     # device activity only: a solve's host operators would multiply the
     # events the profiler then sorts on the host
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # idle time at both ends of the window, and a kernel of no counted
-        # family (left out of the results) first after the idle start: the
-        # profiler was seen to lose the record of the first kernel of a
-        # window (79 kernels seen for 10 matvecs of 8)
+        # idle time at both ends of the window, and kernels of no counted
+        # family (left out of the results) after the idle start and before
+        # the idle end: the profiler was seen to lose the record of the
+        # first kernel of a window (79 kernels seen for 10 matvecs of 8),
+        # and late in a whole run one or two more of a solve's (np16's and
+        # the sharded solves', whose first kernels are K8's), every run
         warm_up = torch.empty(1, dtype=torch.int8, device=DEVICE)
         warm_up.fill_(1)
         torch.cuda.synchronize()
         time.sleep(0.05)
-        warm_up.fill_(1)
+        for _ in range(WINDOW_PAD):
+            warm_up.fill_(1)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        for _ in range(WINDOW_PAD):
+            warm_up.fill_(1)
+        torch.cuda.synchronize()
         time.sleep(0.05)
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0
             and "FillFunctor<signed char>" not in e.key]
@@ -1271,7 +1362,8 @@ def device_profile(torch, fn):
 KERNEL_FUNCTIONS = {
     "k1": "m2l_translate_[a-z_]*kernel", "k2": "near_contract_kernel",
     "k3": "offsets_translate_kernel", "k9d": "diffusion_apply_kernel",
-    "k9": "pcg_kernel", "k10": "halo_fill_kernel", "k11": "cgs2_kernel",
+    "k9": "pcg_(cluster|grid)_kernel", "k10": "halo_fill_kernel",
+    "k11": "cgs2_kernel",
     "k12_step": "givens_kernel", "k12_backsub": "backsub_kernel",
     "k8": "transfer_(up|down)_kernel",
 }
@@ -1364,6 +1456,8 @@ def replay_launches(kern, s):
 # from run to run; every launch is held exactly against a graph's kernel
 # nodes besides (replay_launches, eager_launches)
 PROFILER_MISS_MAX = 2
+# kernels of no counted family at each end of a profiled solve's window
+WINDOW_PAD = 8
 
 
 def _value(holder, key):
@@ -1482,7 +1576,8 @@ def solve_device_time(torch, kern, out, fn, precond=None, solver=None,
           f"{what}: the profiler missed {out['profiler_missed']} launches, "
           f"more than {PROFILER_MISS_MAX}")
     if precond is not None:
-        k9 = sum(v for k, v in per.items() if "pcg_kernel" in k)
+        pat = re.compile(KERNEL_FUNCTIONS["k9"])
+        k9 = sum(v for k, v in per.items() if pat.search(k))
         cg = sum(precond.cg_iterations)
         out.update({"precond_s": k9 if per else None,
                     "precond_share_of_solve": k9 / wall if per else None,
@@ -1543,12 +1638,15 @@ def counted_solve(torch, kern, s, q, precond=None, warm=True):
 
 
 def gmres_launches(run, inst, sharded=False):
-    """K11 and K12 launches of a counted solve: K11 and K12's step once a
-    step (K11 on one device only: the sharded CGS2 is torch per shard),
-    K12's back-substitution once a cycle."""
+    """K11 and K12 launches of a counted solve: on one device K11, with
+    K12's Givens step as its epilogue, once a step and no K12 step of its
+    own; sharded, K12's step once a step (the sharded CGS2 is torch per
+    shard) and no K11; K12's back-substitution once a cycle."""
     g = run["gmres"]
-    out = {"k12_step": g["steps"], "k12_backsub": g["cycles"]}
-    if not sharded:
+    out = {"k12_backsub": g["cycles"]}
+    if sharded:
+        out["k12_step"] = g["steps"]
+    else:
         out[f"k11_{inst}"] = g["steps"]
     return out
 
@@ -2172,7 +2270,7 @@ def run_demo128(torch, kern):
             "k1_f32": n_levels * fast, "k2_f32": fast,
             "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
             "k3_f64": n_fine * sweeps,
-            "k9_f32": run.get("precond_calls", 0),
+            "k9_cluster_f32": run.get("precond_calls", 0),
             **k8_launches(s, fast, sweeps),
             **gmres_launches(run, "f32")})
     check(res_dsa.iterations < runs["plain"][0].iterations,
@@ -2233,7 +2331,7 @@ def run_dsa64(torch, kern):
             check_launches(what, run, {
                 "k1_f64": n_levels * run["matvecs"],
                 "k2_f64": run["matvecs"],
-                "k9_f64": run.get("precond_calls", 0),
+                "k9_cluster_f64": run.get("precond_calls", 0),
                 **k8_launches(s, run["matvecs"]),
                 **gmres_launches(run, "f64")})
         check(out["dsa"]["iterations"] <= out["plain"]["iterations"],
@@ -2306,7 +2404,7 @@ def run_dsa512(torch, kern):
             "k1_f32": n_levels * fast, "k2_f32": fast,
             "k1_f64": (n_levels - n_fine) * sweeps, "k2_f64": sweeps,
             "k3_f64": n_fine * sweeps,
-            "k9_f32": run.get("precond_calls", 0),
+            "k9_grid_f32": run.get("precond_calls", 0),
             **k8_launches(s, fast, sweeps),
             **gmres_launches(run, "f32")})
     dsa = out["dsa"]
@@ -2845,30 +2943,39 @@ def ptxas_usage(log, names):
 
 
 def k9_extra(row):
-    """K9's own numbers for the kernels line: its call's CG iterations,
-    time per iteration and the barrier floor beside them."""
-    return {k: row[k] for k in ("iterations", "ms_per_cg_iteration",
-                                "barrier_floor_ms",
+    """K9's own numbers for the kernels line: the instance its plan took,
+    its call's CG iterations, time per iteration and the barrier floor of
+    that instance beside them."""
+    return {k: row[k] for k in ("instance", "cells_a_thread", "blocks",
+                                "iterations", "ms_per_cg_iteration",
+                                "us_per_cg_iteration", "barrier_floor_ms",
                                 "barrier_floor_ms_per_iteration")}
 
 
 def krylov_line(name, kid, kry, sz, inst, launches, **extra):
-    """K11's kernels line: bench's (or f64_64's) field at step 14, every
-    step and 512^2 beside."""
+    """K11's kernels line: the one-device step's launch, K11 with the Givens
+    epilogue (fused_ms, against its plain pair), on bench's (or f64_64's)
+    field at step 14, K11 alone beside (cgs2_alone_ms), every step and
+    512^2 beside."""
     row = kry[sz, inst][14]
     big = kry[NORTH, inst]
     return {"name": name, "id": kid, "route": "cuda",
             "source": "aniso_torch/csrc/krylov.cu",
             "replaces": "aniso_tpu/solver/gmres.py:45",
+            "replaces_givens": "aniso_tpu/solver/gmres.py:172",
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for z, t in kry
                                if t == inst for r in kry[z, t].values()),
-            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms",
+            "ms": row["fused_ms"], "plain_ms": row["fused_plain_ms"],
+            "cgs2_alone_ms": row["ms"], "cgs2_alone_plain_ms": row["plain_ms"],
+            **{k: row[k] for k in ("bound_ms", "bound_by", "library_ms",
                                    "bound_ms_cgs2_three_reads")},
             "shapes": f"{sz}^2 deg 3 (n = {row['n']}), step 14, restart 80",
-            **{f"ms_i{i}": r["ms"] for i, r in kry[sz, inst].items()},
-            **{f"ms_512_i{i}": r["ms"] for i, r in big.items()},
+            **{f"ms_i{i}": r["fused_ms"] for i, r in kry[sz, inst].items()},
+            **{f"cgs2_alone_ms_i{i}": r["ms"]
+               for i, r in kry[sz, inst].items()},
+            **{f"ms_512_i{i}": r["fused_ms"] for i, r in big.items()},
+            **{f"cgs2_alone_ms_512_i{i}": r["ms"] for i, r in big.items()},
             **{f"bound_ms_512_i{i}": r["bound_ms"] for i, r in big.items()},
             **{f"library_ms_512_i{i}": r["library_ms"]
                for i, r in big.items()},
@@ -2923,10 +3030,11 @@ def main():
 
     # the kernels redesigned for the card: K1's one-mode kernel (its four
     # instances), K1-D and K3 at r = 16 (np 4), every K2, K10 and K8
-    # instance, K7's deg 3 instances and K11's eight: registers, spills and
-    # static shared memory
+    # instance, K7's deg 3 instances, every function of K11 / K12 and of K9
+    # (its cluster and grid instances, 1-16 cells a thread): registers,
+    # spills and static shared memory
     from aniso_torch.kernels import (
-        attenuation, halo, krylov, m2l, near, offsets, transfer,
+        attenuation, halo, krylov, m2l, near, offsets, pcg, transfer,
     )
     redesigned = ([row for src in (m2l.SOURCE, offsets.SOURCE)
                    for row in usage.get(src, [])
@@ -2939,16 +3047,19 @@ def main():
                   + [row for row in usage.get(attenuation.SOURCE, [])
                      if "ILi3E" in row["function"]]
                   + usage.get(transfer.SOURCE, [])
-                  + [row for row in usage.get(krylov.SOURCE, [])
-                     if "cgs2_kernel" in row["function"]])
+                  + usage.get(krylov.SOURCE, [])
+                  + usage.get(pcg.SOURCE, []))
     emit({"phase": "redesigned_kernels", "ptxas": redesigned})
-    # K8's two kernels and K11's one, compiled in both instances
-    for fam, src in (("k8", transfer.SOURCE), ("k11", krylov.SOURCE)):
-        pat = re.compile(KERNEL_FUNCTIONS[fam])
+    # K8's two kernels, K11's one and K9's two, compiled in both instances
+    for name, src in ((KERNEL_FUNCTIONS["k8"], transfer.SOURCE),
+                      (KERNEL_FUNCTIONS["k11"], krylov.SOURCE),
+                      ("pcg_cluster_kernel", pcg.SOURCE),
+                      ("pcg_grid_kernel", pcg.SOURCE)):
+        pat = re.compile(name)
         for inst in ("If", "Id"):          # float, double in the mangling
             check(any(pat.search(row["function"]) and inst in row["function"]
                       for row in usage.get(src, [])),
-                  f"{src}: no {KERNEL_FUNCTIONS[fam]} {inst} compiled")
+                  f"{src}: no {name} {inst} compiled")
 
     scratch = torch.empty(96 * 1024 * 1024 // 4, device=DEVICE)
 
@@ -3142,6 +3253,9 @@ def main():
           "sharded512_matvec": sh512["sharded_matvec_device_kernels"],
           **{"parent_" + k: v for k, v in PARENT_KERNELS.items()},
           **per_matvec})
+    check(bench["captured_step_kernels"] == CAPTURED_STEP_64_NODES,
+          f"bench's captured step holds {bench['captured_step_kernels']} "
+          f"kernel nodes, expected {CAPTURED_STEP_64_NODES}")
     # K8 is one launch a pass: the plan's count at bench's 64^2
     from aniso_torch.kernels import transfer
     plan64 = (len(transfer.up_plan(64, 64, 4, R, NQ, 4))
@@ -3292,15 +3406,18 @@ def main():
         # K9d's stencil runs inside it, so K9d is launched on no path
         kernel_line("pcg", "aniso_torch/csrc/pcg.cu",
                     "aniso_tpu/solver/dsa.py:114",
-                    demo["dsa"]["launches"]["k9_f32"], chk[DEMO, "k9_f32"],
+                    demo["dsa"]["launches"]["k9_cluster_f32"],
+                    chk[DEMO, "k9_f32"],
                     id="K9", shapes=f"demo128 DSA, {DEMO}^2 cells, one call",
                     **k9_extra(chk[DEMO, "k9_f32"][0]),
-                    launches_dsa512=dsa512["dsa"]["launches"]["k9_f32"],
-                    dsa512=k9_extra(chk[NORTH, "k9_f32"][0]),
+                    launches_dsa512=dsa512["dsa"]["launches"]["k9_grid_f32"],
+                    dsa512={**k9_extra(chk[NORTH, "k9_f32"][0]),
+                            "ms": chk[NORTH, "k9_f32"][0]["ms"],
+                            "bound_ms": chk[NORTH, "k9_f32"][0]["bound_ms"]},
                     max_abs_err_all_sizes=worst("k9_f32")),
         kernel_line("pcg_f64", "aniso_torch/csrc/pcg.cu",
                     "aniso_tpu/solver/dsa.py:114",
-                    sum(o["dsa"]["launches"]["k9_f64"] for o in dsa64),
+                    sum(o["dsa"]["launches"]["k9_cluster_f64"] for o in dsa64),
                     chk[DSA_SZ, "k9_f64"], id="K9 f64",
                     shapes=f"dsa64 DSA, {DSA_SZ}^2 cells, one call",
                     **k9_extra(chk[DSA_SZ, "k9_f64"][0]),
@@ -3409,8 +3526,8 @@ def main():
                 "aniso_tpu/fmm/apply.py:549", id="K8-down f64",
                 replaces_l2t="aniso_tpu/fmm/apply.py:707",
                 launches_mm512=mm["launches"]["k8_down_f64"]),
-        # the GMRES step (K11, K12): launches once a step of bench's solve
-        # (K12's back-substitution once a cycle); times at step 14 of a
+        # the GMRES step (K11 with K12's Givens step as its epilogue):
+        # launches once a step of bench's solve; times at step 14 of a
         # restart-80 cycle on bench's field, the other steps and sizes
         # beside; K11's library_ms is pass (a) alone, torch.mv
         krylov_line("cgs2", "K11", kry, 64, "f32",
@@ -3422,21 +3539,39 @@ def main():
                     launches_dsa64=sum(o[k]["launches"]["k11_f64"]
                                        for o in dsa64
                                        for k in ("plain", "dsa"))),
+        # K12's back-substitution, once a cycle: bench's cycle ends after 14
+        # steps (a 15 x 15 triangle), a full cycle's 80 x 80 beside, with
+        # torch.linalg.solve_triangular on the same triangle as library_ms
+        {"name": "givens_backsub", "id": "K12 back-substitution",
+         "route": "cuda", "source": "aniso_torch/csrc/krylov.cu",
+         "replaces": "aniso_tpu/solver/gmres.py:200",
+         "launches": bench["launches"]["k12_backsub"],
+         "launches_refined512": rl["k12_backsub"],
+         "max_abs_err": max(r["backsub_max_abs_err"] for r in k12.values()),
+         "ms": k12[14]["backsub_ms"], "plain_ms": k12[14]["backsub_plain_ms"],
+         "bound_ms": k12[14]["backsub_bound_ms"],
+         "bound_by": k12[14]["backsub_bound_by"],
+         "library_ms": k12[14]["backsub_library_ms"],
+         "shapes": "the 15 x 15 triangle of a cycle of 14 steps",
+         **{f"ms_k{i + 1}": k12[i]["backsub_ms"] for i in steps},
+         **{f"library_ms_k{i + 1}": k12[i]["backsub_library_ms"]
+            for i in steps},
+         **{f"bound_ms_k{i + 1}": k12[i]["backsub_bound_ms"] for i in steps}},
+        # K12's Givens step on its own: the sharded route's launch, once a
+        # step (one device runs it as K11's epilogue: fused_cost_ms)
         {"name": "givens", "id": "K12", "route": "cuda",
          "source": "aniso_torch/csrc/krylov.cu",
          "replaces": "aniso_tpu/solver/gmres.py:66",
-         "launches": bench["launches"]["k12_step"],
-         "launches_backsub": bench["launches"]["k12_backsub"],
+         "launches": sh512["launches"]["k12_step"],
+         "launches_bench": bench["launches"]["k12_step"],
          "launches_refined512": rl["k12_step"],
-         "launches_sharded512": sh512["launches"]["k12_step"],
          "max_abs_err": max(r["max_abs_err"] for r in k12.values()),
          **{k: k12[14][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "floor_ms", "backsub_ms",
-                                    "backsub_plain_ms")},
+                                    "floor_ms")},
          "library_ms": None, "shapes": "step 14 of a restart-80 cycle",
          **{f"ms_i{i}": k12[i]["ms"] for i in steps},
-         "backsub_max_abs_err": max(r["backsub_max_abs_err"]
-                                    for r in k12.values())},
+         **{f"fused_cost_ms_i{i}": kry[64, "f32"][i]["fused_ms"]
+            - kry[64, "f32"][i]["ms"] for i in steps}},
     ]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr, flush=True)

@@ -9,7 +9,10 @@ from a numpy seed:
     other row untouched, and a no-op when the step is inactive;
   * K12's plain step against JAX's bookkeeping (:172-193) fed the same
     column, in each of _givens' three branches: cs, sn, s, H, resid, done,
-    i and j to 1e-14 relative;
+    i and j to 1e-14 relative; its plain back-substitution against
+    scipy's triangular solve at k = 0, 1, 14, 79 and 80 (restart 80);
+  * the one-device step after the matvec (TensorSpace.cgs2_givens, one
+    launch on the card) bitwise cgs2_plain then givens_step_plain;
   * the whole gmres against JAX's: several restart cycles, max_iter reached
     mid-cycle, x0 given, converged at the first test, b = 0, a left
     preconditioner: iterations equal, x to 1e-12 and the residual to 1e-3
@@ -19,9 +22,12 @@ from a numpy seed:
   * the solver's plan cache: one plan with a preconditioner and one
     without, dropped by set_coeff and when a cache entry is replaced.
 JAX is imported inside the CPU tests only.  The tests marked `cuda` hold the
-kernels against the plain versions on the card, the captured step against
-the eager one, and the captures anew against the CPU solver (run them there with `python -m pytest
-tests/test_torch_gmres.py -m cuda --noconftest`).
+kernels against the plain versions on the card (K11 with the Givens
+epilogue against K11 alone then the plain step, and against both plain
+versions; the one-block back-substitution at k = 1, 15, 80 and, in
+panels, at restart 200), the captured step against the eager one, and
+the captures anew against the CPU solver (run them there with `python -m
+pytest tests/test_torch_gmres.py -m cuda --noconftest`).
 """
 
 import numpy as np
@@ -234,6 +240,63 @@ def test_backsub_plain_solves_the_leading_block():
     y = st[L.y:L.len].numpy()
     assert rel(y[:k], np.linalg.solve(H[:k, :k], s[:k])) < 1e-14
     assert not y[k:].any()
+
+
+def backsub_state(m, k, seed):
+    """A state after k steps of a restart-m cycle: an upper Hessenberg H
+    with a dominant diagonal (the Givens rotations leave it triangular in
+    its leading k x k block), s from a seed."""
+    rng = np.random.default_rng(seed)
+    st = make_state(m, k)
+    L = krylov.state_layout(m)
+    H = np.triu(rng.standard_normal((m + 1, m)), -1) + 4 * np.eye(m + 1, m)
+    krylov.hessenberg(st, m)[:] = torch.as_tensor(H)
+    st[L.s:L.cs] = torch.as_tensor(rng.standard_normal(m + 1))
+    return st, H
+
+
+@pytest.mark.parametrize("k", [0, 1, 14, 79, 80])
+def test_backsub_plain_matches_scipy(k):
+    """y[:k] = H[:k, :k]^-1 s[:k] from the upper triangle alone (the
+    subdiagonal the rotations zeroed is not read), y[k:] = 0, against
+    scipy.linalg.solve_triangular, restart 80."""
+    from scipy.linalg import solve_triangular
+
+    m = 80
+    st, H = backsub_state(m, k, 30 + k)
+    L = krylov.state_layout(m)
+    s = st[L.s:L.cs].numpy().copy()
+    krylov.givens_backsub(st, m)
+    y = st[L.y:L.len].numpy()
+    if k:
+        want = solve_triangular(H[:k, :k], s[:k], lower=False)
+        assert rel(y[:k], want) < 1e-13
+    assert not y[k:].any()
+
+
+@pytest.mark.parametrize("i", [0, 5, M - 1])
+def test_step_method_is_cgs2_then_givens(i):
+    """The one-device step after the matvec, TensorSpace.cgs2_givens (one
+    launch on the card), is on the CPU cgs2_plain then givens_step_plain,
+    bitwise: V, w, u and the whole state."""
+    V, w = cgs2_inputs(20 + i)
+    rng = np.random.default_rng(i)
+    st = make_state(M, i, j=i + 1)
+    L = krylov.state_layout(M)
+    ang = rng.uniform(0, 2 * np.pi, i)
+    st[L.cs:L.cs + i] = torch.as_tensor(np.cos(ang))
+    st[L.sn:L.sn + i] = torch.as_tensor(np.sin(ang))
+    st[L.s:L.s + i + 1] = torch.as_tensor(rng.standard_normal(i + 1))
+    got = [torch.as_tensor(V), torch.as_tensor(w),
+           torch.zeros(SHAPE, dtype=torch.float64), st]
+    want = [t.clone() for t in got]
+    space = t_gmres.TensorSpace(got[1])
+    space.cgs2_givens(got[0], got[1], got[2], got[3])
+    krylov.cgs2_plain(want[0].view(M + 1, -1), want[1].view(-1),
+                      want[2].view(-1), want[3])
+    krylov.givens_step_plain(want[3], M)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert want[3][krylov.I] == i + 1 and want[3][krylov.J] == i + 2
 
 
 # -- the whole solve --
@@ -514,6 +577,75 @@ def test_givens_kernel_matches_plain_on_card(cuda_device, i):
     krylov.givens_backsub(got, m)
     krylov.givens_backsub_plain(want, m)
     assert rel(got[L.y:].cpu(), want[L.y:].cpu()) < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64 * 64 * 9, 4099])   # 16-byte packs; not
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("i", [0, 14, 79])
+def test_cgs2_givens_kernel_matches_plain_on_card(cuda_device, dtype, i, n):
+    """K11 with K12's Givens step as its epilogue, one launch counted as
+    K11's and none as K12's: against K11 alone then givens_step_plain
+    (V, w, u bitwise; the state to 1e-14, the same Givens operations on the
+    same column) and against cgs2_plain then givens_step_plain (K11's
+    gate); an inactive step a no-op."""
+    m = 80
+    gen = torch.Generator(device=cuda_device).manual_seed(200 + i)
+    V = torch.randn((m + 1, n), generator=gen, dtype=dtype,
+                    device=cuda_device)
+    V /= torch.linalg.vector_norm(V, dim=1, keepdim=True)
+    w = torch.randn(n, generator=gen, dtype=dtype, device=cuda_device)
+    rng = np.random.default_rng(i)
+    L = krylov.state_layout(m)
+    st = make_state(m, i, j=i + 1)
+    ang = rng.uniform(0, 2 * np.pi, i)
+    st[L.cs:L.cs + i] = torch.as_tensor(np.cos(ang))
+    st[L.sn:L.sn + i] = torch.as_tensor(np.sin(ang))
+    st[L.s:L.s + i + 1] = torch.as_tensor(rng.standard_normal(i + 1))
+    H = np.triu(rng.standard_normal((m + 1, m)), -1) + 4 * np.eye(m + 1, m)
+    krylov.hessenberg(st, m)[:] = torch.as_tensor(H)
+    inputs = [V, w, torch.zeros_like(w), st.to(cuda_device)]
+    got, alone, plain = ([x.clone() for x in inputs] for _ in range(3))
+    inst = krylov._cuda.INSTANCES[dtype]
+    n0, g0 = krylov.launches[inst], dict(krylov.givens_launches)
+    krylov.cgs2_givens(*got)
+    assert krylov.launches[inst] == n0 + 1
+    assert krylov.givens_launches == g0
+    krylov.cgs2(*alone)
+    krylov.givens_step_plain(alone[3], m)
+    krylov.cgs2_plain(*plain)
+    krylov.givens_step_plain(plain[3], m)
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], alone[:3]))
+    assert rel(got[3].cpu(), alone[3].cpu()) < 1e-14
+    assert rel(got[0].cpu(), plain[0].cpu()) < _GATE[dtype]
+    assert torch.equal(got[2], got[0][i + 1])
+    assert rel(got[3].cpu(), plain[3].cpu()) < _GATE[dtype]
+    assert got[3][krylov.I] == i + 1 and got[3][krylov.J] == i + 2
+    done = make_state(m, i, done=1.0).to(cuda_device)
+    idle = [V.clone(), w.clone(), torch.zeros_like(w), done.clone()]
+    krylov.cgs2_givens(*idle)
+    assert torch.equal(idle[0], V) and torch.equal(idle[1], w)
+    assert not idle[2].any() and torch.equal(idle[3], done)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(80, 1), (80, 15), (80, 80), (200, 200)])
+def test_backsub_kernel_matches_plain_on_card(cuda_device, m, k):
+    """The one-block back-substitution against givens_backsub_plain
+    (1e-12 of y: the subtractions in another order) at k = 1, 15 and 80 of
+    restart 80 (H's triangle in shared memory at once) and at 200 of
+    restart 200 (two panels of columns); y[k:] = 0."""
+    st, _ = backsub_state(m, k, 40 + k)
+    L = krylov.state_layout(m)
+    got, want = st.to(cuda_device), st.to(cuda_device)
+    got[L.y:] = 7.0                           # every y entry is written
+    b0 = krylov.givens_launches["backsub"]
+    krylov.givens_backsub(got, m)
+    assert krylov.givens_launches["backsub"] == b0 + 1
+    krylov.givens_backsub_plain(want, m)
+    assert rel(got[L.y:].cpu(), want[L.y:].cpu()) < 1e-12
+    assert torch.equal(got[:L.y], want[:L.y])
+    assert not got[L.y + k:].any()
 
 
 @pytest.mark.cuda

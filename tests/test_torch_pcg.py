@@ -6,13 +6,19 @@ numpy seed, go through aniso_tpu.solver.dsa.pcg and the port's pcg at 1^2,
 8^2 and 16^2 cells in f64.  x agrees to 1e-12 of its maximum (the same f64
 recurrences, the stencil's adds in the same order), and the iteration count
 equals the count of JAX's loop recomputed here in numpy with JAX's stencil
-(JAX's pcg returns no count).  The tests marked `cuda` hold the kernel
+(JAX's pcg returns no count).  The launch plan (pcg_plan, a pure function
+of the grid, the dtype, the SMs and each instance's occupancy) is held on
+the CPU: the cluster instance is never chosen beyond one cluster's
+capacity, and a grid no instance holds raises.  The tests marked `cuda`
+hold both instances of the kernel (one cluster, one cooperative grid)
 against pcg_plain on the card (x within 1e-4 of |x| in float32 and 1e-10
 in float64, the counts within 1 in float64 and 15% in float32: the same
 loop, each operation rounded alike, its dot products summed in another
 order, which at tol 1e-8 moves where a float32 residual below the type's
-resolution crosses it) and skip without one; they import no JAX (run them on the
-card with `python -m pytest tests/test_torch_pcg.py -m cuda --noconftest`).
+resolution crosses it), and two replays of a captured call against the
+eager one, bitwise; they skip without a card and import no JAX (run them
+on the card with `python -m pytest tests/test_torch_pcg.py -m cuda
+--noconftest`).
 """
 
 import numpy as np
@@ -150,6 +156,98 @@ def test_pcg_refuses_mismatched_shapes_and_dtypes(bad):
         k9.pcg(*_meta(8), 0.125)
 
 
+# -- the launch plan --
+
+SMS = 132                       # an H100 SXM
+
+
+def occupancy_of(cluster_blocks=16, grid_per_sm=1):
+    """A card's occupancy for pcg_plan: clusters of up to `cluster_blocks`
+    blocks schedulable (one at a time), `grid_per_sm` blocks an SM."""
+    def occ(instance, cells, blocks, smem):
+        assert cells in k9.CELLS
+        if instance == "cluster":
+            return int(blocks <= cluster_blocks)
+        return grid_per_sm
+    return occ
+
+
+def check_plan(plan, sz, item, occ):
+    """The plan's invariants: its instance holds the grid."""
+    n = sz * sz
+    assert plan.cells in k9.CELLS
+    if plan.instance == "cluster":
+        assert sz <= k9.CLUSTER_MAX_SZ
+        assert 1 <= plan.blocks <= k9.MAX_CLUSTER
+        assert plan.rows * sz <= k9.THREADS * plan.cells
+        assert plan.blocks * plan.rows >= sz > (plan.blocks - 1) * plan.rows
+        assert plan.smem == k9.cluster_smem(plan.rows, sz, item)
+        assert plan.smem <= k9.SMEM_BLOCK
+        assert occ("cluster", plan.cells, plan.blocks, plan.smem) > 0
+    else:
+        assert plan.instance == "grid" and plan.rows == plan.smem == 0
+        assert plan.blocks * k9.THREADS * plan.cells >= n
+        assert (plan.blocks - 1) * k9.THREADS * plan.cells < n
+        assert plan.blocks <= occ("grid", plan.cells, plan.blocks, 0) * SMS
+
+
+@pytest.mark.parametrize("item", [4, 8])
+@pytest.mark.parametrize("sz", [1, 8, 64, 128, 256, 512])
+def test_pcg_plan_never_exceeds_a_cluster(sz, item):
+    """One cluster where it holds the grid up to CLUSTER_MAX_SZ (every size
+    the DSA paths solve below 512^2: dsa64's 64^2 in 8 blocks, demo128's
+    128^2 in 16), with the fewest cells a thread; the grid instance above
+    (256^2, which a cluster of 16 would hold at 8 cells a thread, and
+    512^2); and where clusters of 16 cannot be scheduled, or none at all,
+    the plan takes what can."""
+    occ = occupancy_of()
+    plan = k9.pcg_plan(sz, item, SMS, occ)
+    check_plan(plan, sz, item, occ)
+    want = {1: ("cluster", 1, 1), 8: ("cluster", 1, 1),
+            64: ("cluster", 1, 8), 128: ("cluster", 2, 16),
+            256: ("grid", 1, 128), 512: ("grid", 4, 128)}[sz]
+    assert (plan.instance, plan.cells, plan.blocks) == want
+    eight = occupancy_of(cluster_blocks=8)
+    plan8 = k9.pcg_plan(sz, item, SMS, eight)
+    check_plan(plan8, sz, item, eight)
+    if sz == 128:
+        assert (plan8.instance, plan8.cells, plan8.blocks) == ("cluster", 4,
+                                                               8)
+    none = occupancy_of(cluster_blocks=0)
+    plan0 = k9.pcg_plan(sz, item, SMS, none)
+    check_plan(plan0, sz, item, none)
+    assert plan0.instance == "grid"
+
+
+@pytest.mark.parametrize("item", [4, 8])
+def test_pcg_plan_raises_where_no_instance_holds(item):
+    """4096^2 cells fit no cluster and, at 16 cells a thread, more blocks
+    than the card holds; 512^2 on a card that holds no block of the grid
+    instance; an empty grid."""
+    with pytest.raises(ValueError, match="neither"):
+        k9.pcg_plan(4096, item, SMS, occupancy_of())
+    with pytest.raises(ValueError, match="neither"):
+        k9.pcg_plan(512, item, SMS, occupancy_of(grid_per_sm=0))
+    with pytest.raises(ValueError):
+        k9.pcg_plan(0, item, SMS, occupancy_of())
+
+
+def test_pcg_cluster_smem_matches_the_source():
+    """cluster_smem and the source's agree: z and the old p of the rows
+    with a halo row on each side, then the ranks' partial sums."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(k9.__file__), "..", "csrc",
+                            k9.SOURCE)).read()
+    body = re.search(r"inline int cluster_smem\(int rows, int sz, int item\)"
+                     r" \{\s*return ([^;]+);", src).group(1)
+    assert body == "item * (2 * (rows + 2) * sz + 3 * kMaxCluster)"
+    assert k9.cluster_smem(8, 128, 4) == 4 * (2 * 10 * 128 + 3 * 16)
+    assert re.search(r"kThreads = %d;" % k9.THREADS, src)
+    assert re.search(r"kMaxCluster = %d;" % k9.MAX_CLUSTER, src)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -172,19 +270,40 @@ _X_GATE = {torch.float32: 1e-4, torch.float64: 1e-10}
 _COUNT_GATE = {torch.float32: 0.15, torch.float64: 0.0}
 
 
+def force_instance(monkeypatch, instance):
+    """Make pcg plan `instance` wherever it holds the grid: the other one
+    reported as unschedulable."""
+    def plan_on(index, sz, inst):
+        real = k9._occupancy(index, inst)
+
+        def occ(which, cells, blocks, smem):
+            return real(which, cells, blocks, smem) if which == instance else 0
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        return k9.pcg_plan(sz, 4 if inst == "f32" else 8, sms, occ)
+    monkeypatch.setattr(k9, "plan_on", plan_on)
+
+
+# both instances where each holds the grid (no cluster holds 512^2)
+INSTANCE_SIZES = [(sz, inst) for sz in (8, 64, 128, 512)
+                  for inst in ("cluster", "grid")
+                  if not (sz == 512 and inst == "cluster")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("sz", [8, 64, 128, 512])
-def test_pcg_kernel_matches_plain_on_card(cuda_device, dtype, sz):
-    """K9 (one cooperative launch: 1 to 2 cells a thread at these sizes)
-    against pcg_plain on the same card tensors at the DSA preconditioner's
-    tol 1e-8 and dsa512's max_iter; the count stays on the card until
-    read."""
+@pytest.mark.parametrize("sz,instance", INSTANCE_SIZES)
+def test_pcg_kernel_matches_plain_on_card(cuda_device, monkeypatch, dtype,
+                                          sz, instance):
+    """K9 in each instance (one cluster of whole rows; one cooperative grid;
+    1 to 4 cells a thread at these sizes) against pcg_plain on the same
+    card tensors at the DSA preconditioner's tol 1e-8 and dsa512's
+    max_iter; the count stays on the card until read."""
+    force_instance(monkeypatch, instance)
     b, diag, st = _card_inputs(sz, dtype, cuda_device, seed=sz)
-    inst = _cuda.INSTANCES[dtype]
-    n0 = k9.launches[inst]
+    key = f"{instance}_{_cuda.INSTANCES[dtype]}"
+    n0 = dict(k9.launches)
     got = k9.pcg(b, diag, *st, tol=1e-8, max_iter=4000)
-    assert k9.launches[inst] == n0 + 1
+    assert k9.launches == {**n0, key: n0[key] + 1}
     assert isinstance(got.iterations, torch.Tensor)
     assert got.iterations.device.type == "cuda"
     want = k9.pcg_plain(b, diag, *st, tol=1e-8, max_iter=4000)
@@ -215,10 +334,83 @@ def test_pcg_kernel_stops_where_plain_does_on_card(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_pcg_grid_too_large_raises_on_card(cuda_device):
-    """4096^2 cells exceed 16 cells a thread of every block the card holds
-    at once: the cooperative launch is refused, with no smaller path."""
+    """4096^2 cells fit no cluster and exceed 16 cells a thread of every
+    block the card holds at once: the plan refuses the grid before any
+    launch, with no smaller path."""
     b, diag, st = _card_inputs(4096, torch.float32, cuda_device)
-    n0 = k9.launches["f32"]
-    with pytest.raises(RuntimeError):
+    n0 = dict(k9.launches)
+    with pytest.raises(ValueError, match="neither"):
         k9.pcg(b, diag, *st)
-    assert k9.launches["f32"] == n0
+    assert k9.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sz,instance,dtype", [
+    (64, "cluster", torch.float64), (64, "cluster", torch.float32),
+    (128, "cluster", torch.float32), (512, "grid", torch.float32)])
+def test_pcg_captured_replays_repeat_bitwise_on_card(cuda_device, sz,
+                                                     instance, dtype):
+    """A call captured into a CUDA graph, as the DSA step is (the cluster
+    launch by cudaLaunchKernelEx, the grid by the cooperative launch), at
+    the grids and dtypes of dsa64, demo128 and dsa512, replayed twice: x
+    and the count bitwise the eager call's, each replay the other's."""
+    b, diag, st = _card_inputs(sz, dtype, cuda_device, seed=7)
+    assert k9.plan_on(cuda_device.index or 0, sz,
+                      _cuda.INSTANCES[dtype]).instance == instance
+    eager = k9.pcg(b, diag, *st, tol=1e-8, max_iter=4000)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        got = k9.pcg(b, diag, *st, tol=1e-8, max_iter=4000)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(2):
+        got.x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got.x, eager.x)
+        assert int(got.iterations) == int(eager.iterations) > 0
+
+
+@pytest.mark.cuda
+def test_dsa_captured_step_replays_repeat_bitwise_on_card(cuda_device):
+    """dsa64's kind of solve (64^2, f64, sigma_s 20, g 0.5) preconditioned
+    by DSA: the Arnoldi step, the preconditioner's K9 (its cluster
+    instance) inside, captured as a CUDA graph at the first solve and
+    replayed at every step of the next two; the replayed solves' x and
+    counts bitwise the first's, their K9 calls' CG iterations alike (the
+    first solve also logs the eager step its capture runs)."""
+    from aniso_torch.core.config import SolverConfig
+    from aniso_torch.solver import gmres
+    from aniso_torch.solver.operator import TransportSolver
+
+    sz = 64
+    assert k9.plan_on(cuda_device.index or 0, sz, "f64").instance == \
+        "cluster"
+    s = TransportSolver(SolverConfig(
+        domain_size=sz, quad_rule=2, kernel_size=1, g=0.5, sing_rule=6,
+        np_cheb=4, dtype="float64", tol=1e-10, restart=80, max_iter=300),
+        backend="fmm", device="cuda")
+    g = s.grid
+    sig = np.full_like(g.nodes_x, 20.0)
+    s.set_coeff(sig, sig + 0.2)
+    q = np.exp(-25 * ((g.nodes_x - 0.5) ** 2 + (g.nodes_y - 0.5) ** 2))
+    pre = t_dsa.DsaPreconditioner(s)
+    runs = []
+    for _ in range(3):
+        pre.reset()
+        n0, r0 = k9.launches["cluster_f64"], gmres.stats["replays"]
+        res = s.solve(q, precond=pre)
+        torch.cuda.synchronize()
+        runs.append((res, pre.cg_iterations, gmres.stats["replays"] - r0,
+                     k9.launches["cluster_f64"] - n0))
+    first = runs[0][0]
+    assert first.converged
+    for res, cg, replays, launched in runs[1:]:
+        assert replays >= res.iterations > 0
+        assert launched >= replays
+        assert torch.equal(res.x, first.x)
+        assert res.iterations == first.iterations
+    assert runs[1][1] == runs[2][1] and max(runs[1][1]) > 0

@@ -2,8 +2,8 @@
 (each kernel held against its plain version, then timed: median CUDA-event
 device time, cold L2) for several trees in one call.
 
-    python3 tools/kernel_ab.py [--root DIR ...] [--variants k1|k2|k8|k10] \\
-        [--only PREFIX,...] [--out FILE]
+    python3 tools/kernel_ab.py [--root DIR ...] \\
+        [--variants k1|k2|k8|k9|k10] [--only PREFIX,...] [--out FILE]
 
 The trees are each --root (default: this checkout; another one is, say, a
 parent commit unpacked with `git archive` into a gitignored directory),
@@ -36,6 +36,7 @@ NEAR_CU = "aniso_torch/csrc/near_contract.cu"
 HALO_CU = "aniso_torch/csrc/halo_fill.cu"
 TRANSFER_PY = "aniso_torch/kernels/transfer.py"
 TRANSFER_CU = "aniso_torch/csrc/transfer.cu"
+PCG_PY = "aniso_torch/kernels/pcg.py"
 
 # group -> (source it launches, rows from (chip_smoke.Kernels, chip_smoke)):
 # the shapes of the paths that launch each kernel
@@ -99,6 +100,20 @@ GROUPS = {
         "krylov.cu", lambda k, cs, sz=sz, inst=inst: [
             dict(k.k11(sz, inst, i), step=i) for i in (0, 14, 79)])
        for inst in ("f32", "f64") for sz in (64, 512)},
+    # K9: one DSA preconditioner call at the grids and dtypes of dsa64
+    # (64^2 f64), demo128 (128^2 f32) and dsa512 (512^2 f32), and between
+    # them, where kernels/pcg.py's plan chooses between its instances; each
+    # row names the instance its tree's plan took (the parent has one)
+    **{f"k9_{inst}_{sz}": ("pcg.cu",
+                           lambda k, cs, sz=sz, inst=inst: k.k9(sz, inst))
+       for sz, inst in ((64, "f64"), (128, "f32"), (512, "f32"),
+                        (64, "f32"), (128, "f64"), (256, "f32"),
+                        (256, "f64"))},
+    # K12 at restart 80, steps 0, 14 and 79: the Givens step alone and the
+    # back-substitution of the steps it leaves (with
+    # torch.linalg.solve_triangular beside it where the tree times it)
+    "k12": ("krylov.cu",
+            lambda k, cs: [dict(k.k12(i), step=i) for i in (0, 14, 79)]),
     # K10: sharded512's u (w 1) and leaf M (w 2) exchanges, 8 shards
     "k10_f32": ("halo_fill.cu",
                 lambda k, cs: (k.k10("f32", 256, 128, cs.NQ, 1)
@@ -152,6 +167,14 @@ VARIANTS = {
         "max_t_4": [(TRANSFER_PY, "MAX_T = 3 ", "MAX_T = 4 "),
                     (TRANSFER_CU, "constexpr int kMaxT = 3;",
                      "constexpr int kMaxT = 4;")],
+    }),
+    "k9": (("k9_",), {
+        # the grid instance at every size (committed: one cluster up to
+        # CLUSTER_MAX_SZ), and the cluster wherever it holds the grid
+        "grid_only": [(PCG_PY, "if sz <= CLUSTER_MAX_SZ else ()",
+                       "if False else ()")],
+        "cluster_wherever_it_fits": [(PCG_PY, "if sz <= CLUSTER_MAX_SZ "
+                                      "else ()", "if True else ()")],
     }),
     "k10": (("k10",), {
         # an interior run's warps: half as many (one for each 4 x 32 x
