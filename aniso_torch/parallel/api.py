@@ -345,7 +345,7 @@ _TABLES = ("m2l_cosr", "near_cosrw", "near_static", "shift", "p2m_w", "l2t",
            "m2m_1d")
 
 
-def shard_pytree(mesh: Mesh, tree):
+def shard_pytree(mesh: Mesh, tree, release: bool = False):
     """Place a solver cache / mode-static tree in the port's layouts
     (aniso_tpu shard_pytree's counterpart; its dispatch is on the root key):
 
@@ -357,12 +357,14 @@ def shard_pytree(mesh: Mesh, tree):
       fields       (sz, sz, ...)             spatial dims 0, 1 (sigma_w,
                                              coeffs)
       the per-mode tables and anything not divisible: replicated.
+
+    release: move the arrays instead of copying them.  Largest first, each
+    array is placed and its entry in `tree` set to None at once, so that
+    the whole array is freed as soon as its shards exist (where nothing
+    else holds it): the peak is the tree and its largest array, not two
+    trees.  A replicated array on its own device is the same tensor.
     """
     def place(root, x):
-        if x is None:
-            return None
-        if isinstance(x, dict):
-            return {k: place(root or k, v) for k, v in x.items()}
         if root in _TABLES:
             return replicate(mesh, x)
         if root == "m2l_E":
@@ -377,7 +379,30 @@ def shard_pytree(mesh: Mesh, tree):
             return shard(mesh, x, dims)
         return replicate(mesh, x)
 
-    return place(None, tree)
+    slots = []        # per array: (its dict in tree, in the result, key, root)
+
+    def skeleton(src, root):
+        out = {}
+        for k, v in src.items():
+            if isinstance(v, dict):
+                out[k] = skeleton(v, root or k)
+            else:
+                out[k] = None
+                if v is not None:
+                    slots.append((src, out, k, root or k))
+        return out
+
+    def nbytes(slot):
+        x = slot[0][slot[2]]
+        return x.numel() * x.element_size()
+
+    placed = skeleton(tree, None)
+    slots.sort(key=nbytes, reverse=True)
+    for src, dst, k, root in slots:
+        dst[k] = place(root, src[k])
+        if release:
+            src[k] = None
+    return placed
 
 
 def _local(tree, mesh: Mesh, k: int):
@@ -521,7 +546,8 @@ def _sharded_apply(leaf, static, caches, ms, mode, u: Sharded):
     return Sharded(mesh, out)
 
 
-def sharded_solver(solver, mesh: Mesh, halo: str = "gspmd"):
+def sharded_solver(solver, mesh: Mesh, halo: str = "gspmd",
+                   release: bool = False):
     """Wrap a TransportSolver (fmm backend, after set_coeff) for mesh
     execution: (apply_fn, caches, mode_statics), where apply_fn(caches, ms,
     mode, u) is the corrected mode-m matvec on a Sharded field u (ms =
@@ -533,6 +559,12 @@ def sharded_solver(solver, mesh: Mesh, halo: str = "gspmd"):
     split); any other value raises ValueError, as in JAX.  Any mesh: what
     does not divide it is replicated, and a field that does not divide it
     at all (shard_field) is computed whole on each process.
+
+    release: move the solver's caches onto the mesh (shard_pytree's
+    release) instead of copying them, for a cache that the card holds once
+    but not twice (1024^2: 42 GB).  The solver then holds no cache, as
+    before set_coeff, and no captured step (whose reads held them), so
+    that each whole level is freed once its shards exist.
     """
     if halo not in ("gspmd", "shardmap"):
         raise ValueError(f"unknown halo mode {halo!r}")
@@ -540,7 +572,10 @@ def sharded_solver(solver, mesh: Mesh, halo: str = "gspmd"):
         raise ValueError("sharded_solver needs an fmm solver after "
                          "set_coeff")
     static = shard_pytree(mesh, solver._fmm_static)
-    caches = shard_pytree(mesh, solver._caches)
+    tree = solver._caches
+    if release:
+        solver._caches, solver._graphs, solver._graph_reads = None, {}, []
+    caches = shard_pytree(mesh, tree, release)
     mode_statics = [shard_pytree(mesh, ms) for ms in solver._mode_statics]
     apply_fn = functools.partial(_sharded_apply, solver._tcfg.leaf_level,
                                  static)

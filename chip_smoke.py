@@ -65,16 +65,22 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            leaf's L2T, near add and 1/2pi), at 64^2 (f32), at 512^2 (f32,
            f64), with D = 9 modes at 512^2 (f32, f64) and on one sharded512
            shard (f32, f64), with the plain version's summed device time by
-           the profiler as library_ms (the torch einsums K8 replaces).
+           the profiler as library_ms (the torch einsums K8 replaces);
+           at north1024's and sharded1024's shapes (f32): K1 at every
+           level of 1024^2 (its plain version in runs of box rows where E
+           passes 8 GB: the leaf's 29 GB hold 7.25e9 values, past 2^31),
+           K2 and K8 at 1024^2, K10, K1-S and K2-S on one of 8 shards of
+           512 x 256.
            Gates: max|kernel - plain| <= 1e-5 max|plain| in f32 (sums of
            432 to 729 terms, or K3's 27 atomic adds, in another order) and
            1e-12 max|plain| in f64
   krylov_vs_plain  the GMRES step's kernels at restart 80 and steps i = 0,
            14 and 79: K11 (CGS2) f32 and f64 on the one-mode fields of 64^2
-           and 512^2 (deg 3) against cgs2_plain (the new basis vector, u
-           and the column within TOL_KERNEL of their largest value; rows
-           other than i + 1 untouched; an inactive step a no-op), timed
-           beside its plain version and torch.mv(V[:i+1], w) (library_ms);
+           and 512^2, f32 on 1024^2's (deg 3) against cgs2_plain (the new
+           basis vector, u and the column within TOL_KERNEL of their
+           largest value; rows other than i + 1 untouched; an inactive step
+           a no-op), timed beside its plain version and torch.mv(V[:i+1],
+           w) (library_ms);
            the one-device step's launch, K11 with K12's Givens step as its
            epilogue, against K11 alone then givens_step_plain (1e-14) and
            against the two plain versions, timed beside K11 alone; K12's
@@ -188,6 +194,21 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            free localhost port, a 2 x 2 mesh of 4 shards on the card over
            it: one sharded matvec within 1e-6 of the one-device one and one
            all_reduce (the norm over the shards), then the group destroyed
+  north1024  BASELINE.json config 5 on one device: 1024^2, deg 3, g 0.5,
+           np 4, f32, tol 1e-7, GMRES(80), bench sigma and charge (JAX's
+           benchmarks/results_sharded_solve.json sz 1024): cold set_coeff,
+           the form of each M2L level (dense or per-offset, as the dense
+           budget gave it), the matvec's times and its roofline_summary
+           (aniso_torch.utils.roofline) beside the nvidia-smi line, the
+           counted solve, peak memory; 14 +- 1 iterations, true residual
+           < 1e-5, the launch gates, pct_hbm_peak <= 105
+  sharded1024  the same on sharded512's 2 x 4 mesh of 8 shards on the
+           card, the caches moved onto the mesh (sharded_solver(...,
+           release=True): 42 GB of them fit the card once, not twice):
+           placement time and peak, the sharded matvec within 1e-6 of the
+           one-device one, 14 +- 1 iterations, the true residual through
+           the sharded operator < 1e-5, the same launch and byte gates as
+           sharded512
   cli      `python -m aniso_torch run ...` in subprocesses in a temporary
            directory: oracle_64 on the FMM backend to tol 1e-10 and
            oracle_16 on the dense one, both with --compat-global-basis:
@@ -247,14 +268,12 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-# H100 SXM peaks for the operation bound: float32 outside the tensor cores,
-# float64 on the tensor cores (the card's fastest f64 rate; 34 TFLOP/s on
-# the CUDA cores)
-PEAK_FLOP_PER_S = {"f32": 67e12, "f64": 67e12}
-# float64 on the CUDA cores: K7's scalar multiply-adds (no matrix product
-# for the tensor cores)
-PEAK_F64_CUDA_CORES = 33.5e12
+# the H100's peaks and the least time of a piece of work, as the port's
+# matvec roofline counts it
+from aniso_torch.utils.roofline import (
+    HBM_BYTES_PER_S, PEAK_F64_CUDA_CORES, bound_ms, roofline_summary,
+)
+
 TOL_KERNEL = {"f32": 1e-5, "f64": 1e-12}
 # K7's float32 store (float64 arithmetic, each value rounded once to
 # float32: at most 2^-24 of the largest) against its float64 plain rows
@@ -272,6 +291,7 @@ DEVICE = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 R, NQ = 16, 9                    # np_cheb 4 everywhere; deg 3 but in demo128
 NORTH = 512                      # the north-star grid (BASELINE.json)
+BIG = 1024                       # BASELINE.json config 5 (north1024)
 DEMO = 128                       # demo.m's grid, deg 1 (one node per square)
 DSA_SZ = 64                      # benchmarks/dsa_bench.py's larger grid, deg 2
 NP6_LEVELS = [2, 3, 4, 5]        # the np6 phase's (32^2), the last 2 fine
@@ -337,14 +357,6 @@ def event_ms(torch, fn, reps=21, flush=None, warmup=3):
     return statistics.median(times)
 
 
-def bound_ms(nbytes, flops, inst="f32", peak=None):
-    """The least time for the work: bytes at the memory rate or operations
-    at the type's peak (or `peak`), whichever is longer, and which."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / (peak or PEAK_FLOP_PER_S[inst])
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def node_permutation(grid, pts):
     """Reference node order -> ours (the reference lists Gauss points
     centre-first, we list them ascending): compare by coordinates."""
@@ -355,6 +367,31 @@ def node_permutation(grid, pts):
     perm = np.empty(len(pts), dtype=int)
     perm[order_m] = order_r
     return perm
+
+
+# K1's plain version takes exp(-E) and its products whole up to this size
+# of E (the 512^2 leaf's 7.25 GB); beyond it (the 1024^2 leaf's 29 GB),
+# in runs of box rows (m2l_plain_in_runs)
+PLAIN_WHOLE_MAX_BYTES = 8 << 30
+
+
+def m2l_plain_in_runs(E, cosr, M, shift, run_bytes=2 << 30):
+    """K1's plain version (aniso_torch.kernels.m2l: the V-list gather, then
+    exp(-E) * cosr * g summed over (o, b), the classes interleaved) over
+    runs of box rows x, each run's temporaries about run_bytes: the same
+    values as m2l_translate_plain, concatenated along L's rows."""
+    import torch
+    from aniso_torch.kernels import m2l
+
+    one = cosr.dim() == 3
+    cosr = cosr[None] if one else cosr
+    g = m2l.vlist_gather(M, shift)
+    m2 = E.shape[1]
+    step = max(1, run_bytes // (E[:, :1].numel() * E.element_size()))
+    L = torch.cat([m2l._translate_gathered(E[:, x:x + step], cosr,
+                                           g[:, x:x + step])
+                   for x in range(0, m2, step)], dim=1)
+    return L[0] if one else L
 
 
 class Kernels:
@@ -462,10 +499,13 @@ class Kernels:
                           seed=seed + 2)
             item = E.element_size()
             nd = D or 1
+            plain = (m2l.m2l_translate_plain
+                     if E.numel() * item <= PLAIN_WHOLE_MAX_BYTES
+                     else m2l_plain_in_runs)
             row = self.compare(
                 f"K1 {inst} {sz}^2 level {level} D {D} np {np_cheb}", inst,
                 lambda: m2l.m2l_translate(E, cosr, M, self.shift),
-                lambda: m2l.m2l_translate_plain(E, cosr, M, self.shift),
+                lambda: plain(E, cosr, M, self.shift),
                 item * (E.numel() + cosr.numel() + (1 + nd) * M.numel())
                 + 4 * self.shift.numel(),
                 (2 + 2 * nd) * E.numel(),
@@ -2616,15 +2656,20 @@ def free_port() -> int:
     return port
 
 
-def sharded_solve(torch, kern, s, mesh, q, tol, restart=80, max_iter=400):
+def sharded_solve(torch, kern, s, mesh, q, tol, restart=80, max_iter=400,
+                  placed=None):
     """The sharded corrected matvec and a GMRES solve of u - K0(sigma_s u)
     = K0 q on Sharded fields (the JAX package's tests/test_parallel.py
     solve), with the counters set to 0 just before and read just after:
-    launches, collectives (parallel.halo), matvecs."""
+    launches, collectives (parallel.halo), matvecs.  placed: the
+    sharded_solver(s, mesh) triple, placed by the caller (default: placed
+    here).  The true residual is taken through the one-device operator,
+    or through the sharded one where the solver's caches were moved onto
+    the mesh (true_residual_operator says which)."""
     from aniso_torch.parallel import api, halo
     from aniso_torch.solver.gmres import gmres
 
-    apply_fn, caches, ms = api.sharded_solver(s, mesh)
+    apply_fn, caches, ms = placed or api.sharded_solver(s, mesh)
     sig = api.shard_field(mesh, s.sigma_s)
     u = api.shard_field(mesh, torch.as_tensor(q, dtype=s.dtype,
                                               device=DEVICE))
@@ -2667,12 +2712,17 @@ def sharded_solve(torch, kern, s, mesh, q, tol, restart=80, max_iter=400):
 
     solve_device_time(torch, kern, out, solve, eager=(eager_calls, ()))
     x = res.x.full()
-    # the true residual through the one-device operator
     qt = torch.as_tensor(q, dtype=s.dtype, device=DEVICE)
-    b1 = s.apply_mode(0, qt)
-    out["true_relative_residual"] = float(torch.linalg.vector_norm(
-        x - s.apply_mode(0, s.sigma_s * x) - b1)
-        / torch.linalg.vector_norm(b1))
+    if s._caches is not None:
+        out["true_residual_operator"] = "one-device"
+        b1 = s.apply_mode(0, qt)
+        r1 = x - s.apply_mode(0, s.sigma_s * x) - b1
+    else:
+        out["true_residual_operator"] = "sharded"
+        b1 = apply_fn(caches, ms[0], 0, u).full()
+        r1 = matvec(res.x).full() - b1
+    out["true_relative_residual"] = float(torch.linalg.vector_norm(r1)
+                                          / torch.linalg.vector_norm(b1))
     return res, out, x, (apply_fn, caches, ms)
 
 
@@ -2920,6 +2970,131 @@ def run_distributed1(torch, kern):
     return out
 
 
+def run_north1024(torch, kern, smi):
+    """BASELINE.json config 5 on one device: 1024^2, deg 3, g 0.5, np 4,
+    f32, tol 1e-7, GMRES(80), bench sigma and charge (9,437,184 nodes;
+    the JAX package's benchmarks/results_sharded_solve.json sz 1024
+    problem).  Cold set_coeff with its phases and cache_report, the form
+    dense_budget_bytes gave each M2L level (level_repr: dense, K1, or
+    per-offset, K3), the matvec's times, its roofline_summary on the H100
+    beside the card's nvidia-smi line, the counted solve, the true
+    residual and the peak memory.  Gates: 14 +- 1 iterations, true
+    residual < 1e-5, x finite, the launch gates of every solve phase (the
+    captured step's kernel nodes among them) and pct_hbm_peak <= 105 (a
+    miscount does not pass as speed).  Returns the solver and x for
+    sharded1024."""
+    from aniso_torch.utils.roofline import matvec_costs
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s = make_solver(torch, BIG, 0.5, False)
+    grid, tcfg = s.grid, s._tcfg
+    out = {"phase": "north1024", "sz": BIG, "g": 0.5, "tol": 1e-7,
+           "nodes": grid.n_nodes,
+           "set_coeff_s": timed_set_coeff(torch, s),
+           "set_coeff_phases_s": s.set_coeff_phases,
+           "cache_report_bytes": s.cache_report(),
+           "level_repr": matvec_costs(s)["level_repr"]}
+    out.update(matvec_timing(torch, s))
+    # the roofline of the matvec's device time (the profiler's), else of
+    # its CUDA-event time
+    t = out["matvec_device_ms"] or out["apply_ms"]
+    out["roofline"] = {"card": smi, "of": "matvec_device_ms"
+                       if out["matvec_device_ms"] else "apply_ms",
+                       **roofline_summary(s, t / 1e3)}
+    q = bench_charge(grid)
+    res, run = counted_solve(torch, kern, s, q)
+    out.update(run)
+    true_res = true_residual(torch, s, q, res.x)
+    x = res.x[0]
+    out.update({"iterations": res.iterations, "converged": res.converged,
+                "givens_estimate": res.residual,
+                "true_relative_residual": true_res,
+                "finite": bool(torch.isfinite(x).all()),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    emit(out)
+    check(out["finite"] and x.shape == (BIG, BIG, NQ), "north1024: bad x")
+    check(res.converged and true_res < 1e-5,
+          f"north1024: true residual {true_res}")
+    check(abs(res.iterations - 14) <= 1,
+          f"north1024: {res.iterations} iterations, expected 14 +- 1")
+    check(out["roofline"]["pct_hbm_peak"] <= 105,
+          f"north1024: {out['roofline']['pct_hbm_peak']}% of the memory "
+          "rate: the bytes are miscounted")
+    n_off = sum(v == "offsets" for v in out["level_repr"].values())
+    n_dense = len(out["level_repr"]) - n_off
+    n = run["matvecs"]
+    check_gmres("north1024", run, res.iterations, extra=1)
+    check_launches("north1024", out, {"k1_f32": n_dense * n,
+                                      "k2_f32": n, "k3_f32": n_off * n,
+                                      **k8_launches(s, n),
+                                      **gmres_launches(run, "f32")})
+    return s, out, x
+
+
+def run_sharded1024(torch, kern, s, x1):
+    """north1024's problem on the 2 x 4 mesh of 8 shards on the card (as
+    sharded512), its caches moved onto the mesh (sharded_solver's release:
+    the card holds the 42 GB of them once, not twice).  The one-device
+    matvec of the charge is taken before, and north1024's x kept.
+    Printed: placement_s, shard_copies_bytes (the memory placement added:
+    about 0 once moved; sharded512's copies add the whole caches),
+    placement_peak_bytes and the phase's peak_memory_bytes, the sharded
+    matvec's times.  Gates: the sharded matvec within 1e-6 of the
+    one-device one, 14 +- 1 iterations, the true residual (through the
+    sharded operator) < 1e-5, check_sharded_counts."""
+    from aniso_torch.parallel import api
+
+    qt = torch.as_tensor(bench_charge(s.grid), dtype=s.dtype, device=DEVICE)
+    ref = s.apply_mode(0, qt)
+    # the captured step and its basis (3.1 GB), which release drops too,
+    # dropped first: shard_copies_bytes is then what the shards add
+    s._graphs, s._graph_reads = {}, []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = api.make_mesh(devices=[DEVICE] * 8)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    placed = api.sharded_solver(s, mesh, release=True)
+    torch.cuda.synchronize()
+    out = {"phase": "sharded1024", "sz": BIG, "g": 0.5, "tol": 1e-7,
+           "mesh": list(mesh.shape), "release": True,
+           "placement_s": time.perf_counter() - t0,
+           "shard_copies_bytes": torch.cuda.memory_allocated() - before,
+           "placement_peak_bytes": torch.cuda.max_memory_allocated()}
+    apply_fn, caches, ms = placed
+    u = api.shard_field(mesh, qt)
+    got = apply_fn(caches, ms[0], 0, u).full()
+    out["matvec_rel_err"] = float(torch.linalg.vector_norm(got - ref)
+                                  / torch.linalg.vector_norm(ref))
+    del got
+    out["sharded_apply_ms"] = event_ms(
+        torch, lambda: apply_fn(caches, ms[0], 0, u))
+    (out["sharded_matvec_device_ms"],
+     out["sharded_matvec_device_kernels"]) = device_ms_per_call(
+        torch, lambda: apply_fn(caches, ms[0], 0, u))
+    res, run, x, _ = sharded_solve(torch, kern, s, mesh, bench_charge(s.grid),
+                                   1e-7, placed=placed)
+    out.update(run)
+    out.update({"x_rel_diff_vs_one_device": float(
+        torch.linalg.vector_norm(x - x1) / torch.linalg.vector_norm(x1)),
+        "finite": bool(torch.isfinite(x).all()),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    emit(out)
+    check(out["finite"] and x.shape == (BIG, BIG, NQ), "sharded1024: bad x")
+    check(out["matvec_rel_err"] < 1e-6,
+          f"sharded1024: matvec {out['matvec_rel_err']} from the one-device")
+    check(res.converged and abs(res.iterations - 14) <= 1,
+          f"sharded1024: {res.iterations} iterations, expected 14 +- 1")
+    check(out["true_relative_residual"] < 1e-5,
+          f"sharded1024: true residual {out['true_relative_residual']}")
+    check_sharded_counts("sharded1024", out, mesh, s,
+                         list(range(3, s._tcfg.leaf_level + 1)),
+                         s.grid.n_nodes * 4)
+    return out
+
+
 def ptxas_usage(log, names):
     """Per entry function of an nvcc -Xptxas -v log whose mangled name
     holds one of `names`: the function, its registers, its spill line and
@@ -2980,6 +3155,17 @@ def krylov_line(name, kid, kry, sz, inst, launches, **extra):
             **{f"library_ms_512_i{i}": r["library_ms"]
                for i, r in big.items()},
             **extra}
+
+
+def big_line(rows, launches, phase, tag=""):
+    """A kernels line's 1024^2 figures (BASELINE config 5): the rows' time,
+    plain version's time and bound summed over the levels one matvec runs,
+    the bound's kind, and the launches counted in `phase`'s run."""
+    t = Kernels.total(rows)
+    return {f"ms_1024{tag}": t["ms"], f"plain_ms_1024{tag}": t["plain_ms"],
+            f"bound_ms_1024{tag}": t["bound_ms"],
+            f"bound_by_1024{tag}": t["bound_by"],
+            f"launches_{phase}": launches}
 
 
 def kernel_line(name, source, replaces, launches, rows, **extra):
@@ -3173,7 +3359,22 @@ def main():
                                                  D=D)
         chk[NORTH, f"k8s_{inst}"] = kern.k8(*shard, 7, inst)
         torch.cuda.empty_cache()
-    for sz in sorted({8, 16, 32, 64, 128, DSA_SZ, DEMO, NORTH}):
+    # BASELINE config 5 (north1024, sharded1024; float32): K1 at every
+    # level of 1024^2 (the leaf's E holds 7.25e9 values, past 2^31), K2 and
+    # K8 at 1024^2; K10, K1-S (levels 3-10) and K2-S at one of
+    # sharded1024's 8 shards of 512 x 256
+    lv[BIG] = list(range(2, int(math.log2(BIG)) + 1))
+    chk[BIG, "k1_f32"] = kern.k1(BIG, "f32", lv[BIG])
+    torch.cuda.empty_cache()
+    chk[BIG, "k2_f32"] = kern.k2(BIG, "f32")
+    chk[BIG, "k8_f32"] = kern.k8(BIG, BIG, 8, "f32")
+    big_shard = (BIG // 2, BIG // 4)
+    chk[BIG, "k10_f32"] = (kern.k10("f32", *big_shard, NQ, 1)
+                           + kern.k10("f32", *big_shard, R, 2))
+    chk[BIG, "k1s_f32"] = kern.k1s(BIG, "f32", lv[BIG][1:])
+    chk[BIG, "k2s_f32"] = kern.k2s(*big_shard, "f32")
+    torch.cuda.empty_cache()
+    for sz in sorted({8, 16, 32, 64, 128, DSA_SZ, DEMO, NORTH, BIG}):
         emit({"phase": "kernels_vs_plain", "sz": sz,
               **{k: rows for (z, k), rows in chk.items() if z == sz}})
     # K11 at the one-mode fields of bench / f64_64 (64^2) and of refined512
@@ -3186,6 +3387,8 @@ def main():
         for inst in ("f32", "f64"):
             kry[sz, inst] = {i: kern.k11(sz, inst, i) for i in steps}
             torch.cuda.empty_cache()
+    kry[BIG, "f32"] = {i: kern.k11(BIG, "f32", i) for i in steps}
+    torch.cuda.empty_cache()
     k12 = {i: kern.k12(i) for i in steps}
     emit({"phase": "krylov_vs_plain",
           "k11": {f"{sz}_{inst}": rows for (sz, inst), rows in kry.items()},
@@ -3225,6 +3428,10 @@ def main():
     torch.cuda.empty_cache()
     sh64 = run_sharded64_compat(torch, kern)
     dist1 = run_distributed1(torch, kern)
+    torch.cuda.empty_cache()
+    s1024, north, x1024 = run_north1024(torch, kern, smi)
+    sh1024 = run_sharded1024(torch, kern, s1024, x1024)
+    del s1024, x1024
     torch.cuda.empty_cache()
     run_cli(torch)
 
@@ -3307,10 +3514,16 @@ def main():
                     ms_np5=Kernels.total(chk[64, "k1_f32_np5"])["ms"],
                     ms_np6=Kernels.total(chk[32, "k1_f32_np6"])["ms"],
                     launches_np6=np6["launches"]["k1_f32"],
+                    **big_line(chk[BIG, "k1_f32"], north["launches"]["k1_f32"],
+                               "north1024"),
+                    leaf1024_tb_per_s=chk[BIG, "k1_f32"][-1]["bytes"]
+                    / chk[BIG, "k1_f32"][-1]["ms"] / 1e9,
                     max_abs_err_all_sizes=worst("k1_f32")),
         kernel_line("near_contract", "aniso_torch/csrc/near_contract.cu",
                     "aniso_tpu/fmm/apply.py:577", bench["launches"]["k2_f32"],
                     chk[64, "k2_f32"][:1], shapes="bench 64^2",
+                    **big_line(chk[BIG, "k2_f32"], north["launches"]["k2_f32"],
+                               "north1024"),
                     max_abs_err_all_sizes=worst("k2_f32")),
         kernel_line("m2l_translate_f64", "aniso_torch/csrc/m2l_translate.cu",
                     "aniso_tpu/fmm/apply.py:317", rl["k1_f64"],
@@ -3346,6 +3559,7 @@ def main():
                     "aniso_tpu/fmm/apply.py:440",
                     leaf512["launches"]["k3_f32"], chk[NORTH, "k3_f32"][-1:],
                     shapes="offsets_leaf512, leaf level 9",
+                    launches_north1024=north["launches"]["k3_f32"],
                     max_abs_err_all_sizes=worst("k3_f32")),
         # the all-modes instances (D = 9 modes of one charge per launch):
         # times at demo128's shapes, launches from its plain refined solve;
@@ -3487,6 +3701,9 @@ def main():
                     copy_ms_f64=sum(r["copy_ms"]
                                     for r in chk[NORTH, "k10_f64"]),
                     launches_sharded64=sh64["launches"]["k10_f32"],
+                    **big_line(chk[BIG, "k10_f32"],
+                               sh1024["launches"]["k10_f32"], "sharded1024",
+                               "_shard"),
                     bitwise=True, max_abs_err_all_sizes=worst("k10_f32")),
         kernel_line("m2l_translate_shard", "aniso_torch/csrc/m2l_translate.cu",
                     "aniso_tpu/parallel/halo.py:106",
@@ -3496,6 +3713,9 @@ def main():
                     bound_ms_f64=Kernels.total(chk[NORTH, "k1s_f64"])[
                         "bound_ms"],
                     launches_sharded64=sh64["launches"]["k1_shard_f32"],
+                    **big_line(chk[BIG, "k1s_f32"],
+                               sh1024["launches"]["k1_shard_f32"],
+                               "sharded1024", "_shard"),
                     max_abs_err_all_sizes=worst("k1s_f32")),
         kernel_line("near_contract_shard", "aniso_torch/csrc/near_contract.cu",
                     "aniso_tpu/parallel/halo.py:56",
@@ -3505,6 +3725,9 @@ def main():
                     ms_compat=chk[NORTH, "k2s_f32"][1]["ms"],
                     ms_f64=chk[NORTH, "k2s_f64"][0]["ms"],
                     launches_sharded64=sh64["launches"]["k2_shard_f32"],
+                    **big_line(chk[BIG, "k2s_f32"][:1],
+                               sh1024["launches"]["k2_shard_f32"],
+                               "sharded1024", "_shard"),
                     max_abs_err_all_sizes=worst("k2s_f32")),
         # K8: the up pass (P2M, M2M) and the down pass (L2L, L2T, near add,
         # 1/2pi), launches from bench's solve (f32) and refined512's twin
@@ -3512,13 +3735,21 @@ def main():
         k8_line("transfer_up", "f32", "up", bench["launches"]["k8_up_f32"],
                 "aniso_tpu/fmm/apply.py:141", id="K8-up",
                 launches_sharded512=sh512["launches"]["k8_up_f32"],
-                launches_np16=np16["launches"]["k8_up_f32"]),
+                launches_np16=np16["launches"]["k8_up_f32"],
+                launches_sharded1024=sh1024["launches"]["k8_up_f32"],
+                library_ms_1024=chk[BIG, "k8_f32"][0]["library_ms"],
+                **big_line(chk[BIG, "k8_f32"][:1],
+                           north["launches"]["k8_up_f32"], "north1024")),
         k8_line("transfer_down", "f32", "down",
                 bench["launches"]["k8_down_f32"],
                 "aniso_tpu/fmm/apply.py:549", id="K8-down",
                 replaces_l2t="aniso_tpu/fmm/apply.py:707",
                 launches_sharded512=sh512["launches"]["k8_down_f32"],
-                launches_mm512=mm["launches"]["k8_down_f32"]),
+                launches_mm512=mm["launches"]["k8_down_f32"],
+                launches_sharded1024=sh1024["launches"]["k8_down_f32"],
+                library_ms_1024=chk[BIG, "k8_f32"][1]["library_ms"],
+                **big_line(chk[BIG, "k8_f32"][1:],
+                           north["launches"]["k8_down_f32"], "north1024")),
         k8_line("transfer_up_f64", "f64", "up", rl["k8_up_f64"],
                 "aniso_tpu/fmm/apply.py:141", id="K8-up f64",
                 launches_np16=np16["launches"]["k8_up_f64"]),
@@ -3533,7 +3764,12 @@ def main():
         krylov_line("cgs2", "K11", kry, 64, "f32",
                     bench["launches"]["k11_f32"],
                     launches_refined512=rl["k11_f32"],
-                    launches_demo128=dl["k11_f32"]),
+                    launches_demo128=dl["k11_f32"],
+                    launches_north1024=north["launches"]["k11_f32"],
+                    **{f"{k}_1024_i{i}": r[k]
+                       for i, r in kry[BIG, "f32"].items()
+                       for k in ("fused_ms", "ms", "bound_ms",
+                                 "library_ms")}),
         krylov_line("cgs2_f64", "K11 f64", kry, 64, "f64",
                     f64["launches"]["k11_f64"],
                     launches_dsa64=sum(o[k]["launches"]["k11_f64"]
@@ -3547,6 +3783,7 @@ def main():
          "replaces": "aniso_tpu/solver/gmres.py:200",
          "launches": bench["launches"]["k12_backsub"],
          "launches_refined512": rl["k12_backsub"],
+         "launches_north1024": north["launches"]["k12_backsub"],
          "max_abs_err": max(r["backsub_max_abs_err"] for r in k12.values()),
          "ms": k12[14]["backsub_ms"], "plain_ms": k12[14]["backsub_plain_ms"],
          "bound_ms": k12[14]["backsub_bound_ms"],
@@ -3565,6 +3802,7 @@ def main():
          "launches": sh512["launches"]["k12_step"],
          "launches_bench": bench["launches"]["k12_step"],
          "launches_refined512": rl["k12_step"],
+         "launches_sharded1024": sh1024["launches"]["k12_step"],
          "max_abs_err": max(r["max_abs_err"] for r in k12.values()),
          **{k: k12[14][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "floor_ms")},

@@ -19,6 +19,8 @@ whole; every mesh make_mesh builds for 3-32 devices.
 """
 
 import functools
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -353,3 +355,72 @@ def test_sharded_gmres_on_any_mesh_matches_one_device(shape):
                 restart=30, max_iter=60, tol=1e-10)
     assert res.converged and res.iterations == ref.iterations
     assert rel(res.x.full(), ref.x) < 1e-8
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)])
+def test_release_moves_the_caches_onto_the_mesh(shape):
+    """sharded_solver(..., release=True) places the blocks that the default
+    copies, so its matvec is bitwise the same, and leaves no whole level
+    referenced: after a solve (whose step's reads hold every cache tensor)
+    the solver keeps no cache and no captured step, each whole array that
+    was sharded is freed, and one that is replicated is the placed tree's
+    own copy on its device."""
+    s = TransportSolver(SolverConfig(**config(16)), backend="fmm",
+                        device="cpu")
+    s.set_coeff(*sigma(s.grid))
+    g = s.grid
+    s.solve(np.exp(-25 * ((g.nodes_x - 0.5) ** 2 + (g.nodes_y - 0.5) ** 2)))
+    assert s._graph_reads
+    mesh = cpu_mesh(shape)
+    u = api.shard_field(mesh, seeded(g, 2))
+    apply_fn, caches, ms = api.sharded_solver(s, mesh)
+    want = apply_fn(caches, ms[0], 0, u).full()
+    del apply_fn, caches, ms
+    whole = {("m2l_E", lv): weakref.ref(E)
+             for lv, E in s._caches["m2l_E"].items()}
+    whole.update({(k, None): weakref.ref(s._caches[k])
+                  for k in ("near_E", "sigma_w")})
+    apply_fn, caches, ms = api.sharded_solver(s, mesh, release=True)
+    gc.collect()
+    assert s._caches is None and s._graphs == {} and s._graph_reads == []
+    replicated = set()
+    for (key, lv), ref in whole.items():
+        placed = caches[key] if lv is None else caches[key][lv]
+        if isinstance(placed, Replicated):
+            replicated.add(lv)
+            assert ref() is placed.on(torch.device("cpu"))
+        else:
+            assert isinstance(placed, Sharded) and ref() is None, (key, lv)
+    # level 2's (2, 2) parity planes divide a 2 x 2 mesh, not a 2 x 4 one
+    assert replicated == (set() if shape == (2, 2) else {2})
+    assert torch.equal(apply_fn(caches, ms[0], 0, u).full(), want)
+    with pytest.raises(RuntimeError, match="set_coeff"):
+        s.apply_mode(0, seeded(g))
+
+
+def test_shard_pytree_release_empties_the_tree_largest_first(monkeypatch):
+    """release places the largest array first and sets each entry of the
+    tree to None once it is placed; the placed tree equals the copy."""
+    s = port_solver(16)
+    mesh = cpu_mesh((2, 2))
+    tree = {"near_E": s._caches["near_E"], "sigma_w": s._caches["sigma_w"],
+            "m2l_E": dict(s._caches["m2l_E"]), "none": None}
+    order = []
+    shard = api.shard
+
+    def spy(mesh, x, dims=(0, 1)):
+        order.append(x.numel())
+        return shard(mesh, x, dims)
+
+    monkeypatch.setattr(api, "shard", spy)
+    placed = api.shard_pytree(mesh, tree, release=True)
+    assert order == sorted(order, reverse=True) and len(order) == 5
+    assert tree["m2l_E"] == {2: None, 3: None, 4: None}
+    assert tree["near_E"] is None and tree["sigma_w"] is None
+    assert placed["none"] is None
+    for lv in (2, 3, 4):
+        full = s._caches["m2l_E"][lv]
+        m2 = full.shape[1]
+        assert torch.equal(placed["m2l_E"][lv].blocks[3],
+                           full[:, m2 // 2:, m2 // 2:])
+
