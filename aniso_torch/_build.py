@@ -4,7 +4,7 @@ Two kinds, both with a plain C interface loaded by ctypes:
 
   * CUDA kernels (K1 and K1-S m2l_translate.cu, K2 and K2-S
     near_contract.cu, K3 offsets_translate.cu, K9d diffusion_apply.cu, K9
-    pcg.cu, K10 halo_fill.cu, K11 krylov.cu, K8 (the up pass, L2L and
+    pcg.cu, K10 halo_fill.cu, K11 and K11-S krylov.cu, K8 (the up pass, L2L and
     L2T) transfer.cu, each with a float32 and a float64 entry, and K12
     krylov.cu, float64; K7
     line_integral.cu, float64 arithmetic, its dense matrices stored in

@@ -1,7 +1,7 @@
-// K11 and K12: one Arnoldi step of the restarted GMRES on the card, for
-// sm_90a, with the Krylov state in one float64 buffer that the kernels read
-// and write, so that nothing is read back to the host inside a step and a
-// step can be replayed from a CUDA graph.
+// K11, K11-S and K12: one Arnoldi step of the restarted GMRES on the card,
+// for sm_90a, with the Krylov state in one float64 buffer that the kernels
+// read and write, so that nothing is read back to the host inside a step
+// and a step can be replayed from a CUDA graph.
 //
 // Replaces the body of aniso_tpu/solver/gmres.py's inner lax.while_loop
 // (:158-193), which the JAX package runs on the device with its stopping
@@ -12,6 +12,12 @@
 //   w'' = w' - h2 V;  wnorm = |w''|;  V[i+1] = w'' / (wnorm or 1);
 //   col = h1 + h2, col[i+1] = wnorm.  Here the new basis vector is also
 //   written into u, the matvec's input buffer of the next step.
+//
+//   K11-S, the same CGS2 on a sharded basis (JAX's "per-shard contraction
+//   + an (m+1)-scalar psum", :13-21, under benchmarks/sharded_solve.py
+//   :107-112): each shard k holds its part V_k (m + 1, n_k) of the basis,
+//   its part w_k of the matvec's output and its input buffer u_k; every
+//   sum runs over all shards.
 //
 //   K12, the Givens step (:172-193; _givens :66-86, gmres.cpp:26-39): the
 //   i earlier rotations on col, the new rotation from (col[i], col[i+1]),
@@ -37,7 +43,8 @@
 //
 // Bound on the H100: bytes.  K11 must read V[:i+1] and w and write V[i+1]
 // and u: ((i + 1) + 3) n itemsize bytes at 3.35 TB/s (CGS2 from device
-// memory reads V three times: 3 (i + 1) n itemsize).  K12 moves a few KB of
+// memory reads V three times: 3 (i + 1) n itemsize); K11-S the same with n
+// the shards' n_k summed.  K12 moves a few KB of
 // state: its floor is one launch's latency, which floor_kernel measures
 // alone; the back-substitution's is its chain of i dependent steps.
 //
@@ -59,6 +66,22 @@
 //       shared memory, the rotated column into col and H[:, i] in
 //       parallel.  No block reads the header after the first barrier, so
 //       block 0's writes of i, j and done race with nothing.
+// K11-S is the same block code (cgs2_step) over a table of up to 16 shards
+// of one card, passed by value in the kernel's parameters (ShardTable, as
+// K10's table): `per` blocks a shard, block b on shard b / per, so that the
+// partials of all blocks, summed in block order, are summed in (shard,
+// chunk) order, with float64 sums: the result does not depend on the run.
+// Fused route (every local shard on one card, no process group): one
+// cooperative launch a step, K12's Givens step its epilogue, as K11's on
+// one device.  Split route (a process group, or shards on more than one
+// card): the step in four launches a card, (a), (b), (c) each ending with
+// block 0 writing its sum over the card's shards into `sums`, which the
+// caller sums over cards and processes (one all_reduce each) before the
+// next launch reads it; the fourth normalises, and block 0 of the card that
+// holds the state writes the column and runs the Givens step after a grid
+// barrier.  The split route always streams V (nothing stays in shared
+// memory between launches), w carrying w' and w'' from one launch to the
+// next.
 // Where the block's chunk of the m rows of V and of w fits its shared
 // memory (kernels/krylov.py:cgs2_plan; bench's 64^2 field in float32 and
 // float64), (a) copies it there (cp.async, every copy in flight at once)
@@ -72,9 +95,9 @@
 // a batch of rows in flight together.  Every sum is float64 in a fixed order and no value
 // is added atomically, so a replay repeats bitwise.  An inactive step
 // returns in every block before the first barrier: every block reads the
-// same header.  K12's step alone (givens_kernel, the sharded route whose
-// CGS2 is torch per shard) is one thread of one block: its work is O(i)
-// dependent operations.  The back-substitution (backsub_kernel) is one
+// same header.  K12's step alone (givens_kernel; since K11-S no solver
+// path launches it: it times the Givens step apart) is one thread of one
+// block: its work is O(i) dependent operations.  The back-substitution (backsub_kernel) is one
 // block: H's upper triangle copied into shared memory with coalesced
 // loads, then diagonal blocks of 32 columns solved on one warp with the
 // rows in registers, i dependent steps (a quotient, a shuffle, a
@@ -97,6 +120,21 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 8;             // rows (a) holds in registers, streamed
 constexpr int kTile = 128;           // narrowest streamed (b) tile (TILE)
 constexpr int kBsThreads = 256;      // the back-substitution's block
+constexpr int kMaxShards = 16;       // K11-S's shards a launch (MAX_SHARDS)
+
+// K11's phases: all in one launch (K11, K11-S's fused route) or one a
+// launch (K11-S's split route)
+enum { kPhaseA = 0, kPhaseB = 1, kPhaseC = 2, kPhaseD = 3, kFused = 4 };
+
+// K11-S's shards of one card, a kernel parameter (__grid_constant__, as
+// K10's table): shard s's basis part V (m + 1, n), its matvec output w and
+// its input buffer u, each n values.
+struct ShardTable {
+    void* V[kMaxShards];
+    void* w[kMaxShards];
+    void* u[kMaxShards];
+    long long n[kMaxShards];
+};
 
 enum { kI = 0, kJ = 1, kDone = 2, kNormb = 3, kTol = 4, kMaxIt = 5,
        kResid = 6, kHeader = 8 };
@@ -393,15 +431,29 @@ __device__ void givens_epilogue(double* st, int m, int i, double* h1,
     }
 }
 
-// K11, one step's CGS2 in one cooperative launch (the header states the
-// phases).  part: (a)'s and (b)'s partials, (m + 1) nb each as [row][block],
+// One block's share of a CGS2 step (the header states the phases): the
+// chunk [c0, c0 + chunk) of the rows of V (m + 1, n), of w and of u; nb =
+// gridDim.x blocks in all, this one b, whose partials are summed in block
+// order.  part: (a)'s and (b)'s partials, (m + 1) nb each as [row][block],
 // then (c)'s, nb.  RES: the chunk of V's rows and of w held in shared
-// memory from (a) on; otherwise `stash` rows of a tile of (b).
+// memory from (a) on (the fused phase only); otherwise `stash` rows of a
+// tile of (b).  phase kFused: (a), (b), (c) and the epilogue in one launch.
+// kPhaseA, kPhaseB, kPhaseC, kPhaseD (K11-S's split route, one launch
+// each): (a), (b) and (c) each stop after their sum, block 0 writing it
+// into `sums` (h1, h2: m + 1 each, then |w''|^2), which the caller sums
+// over the launches of its other cards and processes before the next
+// phase reads it there; kPhaseD normalises and, after a grid barrier (no
+// block reads the header after it), block 0 writes the column and runs the
+// Givens step.
 template <typename T, int VEC, bool RES>
-__global__ void __launch_bounds__(kThreads, 1)
-cgs2_kernel(T* __restrict__ V, T* __restrict__ w, T* __restrict__ u,
-            double* st, double* __restrict__ part, long long n, int m,
-            long long chunk, int stash, int givens) {
+__device__ __forceinline__ void cgs2_step(T* __restrict__ V,
+                                          T* __restrict__ w,
+                                          T* __restrict__ u, long long n,
+                                          long long c0, int b, double* st,
+                                          double* __restrict__ part,
+                                          double* __restrict__ sums, int m,
+                                          long long chunk, int stash,
+                                          int givens, int phase) {
     const int i = active_row(st, m);
     if (i < 0) {
         return;
@@ -415,9 +467,9 @@ cgs2_kernel(T* __restrict__ V, T* __restrict__ w, T* __restrict__ u,
     P* buf = reinterpret_cast<P*>(sm + cgs2_head(m));
     const Layout L = layout(m);
     const int rows = i + 1;
-    const int nb = gridDim.x, b = blockIdx.x;
+    const int nb = gridDim.x;
+    const bool fused = phase == kFused;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const long long c0 = (long long)b * chunk;
     const int cv = (int)((c0 < n ? (n - c0 < chunk ? n - c0 : chunk) : 0)
                          / VEC);               // vectors of this block
     const long long cvmax = chunk / VEC;
@@ -427,85 +479,178 @@ cgs2_kernel(T* __restrict__ V, T* __restrict__ w, T* __restrict__ u,
     double* pa = part;
     double* pb = pa + (long long)(m + 1) * nb;
     double* pc = pb + (long long)(m + 1) * nb;
+    double* sh1 = sums;                         // split: h1, h2, |w''|^2
+    double* sh2 = sums + (m + 1);
+    double* snrm = sums + 2 * (m + 1);
     P* ws = buf;                                // RES: [cvmax] w, w', w''
     P* Vs = buf + cvmax;                        // RES: [m][cvmax]
 
     // (a): h1's partials
-    if constexpr (RES) {
-        for (int v = threadIdx.x; v < cv; v += kThreads) {
-            copy_async(ws + v, wb + v);
-        }
-        for (int e = threadIdx.x; e < rows * cv; e += kThreads) {
-            const int k = e / cv, v = e % cv;
-            copy_async(Vs + k * cvmax + v, Vb + k * nv + v);
-        }
-        __pipeline_commit();
-        __pipeline_wait_prior(0);
-        __syncthreads();
-        for (int k = warp; k < rows; k += kWarps) {
-            double acc = 0.0;
-            for (int v = lane; v < cv; v += 32) {
-                acc += dot(Vs[k * cvmax + v], ws[v]);
-            }
-            acc = warp_sum(acc);
-            if (lane == 0) {
-                pa[(long long)k * nb + b] = acc;
-            }
-        }
-    } else {
-        for (int k0 = 0; k0 < rows; k0 += kRows) {
-            double acc[kRows];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-                acc[r] = 0.0;
-            }
-#pragma unroll 2
+    if (fused || phase == kPhaseA) {
+        if constexpr (RES) {
             for (int v = threadIdx.x; v < cv; v += kThreads) {
-                const P wv = wb[v];
+                copy_async(ws + v, wb + v);
+            }
+            for (int e = threadIdx.x; e < rows * cv; e += kThreads) {
+                const int k = e / cv, v = e % cv;
+                copy_async(Vs + k * cvmax + v, Vb + k * nv + v);
+            }
+            __pipeline_commit();
+            __pipeline_wait_prior(0);
+            __syncthreads();
+            for (int k = warp; k < rows; k += kWarps) {
+                double acc = 0.0;
+                for (int v = lane; v < cv; v += 32) {
+                    acc += dot(Vs[k * cvmax + v], ws[v]);
+                }
+                acc = warp_sum(acc);
+                if (lane == 0) {
+                    pa[(long long)k * nb + b] = acc;
+                }
+            }
+        } else {
+            for (int k0 = 0; k0 < rows; k0 += kRows) {
+                double acc[kRows];
 #pragma unroll
                 for (int r = 0; r < kRows; ++r) {
-                    if (k0 + r < rows) {
-                        acc[r] += dot(Vb[(k0 + r) * nv + v], wv);
+                    acc[r] = 0.0;
+                }
+#pragma unroll 2
+                for (int v = threadIdx.x; v < cv; v += kThreads) {
+                    const P wv = wb[v];
+#pragma unroll
+                    for (int r = 0; r < kRows; ++r) {
+                        if (k0 + r < rows) {
+                            acc[r] += dot(Vb[(k0 + r) * nv + v], wv);
+                        }
                     }
                 }
-            }
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-                acc[r] = warp_sum(acc[r]);
-            }
-            if (lane == 0) {
 #pragma unroll
                 for (int r = 0; r < kRows; ++r) {
-                    red[warp * kRows + r] = acc[r];
+                    acc[r] = warp_sum(acc[r]);
                 }
-            }
-            __syncthreads();
-            if (threadIdx.x < kRows && k0 + (int)threadIdx.x < rows) {
-                double s = 0.0;
-                for (int wp = 0; wp < kWarps; ++wp) {
-                    s += red[wp * kRows + threadIdx.x];
+                if (lane == 0) {
+#pragma unroll
+                    for (int r = 0; r < kRows; ++r) {
+                        red[warp * kRows + r] = acc[r];
+                    }
                 }
-                pa[(long long)(k0 + threadIdx.x) * nb + b] = s;
+                __syncthreads();
+                if (threadIdx.x < kRows && k0 + (int)threadIdx.x < rows) {
+                    double s = 0.0;
+                    for (int wp = 0; wp < kWarps; ++wp) {
+                        s += red[wp * kRows + threadIdx.x];
+                    }
+                    pa[(long long)(k0 + threadIdx.x) * nb + b] = s;
+                }
+                __syncthreads();
             }
-            __syncthreads();
         }
+        grid.sync();
+        grid_rows(pa, nb, rows, h1);
+        if (!fused) {
+            if (b == 0) {
+                for (int k = threadIdx.x; k <= m; k += kThreads) {
+                    sh1[k] = k < rows ? h1[k] : 0.0;
+                }
+            }
+            return;
+        }
+    } else {
+        for (int k = threadIdx.x; k < rows; k += kThreads) {
+            h1[k] = sh1[k];
+        }
+        __syncthreads();
     }
-    grid.sync();
-    grid_rows(pa, nb, rows, h1);
 
     // (b): w' = w - h1 V and h2's partials
-    if constexpr (RES) {
+    if (fused || phase == kPhaseB) {
+        if constexpr (RES) {
+            for (int v = threadIdx.x; v < cv; v += kThreads) {
+                double a[VEC];
+                const P x0 = ws[v];
+#pragma unroll
+                for (int q = 0; q < VEC; ++q) {
+                    a[q] = (double)x0.v[q];
+                }
+#pragma unroll 4
+                for (int k = 0; k < rows; ++k) {
+                    const P x = Vs[k * cvmax + v];
+                    const double h = h1[k];
+#pragma unroll
+                    for (int q = 0; q < VEC; ++q) {
+                        a[q] -= h * (double)x.v[q];
+                    }
+                }
+                P y;
+#pragma unroll
+                for (int q = 0; q < VEC; ++q) {
+                    y.v[q] = (T)a[q];
+                }
+                ws[v] = y;
+            }
+            __syncthreads();
+            for (int k = warp; k < rows; k += kWarps) {
+                double acc = 0.0;
+                for (int v = lane; v < cv; v += 32) {
+                    acc += dot(Vs[k * cvmax + v], ws[v]);
+                }
+                acc = warp_sum(acc);
+                if (lane == 0) {
+                    pb[(long long)k * nb + b] = acc;
+                }
+            }
+        } else {
+            // tiles of kThreads / G vectors, G = 1, 2 or 4 groups of threads
+            // (the widest tile whose rows all fit the row buffer)
+            const int cap = stash * kTile;
+            if (rows * kThreads <= cap) {
+                streamed_b<T, VEC, 1>(Vb, wb, h1, red, buf, pb, cv, nv, rows,
+                                      nb, cap);
+            } else if (rows * (kThreads / 2) <= cap) {
+                streamed_b<T, VEC, 2>(Vb, wb, h1, red, buf, pb, cv, nv, rows,
+                                      nb, cap);
+            } else {
+                streamed_b<T, VEC, 4>(Vb, wb, h1, red, buf, pb, cv, nv, rows,
+                                      nb, cap);
+            }
+        }
+        grid.sync();
+        grid_rows(pb, nb, rows, h2);
+        if (!fused) {
+            if (b == 0) {
+                for (int k = threadIdx.x; k <= m; k += kThreads) {
+                    sh2[k] = k < rows ? h2[k] : 0.0;
+                }
+            }
+            return;
+        }
+    } else {
+        for (int k = threadIdx.x; k < rows; k += kThreads) {
+            h2[k] = sh2[k];
+        }
+        __syncthreads();
+    }
+
+    // (c): w'' = w' - h2 V and |w''|^2's partials; then |w''| from the nb
+    // partials, the same order in every warp of every block
+    double wnorm;
+    if (fused || phase == kPhaseC) {
+        double nrm = 0.0;
+#pragma unroll 2
         for (int v = threadIdx.x; v < cv; v += kThreads) {
             double a[VEC];
-            const P x0 = ws[v];
+            {
+                const P x0 = RES ? ws[v] : wb[v];
 #pragma unroll
-            for (int q = 0; q < VEC; ++q) {
-                a[q] = (double)x0.v[q];
+                for (int q = 0; q < VEC; ++q) {
+                    a[q] = (double)x0.v[q];
+                }
             }
 #pragma unroll 4
             for (int k = 0; k < rows; ++k) {
-                const P x = Vs[k * cvmax + v];
-                const double h = h1[k];
+                const P x = RES ? Vs[k * cvmax + v] : Vb[k * nv + v];
+                const double h = h2[k];
 #pragma unroll
                 for (int q = 0; q < VEC; ++q) {
                     a[q] -= h * (double)x.v[q];
@@ -515,91 +660,44 @@ cgs2_kernel(T* __restrict__ V, T* __restrict__ w, T* __restrict__ u,
 #pragma unroll
             for (int q = 0; q < VEC; ++q) {
                 y.v[q] = (T)a[q];
+                nrm += (double)y.v[q] * (double)y.v[q];
             }
-            ws[v] = y;
+            if (RES) {
+                ws[v] = y;
+            } else {
+                wb[v] = y;
+            }
+        }
+        nrm = warp_sum(nrm);
+        if (lane == 0) {
+            red[warp] = nrm;
         }
         __syncthreads();
-        for (int k = warp; k < rows; k += kWarps) {
-            double acc = 0.0;
-            for (int v = lane; v < cv; v += 32) {
-                acc += dot(Vs[k * cvmax + v], ws[v]);
+        if (threadIdx.x == 0) {
+            double s = 0.0;
+            for (int wp = 0; wp < kWarps; ++wp) {
+                s += red[wp];
             }
-            acc = warp_sum(acc);
-            if (lane == 0) {
-                pb[(long long)k * nb + b] = acc;
-            }
+            pc[b] = s;
         }
-    } else {
-        // tiles of kThreads / G vectors, G = 1, 2 or 4 groups of threads
-        // (the widest tile whose rows all fit the row buffer)
-        const int cap = stash * kTile;
-        if (rows * kThreads <= cap) {
-            streamed_b<T, VEC, 1>(Vb, wb, h1, red, buf, pb, cv, nv, rows, nb,
-                                  cap);
-        } else if (rows * (kThreads / 2) <= cap) {
-            streamed_b<T, VEC, 2>(Vb, wb, h1, red, buf, pb, cv, nv, rows, nb,
-                                  cap);
-        } else {
-            streamed_b<T, VEC, 4>(Vb, wb, h1, red, buf, pb, cv, nv, rows, nb,
-                                  cap);
-        }
-    }
-    grid.sync();
-    grid_rows(pb, nb, rows, h2);
-
-    // (c): w'' = w' - h2 V and |w''|^2's partials
-    double nrm = 0.0;
-#pragma unroll 2
-    for (int v = threadIdx.x; v < cv; v += kThreads) {
-        double a[VEC];
-        {
-            const P x0 = RES ? ws[v] : wb[v];
-#pragma unroll
-            for (int q = 0; q < VEC; ++q) {
-                a[q] = (double)x0.v[q];
-            }
-        }
-#pragma unroll 4
-        for (int k = 0; k < rows; ++k) {
-            const P x = RES ? Vs[k * cvmax + v] : Vb[k * nv + v];
-            const double h = h2[k];
-#pragma unroll
-            for (int q = 0; q < VEC; ++q) {
-                a[q] -= h * (double)x.v[q];
-            }
-        }
-        P y;
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) {
-            y.v[q] = (T)a[q];
-            nrm += (double)y.v[q] * (double)y.v[q];
-        }
-        if (RES) {
-            ws[v] = y;
-        } else {
-            wb[v] = y;
-        }
-    }
-    nrm = warp_sum(nrm);
-    if (lane == 0) {
-        red[warp] = nrm;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
+        grid.sync();
         double s = 0.0;
-        for (int wp = 0; wp < kWarps; ++wp) {
-            s += red[wp];
+        for (int bb = lane; bb < nb; bb += 32) {
+            s += __ldcg(pc + bb);
         }
-        pc[b] = s;
+        s = warp_sum(s);
+        if (!fused) {
+            if (b == 0 && threadIdx.x == 0) {
+                *snrm = s;
+            }
+            return;
+        }
+        wnorm = sqrt(s);
+    } else {
+        wnorm = sqrt(*snrm);
     }
-    grid.sync();
-    // |w''| from the nb partials, the same order in every warp of every
-    // block; then V[i+1] = u = w'' / (|w''| or 1)
-    double s = 0.0;
-    for (int bb = lane; bb < nb; bb += 32) {
-        s += __ldcg(pc + bb);
-    }
-    const double wnorm = sqrt(warp_sum(s));
+
+    // V[i+1] = u = w'' / (|w''| or 1)
     const double scale = wnorm == 0.0 ? 1.0 : wnorm;
     P* Vn = reinterpret_cast<P*>(V + (long long)(i + 1) * n + c0);
     P* ub = reinterpret_cast<P*>(u + c0);
@@ -617,6 +715,9 @@ cgs2_kernel(T* __restrict__ V, T* __restrict__ w, T* __restrict__ u,
             wb[v] = x;
         }
     }
+    if (!fused) {
+        grid.sync();             // every block has read the header
+    }
     if (b == 0) {
         if (givens) {
             givens_epilogue(st, m, i, h1, h2, red, wnorm);
@@ -631,8 +732,37 @@ cgs2_kernel(T* __restrict__ V, T* __restrict__ w, T* __restrict__ u,
     }
 }
 
-// K12's step alone (the sharded route, whose CGS2 is not K11): the Givens
-// bookkeeping of JAX's body on the state's column, one thread.
+// K11 on one tensor: block b owns [b chunk, (b + 1) chunk) of every row.
+template <typename T, int VEC, bool RES>
+__global__ void __launch_bounds__(kThreads, 1)
+cgs2_kernel(T* __restrict__ V, T* __restrict__ w, T* __restrict__ u,
+            double* st, double* __restrict__ part, long long n, int m,
+            long long chunk, int stash, int givens) {
+    cgs2_step<T, VEC, RES>(V, w, u, n, (long long)blockIdx.x * chunk,
+                           blockIdx.x, st, part, nullptr, m, chunk, stash,
+                           givens, kFused);
+}
+
+// K11-S on the shards of one card: `per` blocks a shard, block b on shard
+// b / per, its chunk (b mod per) of that shard's rows; the partials of all
+// the card's blocks summed in block order, so in (shard, chunk) order.
+template <typename T, int VEC, bool RES>
+__global__ void __launch_bounds__(kThreads, 1)
+cgs2_shards_kernel(const __grid_constant__ ShardTable tab, int per,
+                   double* st, double* __restrict__ part,
+                   double* __restrict__ sums, int m, long long chunk,
+                   int stash, int givens, int phase) {
+    const int s = blockIdx.x / per;
+    cgs2_step<T, VEC, RES>(static_cast<T*>(tab.V[s]),
+                           static_cast<T*>(tab.w[s]),
+                           static_cast<T*>(tab.u[s]), tab.n[s],
+                           (long long)(blockIdx.x % per) * chunk, blockIdx.x,
+                           st, part, sums, m, chunk, stash, givens, phase);
+}
+
+// K12's step alone (on no solver path: K11 and K11-S run it as their
+// epilogue): the Givens bookkeeping of JAX's body on the state's column,
+// one thread.
 __global__ void givens_kernel(double* st, int m) {
     if (threadIdx.x != 0) {
         return;
@@ -762,11 +892,11 @@ long long cgs2_smem(int m, long long chunk, int vec, int item, int resident,
                           + kThreads * (pack + 8LL * vec);
 }
 
-template <typename T, int VEC, bool RES>
-int cgs2_launch(void* V, void* w, void* u, void* state, void* part,
-                long long n, int m, int blocks, long long chunk, int stash,
-                int givens, int smem, cudaStream_t st) {
-    auto kern = cgs2_kernel<T, VEC, RES>;
+// A cooperative launch of `kern` on `blocks` blocks of kThreads with
+// `smem` bytes of dynamic shared memory, after the checks that the card
+// takes it and holds the grid at once.
+template <typename K>
+int coop_launch(K kern, int blocks, int smem, void** args, cudaStream_t st) {
     int dev = 0, coop = 0, occ = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) {
@@ -790,6 +920,18 @@ int cgs2_launch(void* V, void* w, void* u, void* state, void* part,
     if ((long long)occ * sm_count() < blocks) {
         return (int)cudaErrorCooperativeLaunchTooLarge;
     }
+    err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks),
+                                      dim3(kThreads), args, smem, st);
+    if (err != cudaSuccess) {
+        return (int)err;
+    }
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC, bool RES>
+int cgs2_launch(void* V, void* w, void* u, void* state, void* part,
+                long long n, int m, int blocks, long long chunk, int stash,
+                int givens, int smem, cudaStream_t st) {
     T* Vt = static_cast<T*>(V);
     T* wt = static_cast<T*>(w);
     T* ut = static_cast<T*>(u);
@@ -797,12 +939,7 @@ int cgs2_launch(void* V, void* w, void* u, void* state, void* part,
     double* pd = static_cast<double*>(part);
     void* args[] = {&Vt, &wt, &ut, &sd, &pd, &n, &m, &chunk, &stash,
                     &givens};
-    err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks),
-                                      dim3(kThreads), args, smem, st);
-    if (err != cudaSuccess) {
-        return (int)err;
-    }
-    return (int)cudaGetLastError();
+    return coop_launch(cgs2_kernel<T, VEC, RES>, blocks, smem, args, st);
 }
 
 // The plan's numbers checked again, then the instance of its vector width
@@ -837,6 +974,65 @@ int cgs2(void* V, void* w, void* u, void* state, void* part,
 #undef ANISO_K11
 }
 
+template <typename T, int VEC, bool RES>
+int cgs2_shards_launch(const ShardTable& tab, int shards, int per,
+                       void* state, void* part, void* sums, int m,
+                       long long chunk, int stash, int givens, int phase,
+                       int smem, cudaStream_t st) {
+    double* sd = static_cast<double*>(state);
+    double* pd = static_cast<double*>(part);
+    double* hd = static_cast<double*>(sums);
+    void* args[] = {const_cast<ShardTable*>(&tab), &per, &sd, &pd, &hd, &m,
+                    &chunk, &stash, &givens, &phase};
+    return coop_launch(cgs2_shards_kernel<T, VEC, RES>, shards * per, smem,
+                       args, st);
+}
+
+// K11-S: the table (per shard its V, w and u pointers and n) checked
+// against the plan: every shard's n covered by `per` chunks, 16-byte packs
+// only where every shard's rows and pointers take them, the resident
+// branch only on the fused route, `sums` on the split one.
+template <typename T>
+int cgs2_shards(const long long* table, int shards, int per, void* state,
+                void* part, long long part_len, void* sums, int m,
+                long long chunk, int resident, int stash, int vec,
+                int givens, int phase, int smem, void* stream) {
+    constexpr int kVec = 16 / sizeof(T);
+    if (shards < 1 || shards > kMaxShards || per < 1 || m < 1 || chunk < 1
+        || (vec != 1 && vec != kVec) || chunk % vec
+        || stash < 0 || stash > m || (givens != 0 && givens != 1)
+        || phase < kPhaseA || phase > kFused
+        || (resident && phase != kFused)
+        || (phase != kFused && sums == nullptr)
+        || part_len < (2LL * (m + 1) + 1) * shards * per
+        || cgs2_smem(m, chunk, vec, (int)sizeof(T), resident, stash) > smem
+        || (size_t)smem > aniso::kSmemBlock) {
+        return (int)cudaErrorInvalidValue;
+    }
+    ShardTable tab = {};
+    for (int s = 0; s < shards; ++s) {
+        const long long* t = table + 4 * s;
+        tab.V[s] = reinterpret_cast<void*>(t[0]);
+        tab.w[s] = reinterpret_cast<void*>(t[1]);
+        tab.u[s] = reinterpret_cast<void*>(t[2]);
+        tab.n[s] = t[3];
+        const bool aligned = ((t[0] | t[1] | t[2]) & 15) == 0;
+        if (t[3] <= 0 || (long long)per * chunk < t[3]
+            || (vec != 1 && (t[3] % vec || !aligned))) {
+            return (int)cudaErrorInvalidValue;
+        }
+    }
+    const cudaStream_t st = (cudaStream_t)stream;
+#define ANISO_K11S(VC, RS)                                                  \
+    cgs2_shards_launch<T, VC, RS>(tab, shards, per, state, part, sums, m,   \
+                                  chunk, stash, givens, phase, smem, st)
+    if (vec == 1) {
+        return resident ? ANISO_K11S(1, true) : ANISO_K11S(1, false);
+    }
+    return resident ? ANISO_K11S(kVec, true) : ANISO_K11S(kVec, false);
+#undef ANISO_K11S
+}
+
 }  // namespace
 
 // K11: V (m + 1, n), w (n), u (n) in the field's type; state (layout(m).len)
@@ -864,8 +1060,40 @@ extern "C" int aniso_cgs2_f64(void* V, void* w, void* u, void* state,
                         resident, stash, vec, givens, smem, stream);
 }
 
-// K12: the Givens step of an active step (a no-op otherwise), on its own:
-// the sharded route's.
+// K11-S: one step's CGS2 on the shards of one card, `shards` of them
+// (<= 16), `per` blocks each; table: per shard its V (m + 1, n), w (n) and
+// u (n) pointers and n, as long longs; state (layout(m).len) float64; part:
+// at least part_len = (2 (m + 1) + 1) shards per float64 of scratch; sums:
+// 2 (m + 1) + 1 float64 (the split route's; null on the fused one);
+// chunk, resident, stash, vec and smem from kernels/krylov.py:cgs2_plan;
+// phase 4: the fused route, the whole step and K12's Givens step (givens
+// 1) in one launch; 0-3: one phase of the split route, the caller summing
+// `sums` over cards and processes between them, givens 1 on the card that
+// holds the state (the others pass a copy of its header and 0).
+extern "C" int aniso_cgs2_shards_f32(const long long* table, int shards,
+                                     int per, void* state, void* part,
+                                     long long part_len, void* sums, int m,
+                                     long long chunk, int resident, int stash,
+                                     int vec, int givens, int phase, int smem,
+                                     void* stream) {
+    return cgs2_shards<float>(table, shards, per, state, part, part_len, sums,
+                              m, chunk, resident, stash, vec, givens, phase,
+                              smem, stream);
+}
+
+extern "C" int aniso_cgs2_shards_f64(const long long* table, int shards,
+                                     int per, void* state, void* part,
+                                     long long part_len, void* sums, int m,
+                                     long long chunk, int resident, int stash,
+                                     int vec, int givens, int phase, int smem,
+                                     void* stream) {
+    return cgs2_shards<double>(table, shards, per, state, part, part_len,
+                               sums, m, chunk, resident, stash, vec, givens,
+                               phase, smem, stream);
+}
+
+// K12: the Givens step of an active step (a no-op otherwise), on its own
+// (no solver path's: it times the step apart from K11).
 extern "C" int aniso_givens_step(void* state, int m, void* stream) {
     givens_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
         static_cast<double*>(state), m);

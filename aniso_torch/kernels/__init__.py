@@ -12,5 +12,5 @@ def launch_counters() -> list:
 
     dicts = [m.launches for m in (attenuation, diffusion, halo, krylov, m2l,
                                   near, offsets, pcg, transfer)]
-    dicts.append(krylov.givens_launches)
+    dicts += [krylov.shard_launches, krylov.givens_launches]
     return [(d, key) for d in dicts for key in d]

@@ -1,4 +1,5 @@
-"""K11 and K12: one Arnoldi step of GMRES with its state on the device.
+"""K11, K11-S and K12: one Arnoldi step of GMRES with its state on the
+device.
 
 Replace the body of aniso_tpu/solver/gmres.py's inner lax.while_loop
 (:158-193), which the JAX package runs on the device with its stopping
@@ -11,10 +12,22 @@ test (:154-156, :191-192), and the back-substitution that follows it
       The new basis vector also goes into u, the next step's matvec input.
   K12 (givens_step, givens_backsub): the Givens bookkeeping (:172-193,
       _givens :66-86) and, at a cycle's end, y from the leading i x i block.
-      On one device the Givens step is K11's epilogue (cgs2_givens: one
-      launch a step); givens_step alone serves the sharded route.  cgs2,
-      K11 without the epilogue, runs on no solver path: it serves to
-      measure K11 apart from the epilogue, and the tests.
+      The Givens step is K11's epilogue (cgs2_givens: one launch a step)
+      and K11-S's.  cgs2, K11 without the epilogue, and givens_step, the
+      Givens step alone, run on no solver path: they serve to measure K11
+      and the step apart, and the tests.
+  K11-S (cgs2_givens_shards): the same step on a sharded basis (JAX's
+      "per-shard contraction + an (m+1)-scalar psum", gmres.py:13-21, as
+      benchmarks/sharded_solve.py:107-112 runs it): per local shard k its
+      part V_k (m + 1, n_k) of the basis, its part w_k of the matvec's
+      output and its input buffer u_k; rows above i masked, never sliced,
+      so that no shape depends on i.  One cooperative launch a step, the
+      Givens step its epilogue, where every shard of the process is on one
+      card and no process group is up (the fused route); else four
+      launches a card with the caller's sum over cards and processes
+      between them (the split route).  cgs2_shard_plain, with
+      givens_step_masked, is its plain version: no host read, so that the
+      CPU runs the sharded step as the card's graph does.
 
 The CUDA kernels are csrc/krylov.cu; its header states the bound (bytes for
 K11, a launch's latency for K12) and the design (K11 one cooperative launch
@@ -31,8 +44,8 @@ captured step can be replayed without the host looking.
 Wrappers: a state on the CPU takes the plain version (JAX's masked
 full-basis pass for K11, the bookkeeping in tensor operations for K12); a
 CUDA one launches the kernel or raises.  `launches` counts K11 launches per
-instance (with or without the Givens epilogue), `givens_launches` K12's
-two entries of their own.
+instance (with or without the Givens epilogue), `shard_launches` K11-S's,
+`givens_launches` K12's two entries of their own.
 """
 
 from __future__ import annotations
@@ -53,6 +66,15 @@ _ARGTYPES = ((ctypes.c_void_p,) * 5
                 ctypes.c_int, ctypes.c_longlong)
              + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
 _STATE_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+SHARD_SYMBOLS = {"f32": "aniso_cgs2_shards_f32",
+                 "f64": "aniso_cgs2_shards_f64"}
+_SHARD_ARGTYPES = ((ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
+                   + (ctypes.c_void_p,) * 2
+                   + (ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_longlong) + (ctypes.c_int,) * 6
+                   + (ctypes.c_void_p,))
+MAX_SHARDS = 16                 # K11-S's shards a launch (kMaxShards)
+FUSED = 4                       # K11-S's one-launch phase (kFused)
 THREADS = 512                   # K11's block (kThreads in the source)
 WARPS = THREADS // 32
 ROWS = 8                        # rows the streamed pass (a) holds (kRows)
@@ -60,6 +82,7 @@ TILE = 128                      # the narrowest streamed (b) tile (kTile)
 MIN_VECTORS = 32                # a block's least share of a row, in vectors
 
 launches = {"f32": 0, "f64": 0}                  # K11
+shard_launches = {"f32": 0, "f64": 0}            # K11-S
 givens_launches = {"step": 0, "backsub": 0}      # K12
 
 # the header of the state
@@ -237,6 +260,152 @@ def _launch_cgs2(V, w, u, state, givens: bool) -> None:
     launches[inst] += 1
 
 
+# -- K11-S --
+
+def _step_of(state, m: int):
+    """(i, active) of the state's step as tensors, no host read: i clamped
+    into [0, m - 1], active iff not done, i < m and j <= max_iter."""
+    hdr = state[:HEADER]
+    active = ((hdr[DONE] == 0.0) & (hdr[I] < m)
+              & (hdr[J] <= hdr[MAX_ITER]))
+    return hdr[I].clamp(0, m - 1).long(), active
+
+
+def cgs2_shard_plain(V, w, u, state, reduce=None) -> None:
+    """K11-S's CGS2 in torch: V, w, u this process's shards' (m + 1, n_k),
+    (n_k) and (n_k) parts in shard order.  Each pass a per-shard
+    contraction on the basis masked above i (torch.where: a row above i is
+    never read, whatever it holds), summed in shard order on the state's
+    device and then by `reduce` (in place, over processes; None: this
+    process holds every shard); V[i+1] = u = w'' / (|w''| or 1), w'' into
+    w, the column and h2 into the state, as cgs2_plain.  Nothing depends on
+    a host read: an inactive step selects the old values everywhere."""
+    m = V[0].shape[0] - 1
+    L = state_layout(m)
+    dev = state.device
+    i, active = _step_of(state, m)
+    rows = torch.arange(m + 1, device=dev)
+    mask = (rows <= i) & active
+
+    def total(parts):
+        acc = parts[0].to(dev, copy=True)
+        for p in parts[1:]:
+            acc += p.to(dev)
+        if reduce is not None:
+            reduce(acc)
+        return acc
+
+    Vm = [torch.where(mask.to(Vk.device)[:, None], Vk, 0) for Vk in V]
+    h1 = total([Vk @ wk for Vk, wk in zip(Vm, w)])
+    w1 = [wk - h1.to(wk.device) @ Vk for Vk, wk in zip(Vm, w)]
+    h2 = total([Vk @ wk for Vk, wk in zip(Vm, w1)])
+    w2 = [wk - h2.to(wk.device) @ Vk for Vk, wk in zip(Vm, w1)]
+    wnorm = torch.sqrt(total([wk @ wk for wk in w2]))
+    scale = torch.where(wnorm == 0.0, 1.0, wnorm)
+    nxt = (i + 1).clamp(max=m)[None]
+    for Vk, wk, uk, w2k in zip(V, w, u, w2):
+        on = active.to(Vk.device)
+        idx = nxt.to(Vk.device)
+        v = w2k / scale.to(Vk.device)
+        Vk.index_copy_(0, idx, torch.where(on, v, Vk.index_select(0, idx)))
+        uk.copy_(torch.where(on, v, uk))
+        wk.copy_(torch.where(on, w2k, wk))
+    col = torch.where(rows == i + 1, wnorm.to(torch.float64),
+                      (h1 + h2).to(torch.float64))
+    seg = state[L.col:L.col + m + 1]
+    seg.copy_(torch.where(active & (rows <= i + 1), col, seg))
+    seg = state[L.h2:L.h2 + m + 1]
+    seg.copy_(torch.where(mask, h2.to(torch.float64), seg))
+
+
+def cgs2_givens_shards(groups, state, combine=None) -> None:
+    """K11-S: one step after its matvec on a sharded basis.  groups: per
+    card, in order, (V, w, u): lists of its shards' (m + 1, n_k) basis
+    parts, (n_k) matvec outputs (left as w'') and (n_k) input buffers; the
+    first card holds the state, and a card's shards are at most
+    MAX_SHARDS.  combine: None where one card holds every shard of the
+    solve (the fused route: one launch a step); else a function that sums
+    a list of tensors, one a group, in place across the groups and the
+    processes (the split route: four launches a group, `combine` between
+    them).  On the CPU cgs2_shard_plain, then givens_step_masked."""
+    m = groups[0][0][0].shape[0] - 1
+    if state.device.type == "cpu":
+        V, w, u = ([t for g in groups for t in g[j]] for j in range(3))
+        cgs2_shard_plain(V, w, u, state, None if combine is None
+                         else lambda t: combine([t]))
+        return givens_step_masked(state, m)
+    if combine is None and len(groups) != 1:
+        raise ValueError("K11-S: shards on more than one card (or more than "
+                         f"{MAX_SHARDS} on one) need the split route")
+    _check_state(state, m)
+    L = state_layout(m)
+    launch = []
+    for g, (V, w, u) in enumerate(groups):
+        st = state
+        if g:                    # a copy of the header, for i and activity
+            st = torch.empty(L.len, dtype=torch.float64,
+                             device=V[0].device)
+            st[:HEADER].copy_(state[:HEADER])
+        launch.append(_shard_launch(V, w, u, st, m, split=combine is not None,
+                                    givens=g == 0))
+    if combine is None:
+        return launch[0](FUSED)
+    for phase, sl in enumerate((slice(0, m + 1), slice(m + 1, 2 * m + 2),
+                                slice(2 * m + 2, 2 * m + 3), None)):
+        for fn in launch:
+            fn(phase)
+        if sl is not None:
+            combine([fn.sums[sl] for fn in launch])
+
+
+def _shard_launch(V, w, u, st, m, split: bool, givens: bool):
+    """K11-S's launch on one card's shards: its table, plan and scratch,
+    as fn(phase); fn.sums: the split route's h1, h2 and |w''|^2."""
+    if not 1 <= len(V) <= MAX_SHARDS or not len(V) == len(w) == len(u):
+        raise ValueError(f"K11-S: {len(V)} shards on a card, at most "
+                         f"{MAX_SHARDS}")
+    inst = _cuda.instance("V", V[0])
+    device = V[0].device
+    for Vk, wk, uk in zip(V, w, u):
+        n = Vk.shape[1]
+        _cuda.check_all(V[0].dtype, ("V", Vk, (m + 1, n)), ("w", wk, (n,)),
+                        ("u", uk, (n,)))
+        if Vk.device != device or wk.device != device or uk.device != device:
+            raise ValueError("K11-S: a group's shards on more than one card")
+    item = V[0].element_size()
+    vec = 16 // item
+    if any(t.shape[-1] % vec or t.data_ptr() % 16
+           for t in (*V, *w, *u)):
+        vec = 1                   # one value a load
+    n = max(Vk.shape[1] for Vk in V)
+    sms = _num_sms(device.index or 0)
+    plan = cgs2_plan(n, m, item, vec, max(1, sms // len(V)),
+                     resident=False if split else None)
+    blocks = plan.blocks * len(V)
+    part = torch.empty((2 * (m + 1) + 1) * blocks, dtype=torch.float64,
+                       device=device)
+    sums = (torch.empty(2 * m + 3, dtype=torch.float64, device=device)
+            if split else None)
+    table = []
+    for Vk, wk, uk in zip(V, w, u):
+        table += [Vk.data_ptr(), wk.data_ptr(), uk.data_ptr(), Vk.shape[1]]
+    arr = (ctypes.c_longlong * len(table))(*table)
+    symbol = SHARD_SYMBOLS[inst]
+    fn = _cuda.load(SOURCE, symbol, _SHARD_ARGTYPES)
+
+    def run(phase):
+        rc = fn(ctypes.cast(arr, ctypes.c_void_p), len(V), plan.blocks,
+                _cuda.ptr(st), _cuda.ptr(part), part.numel(),
+                _cuda.ptr(sums), m, plan.chunk, int(plan.resident),
+                plan.stash, vec, int(givens), phase, plan.smem,
+                _cuda.stream(device))
+        _cuda.raise_on_error(symbol, rc)
+        shard_launches[inst] += 1
+
+    run.sums = sums
+    return run
+
+
 # -- K12 --
 
 def _givens(dx, dy):
@@ -277,6 +446,48 @@ def givens_step_plain(state, m: int) -> None:
     state[DONE] = (resid < header[TOL]).to(torch.float64)
     state[I] = i + 1
     state[J] = header[J] + 1
+
+
+def givens_step_masked(state, m: int) -> None:
+    """givens_step_plain with no host read (K11-S's plain epilogue): the
+    same operations in the same order, each result selected by
+    torch.where (the earlier rotations for k < i, the writes where the
+    step is active), so that an active step's state is bitwise
+    givens_step_plain's and an inactive one changes nothing."""
+    L = state_layout(m)
+    i, active = _step_of(state, m)
+    ii = i[None]
+    rows = torch.arange(m + 1, device=state.device)
+    col = state[L.col:L.col + m + 1].clone()
+    cs, sn, s = state[L.cs:L.sn], state[L.sn:L.col], state[L.s:L.cs]
+    for k in range(m - 1):                   # the earlier rotations, k < i
+        on = i > k
+        t = cs[k] * col[k] + sn[k] * col[k + 1]
+        nx = -sn[k] * col[k] + cs[k] * col[k + 1]
+        col[k] = torch.where(on, t, col[k])
+        col[k + 1] = torch.where(on, nx, col[k + 1])
+    dx, dy = col.gather(0, ii)[0], col.gather(0, ii + 1)[0]
+    c, g = _givens(dx, dy)
+    col = col.scatter(0, ii, (c * dx + g * dy)[None])
+    col = col.scatter(0, ii + 1, torch.zeros_like(dx)[None])
+    s0, s1 = s.gather(0, ii)[0], s.gather(0, ii + 1)[0]
+    si = c * s0 + g * s1
+    si1 = -g * s0 + c * s1
+    Hc = state[L.H:L.s].view(m, m + 1)       # row c: H's column c
+    hcol = torch.where(rows <= i + 1, col, Hc.index_select(0, ii)[0])
+    resid = si1.abs() / state[NORMB]
+    head = {RESID: resid, DONE: (resid < state[TOL]).to(torch.float64),
+            I: state[I] + 1, J: state[J] + 1}
+    news = [(state[L.col:L.col + m + 1], col),
+            (cs, cs.scatter(0, ii, c[None])),
+            (sn, sn.scatter(0, ii, g[None])),
+            (s, s.scatter(0, ii, si[None]).scatter(0, ii + 1, si1[None]))]
+    Hc.index_copy_(0, ii, torch.where(active, hcol,
+                                      Hc.index_select(0, ii)[0])[None])
+    for seg, new in news:
+        seg.copy_(torch.where(active, new, seg))
+    for k, v in head.items():
+        state[k] = torch.where(active, v, state[k])
 
 
 def givens_backsub_plain(state, m: int) -> None:

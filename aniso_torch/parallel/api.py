@@ -25,7 +25,11 @@ torch has no partitioner, so here the decomposition is written out:
     does not divide: its Sharded lives on mesh.whole, one shard on this
     process's first device, which computes all of it;
   * GMRES runs on Sharded fields: the basis stays with each shard, CGS2 and
-    the norms sum per-shard contractions over the shards (solver.gmres).
+    the norms sum per-shard contractions over the shards (solver.gmres;
+    the step's CGS2 and Givens step by K11-S); where every shard of the
+    process shares one card and no halo comes from another process, each
+    step is one CUDA graph replay of the sharded matvec and K11-S, as JAX
+    runs the sharded solve in one jitted program.
 
 Shards that share a device are the port's counterpart of JAX's virtual host
 devices (tests/conftest.py): on one card, or on the CPU, every step above
@@ -49,8 +53,8 @@ from ..kernels.offsets import offsets_translate
 from ..kernels.transfer import down, up_from
 from . import distributed
 from .halo import (
-    fine_translate_local, gather_full, halo_exchange, near_apply_local,
-    reduce_sum,
+    collective_counters, count_kernel_sums, fine_translate_local,
+    gather_full, halo_exchange, near_apply_local, reduce_sum, reduce_sum_,
 )
 
 
@@ -218,18 +222,41 @@ class ShardedSpace:
     """GMRES's arithmetic on Sharded fields (solver.gmres.TensorSpace's
     counterpart): every inner product and norm is a per-shard contraction
     summed over the shards in shard order (parallel.halo.reduce_sum, one
-    all_reduce of the (i + 1)-vector across processes); no field is
-    gathered.  The sums land on the first local shard's device, where the
-    solve's state lives and K12 runs on this process's copy of the column;
-    nothing is read back inside a step.  The step is not captured."""
-
-    capturable = False
+    all_reduce across processes); no field is gathered.  The sums land on
+    the first local shard's device, where the solve's state lives.  The
+    step after the matvec is K11-S (kernels.krylov.cgs2_givens_shards) on
+    the cards' groups of at most MAX_SHARDS shards in shard order: one
+    launch where one group holds every shard of the solve (the fused
+    route), else four a group with reduce_sum_ between them (the split
+    route: shards on more than one card, or a process group).  Each shard's
+    matvec input is a fixed buffer (u), which K11-S writes, so that nothing
+    in a step depends on the host: the step is captured where `capturable`
+    says."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         first = mesh.local[0]
         self.device = mesh.devices[first]
-        self._i = 0                     # the cycle's steps since start
+        self.groups = [ks[j:j + krylov.MAX_SHARDS]
+                       for ks in mesh.local_groups().values()
+                       for j in range(0, len(ks), krylov.MAX_SHARDS)]
+        self.fused = len(self.groups) == 1 and not mesh.distributed
+        self.counters = collective_counters()
+
+    @property
+    def capturable(self) -> bool:
+        """A CUDA mesh whose local shards share one card and whose halos
+        all come from this process (no P2P: parallel.halo._exchange_remote
+        has no work), whether a process group is up or not."""
+        return (self.device.type == "cuda"
+                and len(self.mesh.local_groups()) == 1
+                and not self.mesh.multiprocess)
+
+    def key(self, b: Sharded) -> tuple:
+        """The captured step's key: the mesh's shape, a block's shape and
+        the dtype."""
+        blk = b.blocks[self.mesh.local[0]]
+        return (self.mesh.shape, tuple(blk.shape), blk.dtype)
 
     def shaped(self, v):
         return v
@@ -253,41 +280,26 @@ class ShardedSpace:
         return ShardedBasis(self.mesh, parts)
 
     def start(self, V: ShardedBasis, u: Sharded, r: Sharded, beta):
-        """V[0] = r / beta; u views it; the cycle's step count set to 0."""
-        self._i = 0
+        """V[0] = u = r / beta, u the matvec's input buffers."""
         for k in self.mesh.local:
             row = V.parts[k][0]
             torch.div(r.blocks[k], beta.to(row.device), out=row)
-            u.blocks[k] = row
+            u.blocks[k].copy_(row)
 
     def cgs2_givens(self, V: ShardedBasis, w: Sharded, u: Sharded, state):
-        """CGS2 of w against V[:i + 1] (i this space's count of the cycle's
-        steps since start: the host runs only active steps, reading each
-        state at once): V[i + 1] = w'' / |w''|, u made its view, the column
-        h1 + h2, |w''| written into the state; then K12's Givens step on
-        its own."""
-        local = self.mesh.local
-        i, self._i = self._i, self._i + 1
-        m = V.parts[local[0]].shape[0] - 1
-        Vf = {k: V.parts[k].view(V.parts[k].shape[0], -1)[: i + 1]
-              for k in local}
-        wf = {k: w.blocks[k].reshape(-1) for k in local}
-
-        def project(wf):
-            h = self._sum([Vf[k] @ wf[k] for k in local])
-            return h, {k: wf[k] - h.to(wf[k].device) @ Vf[k] for k in local}
-
-        h1, wf = project(wf)
-        h2, wf = project(wf)
-        wnorm = torch.sqrt(self._sum([wf[k] @ wf[k] for k in local]))
-        scale = torch.where(wnorm == 0.0, 1.0, wnorm)
-        for k in local:
-            row = V.parts[k][i + 1]
-            torch.div(wf[k].view(row.shape), scale.to(row.device), out=row)
-            u.blocks[k] = row
-        col = krylov.state_layout(m).col
-        state[col:col + i + 2] = torch.cat([h1 + h2, wnorm[None]])
-        krylov.givens_step(state, m)
+        """K11-S: CGS2 of w against V[:i + 1] (i from the state, rows above
+        it masked), V[i + 1] = u = w'' / |w''|, the column into the state,
+        then K12's Givens step: one launch on the fused route.  Its three
+        sums over shards count as all-reduces on either route."""
+        groups = [([V.parts[k].view(V.parts[k].shape[0], -1) for k in ks],
+                   [w.blocks[k].reshape(-1) for k in ks],
+                   [u.blocks[k].view(-1) for k in ks]) for ks in self.groups]
+        combine = (None if self.fused
+                   else functools.partial(reduce_sum_, self.mesh))
+        krylov.cgs2_givens_shards(groups, state, combine)
+        if combine is None:
+            m = V.parts[self.mesh.local[0]].shape[0] - 1
+            count_kernel_sums(8 * (2 * m + 3), 3)
 
     def combine(self, V: ShardedBasis, y, i: int) -> Sharded:
         out = [None] * self.mesh.size

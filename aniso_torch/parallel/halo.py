@@ -21,9 +21,13 @@ collectives out of compiled HLO, is the accounting here: every exchange,
 gather and sum is counted at its transport site, by kind ("permute": halo
 slabs and corners, one count per direction that carried any; "all-gather":
 a level's multipoles or a field assembled whole on a device, its bytes once
-per device; "all-reduce": the sums over shards of GMRES), with its bytes
-summed over the shards.  collective_stats() returns them as a
-CollectiveStats.
+per device; "all-reduce": the sums over shards of GMRES, those K11-S takes
+inside its launch included), with its bytes summed over the shards.
+collective_stats() returns them as a CollectiveStats.  The counts are host
+counters: a captured GMRES step bumps them once, at its capture, and
+solver.gmres adds the capture's increments on each replay (the space's
+`counters`, collective_counters()).  Nothing here reads a tensor on the
+host, so that a step that exchanges, gathers and sums can be captured.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ class CollectiveStats(NamedTuple):
         return sum(self.bytes.values())
 
 
+KINDS = ("permute", "all-gather", "all-reduce")
 _counts: Dict[str, int] = {}
 _bytes: Dict[str, int] = {}
 
@@ -66,9 +71,21 @@ def collective_stats() -> CollectiveStats:
     return CollectiveStats(dict(_counts), dict(_bytes))
 
 
+def collective_counters() -> list:
+    """(dict, kind) of every count and byte total: what a captured GMRES
+    step's replays add to (a kind not counted yet reads as 0)."""
+    return [(d, kind) for d in (_counts, _bytes) for kind in KINDS]
+
+
 def _count(kind: str, nbytes: int, n: int = 1) -> None:
     _counts[kind] = _counts.get(kind, 0) + n
     _bytes[kind] = _bytes.get(kind, 0) + nbytes
+
+
+def count_kernel_sums(nbytes: int, n: int) -> None:
+    """n sums over shards that a kernel takes inside its launch (K11-S's
+    fused route), counted as the all-reduces they stand for."""
+    _count("all-reduce", nbytes, n)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -187,9 +204,9 @@ def gather_full(mesh, blocks, devices=None) -> dict:
 
 
 def reduce_sum(mesh, parts) -> torch.Tensor:
-    """The sum of the local shards' partial results (same shape), in shard
-    order on the first one's device, then over the processes by one
-    all_reduce when a process group is up."""
+    """The sum of the local partial results (same shape), in their order
+    on the first one's device, then over the processes by one all_reduce
+    when a process group is up."""
     acc = parts[0].clone()
     for p in parts[1:]:
         acc += p.to(acc.device)
@@ -197,6 +214,14 @@ def reduce_sum(mesh, parts) -> torch.Tensor:
         dist.all_reduce(acc)
     _count("all-reduce", _nbytes(acc))
     return acc
+
+
+def reduce_sum_(mesh, parts) -> None:
+    """reduce_sum in place: every part (one a card or a launch, K11-S's
+    split route) becomes the sum of them all over the processes."""
+    acc = reduce_sum(mesh, parts)
+    for p in parts:
+        p.copy_(acc)
 
 
 def near_apply_local(near_E, near_cosrw, near_static, sigma_w, duffy, ue,

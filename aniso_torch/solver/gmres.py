@@ -25,28 +25,33 @@ launch, K11 with K12's step as its epilogue (kernels.krylov.cgs2_givens).
 A step is active iff not done, i < restart and j <= max_iter; an inactive
 one changes neither V, u nor the state (its matvec runs and is wasted).
 
-On a CUDA tensor field the step is captured once into a torch.cuda.CUDAGraph
-(after one eager step outside the capture, which makes every first-use
-build, attribute and plan) and replayed; a matvec that cannot be captured
-raises.  `graphs`, a dict the caller keeps (TransportSolver's), caches the
-step's buffers by dtype, shape, restart and whether a preconditioner is
-applied, for one matvec, and with them one graph: repeated solves and
-refinement rounds replay it, and another preconditioner object replaces it
-(the plan holds the one it was captured with, so that what the graph reads
-stays allocated).  The caller drops `graphs` when what the matvec reads is
-replaced.  A replay
-runs no Python, so each host counter a step bumps (every kernel module's
-launches, plus the caller's `counters`) gets the step's increments, taken
-at capture, added on each replay.
+Where the space is capturable (a CUDA tensor field; a sharded field whose
+shards share one card, parallel.api.ShardedSpace) the step is captured once
+into a torch.cuda.CUDAGraph (after one eager step outside the capture,
+which makes every first-use build, attribute, plan and communicator) and
+replayed; a matvec that cannot be captured raises.  `graphs`, a dict the
+caller keeps (TransportSolver's; for a sharded solve one a placed
+sharded_solver triple), caches the step's buffers by the space's key (dtype
+and shape; a sharded field's mesh shape, block shape and dtype), restart
+and whether a preconditioner is applied, for one matvec, and with them one
+graph: repeated solves and refinement rounds replay it, and another
+preconditioner object replaces it (the plan holds the one it was captured
+with, so that what the graph reads stays allocated).  The caller drops
+`graphs` when what the matvec reads is replaced.  A replay runs no Python,
+so each host counter a step bumps (every kernel module's launches, the
+space's own, such as a sharded field's collectives, plus the caller's
+`counters`) gets the step's increments, taken at capture, added on each
+replay.
 
 The host queues steps and reads the state's header of step t (pinned
 buffer, async copy, event) only once step t + 1 is queued, so the card never
 waits on the host between steps; when the read shows convergence, the one
 step queued behind it is the wasted one (stats["steps_after_done"]; an
-eager step, on the CPU or sharded, has nothing to overlap: each state is
-read at once).  The
-cycle's end runs eagerly: K12's back-substitution, x += V[:i]^T y, r =
-b - A(x), beta, and resid and done on the device, then one read.  stats
+eager step, on the CPU or on a mesh that cannot be captured, has nothing to
+overlap: each state is read at once).  The
+cycle's end runs eagerly on every route: K12's back-substitution, x +=
+V[:i]^T y, r = b - A(x), beta, and resid and done on the device, then one
+read.  stats
 counts every device-to-host read (host_reads: at most iterations +
 2 cycles + 2 a solve), the steps run (eager or replayed) and those
 replayed, the cycles, solves and captures, and the seconds spent
@@ -55,11 +60,10 @@ capturing.
 The field arithmetic goes through a space: TensorSpace for one tensor, or
 the one a field brings with it (`krylov_space()`): a sharded field's
 (parallel.api.Sharded) keeps each shard's part of the basis on the shard's
-device, sums each CGS2 pass and each norm over the shards (JAX's "per-shard
-contraction + an (m+1)-scalar psum", aniso_tpu/solver/gmres.py:8-21), and
-runs its steps uncaptured; K12's step runs on its own, on its copy of
-the column.  On the CPU
-the same loop runs the kernels' plain versions, no graph.
+device and sums each CGS2 pass and each norm over the shards (JAX's
+"per-shard contraction + an (m+1)-scalar psum", aniso_tpu/solver/gmres.py
+:8-21), its step's CGS2 and Givens step one K11-S launch.  On the CPU the
+same loop runs the kernels' plain versions, no graph.
 """
 
 from __future__ import annotations
@@ -89,10 +93,15 @@ class TensorSpace:
     """The arithmetic of a solve on one tensor: the basis one (restart + 1,
     *field) tensor, CGS2 by K11 on its (restart + 1, n) view."""
 
+    counters = ()
+
     def __init__(self, b: torch.Tensor):
         self.shape = b.shape
         self.device = b.device
         self.capturable = b.device.type == "cuda"
+
+    def key(self, b) -> tuple:
+        return (b.dtype, tuple(b.shape))
 
     def shaped(self, v):
         return v.reshape(self.shape)
@@ -178,13 +187,18 @@ def _lookahead(plan: _Plan) -> int:
 
 
 def _get(holder, key):
-    return holder[key] if isinstance(holder, dict) else getattr(holder, key)
+    """A counter's value; a dict's key not counted yet reads as 0."""
+    if isinstance(holder, dict):
+        return holder.get(key, 0)
+    return getattr(holder, key)
 
 
 def _bump(counters, delta):
     for (holder, key), d in zip(counters, delta):
+        if not d:
+            continue
         if isinstance(holder, dict):
-            holder[key] += d
+            holder[key] = holder.get(key, 0) + d
         else:
             setattr(holder, key, getattr(holder, key) + d)
 
@@ -261,7 +275,7 @@ def gmres(
     beta = space.norm(r)
 
     key = (None if graphs is None
-           else (b.dtype, tuple(b.shape), m, precond is not None))
+           else space.key(b) + (m, precond is not None))
     plan = None if graphs is None else graphs.get(key)
     if plan is None:
         plan = _Plan(space, b, m)
@@ -272,7 +286,7 @@ def gmres(
     def step():
         space.cgs2_givens(V, A(u), u, st)
 
-    counters = launch_counters() + list(counters)
+    counters = launch_counters() + list(space.counters) + list(counters)
     if space.capturable and plan.graph is None:
         _capture(plan, step, counters)
     if graphs is not None:

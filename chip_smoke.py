@@ -83,8 +83,17 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            w) (library_ms);
            the one-device step's launch, K11 with K12's Givens step as its
            epilogue, against K11 alone then givens_step_plain (1e-14) and
-           against the two plain versions, timed beside K11 alone; K12's
-           step alone (the sharded route's) against givens_step_plain
+           against the two plain versions, timed beside K11 alone; K11-S
+           (the sharded step, CGS2 with the Givens step as its epilogue)
+           at sharded512's shards (8 of 256 x 128; f32 at steps 0, 14, 79,
+           f64 at 14), sharded1024's (8 of 512 x 256, f32, steps 0, 14,
+           79) and 4 shards of 32 x 32 (step 14: the fused route resident,
+           and the split route), the basis rows above i NaN, against
+           cgs2_shard_plain then givens_step_masked (TOL_KERNEL; the rows
+           up to i untouched, those above i + 1 still NaN; an inactive
+           step a no-op), timed beside its plain version and the per-shard
+           torch CGS2 it replaced (library_ms); K12's step alone (on no
+           path) against givens_step_plain
            (1e-14), beside an empty launch's floor, and its
            back-substitution (1e-12) beside torch.linalg.solve_triangular
            on the same triangle
@@ -181,11 +190,14 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            (level 2 the replicated route, levels 3-9 sharded): the sharded
            matvec within 1e-6 (relative 2-norm) of the one-device one, its
            wall and device time beside the one-device matvec's, the
-           sharded GMRES solve in 14 +- 1 iterations with the true residual
+           sharded GMRES solve (a first solve that captures the step, then
+           the counted one: every step one replay of the sharded matvec
+           and K11-S) in 14 +- 1 iterations with the true residual
            (one-device operator) < 1e-5, K10 / K1-S / K2-S / K1 launches =
-           launches per matvec x matvecs, permute bytes per matvec < 8
-           fields, all-gather bytes those of level 2's M; the shard copies'
-           bytes and the peak memory
+           launches per matvec x matvecs, K11-S once a step, each captured
+           step's kernel nodes its counted launches, permute bytes per
+           matvec < 8 fields, all-gather bytes those of level 2's M; the
+           shard copies' bytes and the peak memory
   sharded64_compat  benchmarks/oracle_64 (compat on) on a 2 x 2 mesh, every
            level 2-6 sharded: 18 +- 1 iterations, relative Linf < 1e-3
            against oracle_64, one mode-1 sharded matvec within 1e-6 of the
@@ -193,7 +205,12 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
   distributed1  parallel.distributed.init as a world-size-1 NCCL group on a
            free localhost port, a 2 x 2 mesh of 4 shards on the card over
            it: one sharded matvec within 1e-6 of the one-device one and one
-           all_reduce (the norm over the shards), then the group destroyed
+           all_reduce (the norm over the shards); then the oracle64
+           problem solved on the mesh with its steps captured: K11-S's
+           split route (four launches and three all_reduces a step, in the
+           graph), 18 +- 1 iterations, true residual < 1e-5, relative Linf
+           < 1e-3 against oracle_64, the launch and byte gates of the
+           sharded phases; then the group destroyed
   north1024  BASELINE.json config 5 on one device: 1024^2, deg 3, g 0.5,
            np 4, f32, tol 1e-7, GMRES(80), bench sigma and charge (JAX's
            benchmarks/results_sharded_solve.json sz 1024): cold set_coeff,
@@ -218,19 +235,21 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            with --distributed as one process of an NCCL group (exit 0,
            within 1e-3 of the oracle)
 
-Every solve of one device runs GMRES with its state on the card and its
-Arnoldi step (the matvec, K11, K12; the preconditioner and its K9 in the
-DSA runs) captured as a CUDA graph at the solver's first solve and
-replayed (a captured 64^2 step: CAPTURED_STEP_64_NODES kernel nodes, no
-givens_kernel); the sharded phases step the same state uncaptured.  Each solve
-phase reports its gmres counts (steps, replays, cycles, solves, captures),
-host_reads, steps_after_done, graph_capture_s, and repeat_s, device_s /
-device_busy_share from the same solve repeated under torch.profiler (K9's
-device time there gives the DSA runs' precond_s); gates: the steps
-replayed but one eager step per capture, at most one step after
-convergence and iterations + 2 cycles + 2 host reads per inner solve,
-the matvecs the steps add up to, and K11 launches = steps on one device,
-K12 step launches = steps sharded and 0 on one device, K12's
+Every solve runs GMRES with its state on the card and its Arnoldi step
+(the matvec, K11 or on a mesh K11-S, each with K12's Givens step as its
+epilogue; the preconditioner and its K9 in the DSA runs) captured as a
+CUDA graph at the first solve and replayed (a captured 64^2 step:
+CAPTURED_STEP_64_NODES kernel nodes, no givens_kernel); the sharded
+phases keep one dict of graphs each, for their placed operator.  Each
+solve phase reports its gmres counts (steps, replays, cycles, solves,
+captures), host_reads, steps_after_done, graph_capture_s, and repeat_s,
+device_s / device_busy_share from the same solve repeated under
+torch.profiler (K9's device time there gives the DSA runs' precond_s);
+gates: the steps replayed but one eager step per capture (sharded too),
+at most one step after convergence and iterations + 2 cycles + 2 host
+reads per inner solve, the matvecs the steps add up to, and K11
+launches = steps on one device, K11-S launches = steps sharded (4 x
+steps on distributed1's split route), K12 step launches 0, K12's
 back-substitution = cycles, K9's cluster instance = the preconditioner's
 calls on demo128 and dsa64 and its grid instance on dsa512, beside every
 other launch count.  A replay
@@ -239,10 +258,11 @@ each captured step's graph holds them family by family against its kernel
 nodes, read through the driver API (replay_launches); one of each call a
 solve makes outside its captured step (the rhs, a forward, the f64 twin's,
 the preconditioner, the back-substitution; a sharded solve's matvec and
-Givens step) is captured into a throwaway graph, its counted launches held
-the same way (eager_launches); the repeat's counts stand beside what the
-profiler saw there (profiled_launches), which may be fewer by at most
-PROFILER_MISS_MAX records the profiler lost (profiler_missed), never more.
+back-substitution) is captured into a throwaway graph, its counted
+launches held the same way (eager_launches); the repeat's counts stand
+beside what the profiler saw there (profiled_launches), which may be
+fewer by at most PROFILER_MISS_MAX records the profiler lost
+(profiler_missed), never more.
 
 then the device kernels of one 64^2 matvec, of one replay of bench's
 captured step and of one sharded512 matvec beside the parent tree's,
@@ -417,6 +437,7 @@ class Kernels:
                          ("k9d", diffusion.launches), ("k9", pcg.launches),
                          ("k7", attenuation.launches), ("k10", halo.launches),
                          ("k11", krylov.launches),
+                         ("k11s", krylov.shard_launches),
                          ("k12", krylov.givens_launches),
                          ("k8", transfer.launches))
         self.shift = torch.as_tensor(parity_shift_table_np(),
@@ -986,10 +1007,130 @@ class Kernels:
                                        flush=self.flush)})
         return row
 
+    def k11s(self, shard, shards, inst, i, m=80, nq=NQ, split=False):
+        """K11-S, the sharded step after the matvec (CGS2 with K12's Givens
+        step as its epilogue), at step i (restart m) on `shards` shards of
+        shard = (lx, ly) squares, nq nodes each, on the card: the basis
+        rows of unit norm over all shards, those above i NaN (never read),
+        w and the state (the rotations, s and the column of a seeded
+        earlier cycle) from a seed.  Against cgs2_shard_plain then
+        givens_step_masked on the same card (TOL_KERNEL of the largest
+        value on V[i+1] and on H, s, cs, sn, the column and h2; the header
+        equal; u = V[i+1]; the rows up to i untouched, those above i + 1
+        still NaN); a step made inactive (done) changes nothing.  split:
+        the split route (four launches; the sum between them over one
+        card of one process is the card's own); else the fused one.  Timed
+        (each call on a fresh copy of the state, since a step moves i)
+        beside its plain version and beside the per-shard torch CGS2 that
+        K11-S replaced (library_ms: sliced to the rows up to i, a GEMV a
+        shard and pass, the sums added on the card, V[i+1] and u written;
+        its Givens step not included).  Bound: bytes, V[:i+1] and w read
+        once, V[i+1] and u written once over all shards, ((i + 1) + 3) N
+        itemsize, N the shards' n summed (operations: 8 (i + 1) N on the
+        FP64 CUDA cores)."""
+        torch, kr = self.torch, self.krylov
+        n = shard[0] * shard[1] * nq
+        V = self.rand((shards, m + 1, n), inst, normal=True, seed=i)
+        V /= torch.linalg.vector_norm(V, dim=(0, 2), keepdim=True)
+        V[:, i + 1:] = float("nan")
+        w = self.rand((shards, n), inst, normal=True, seed=1000 + i)
+        st = self.krylov_state(m, i, j=i + 1)
+        combine = (lambda parts: None) if split else None
+
+        def fresh(state):
+            return [V.clone(), w.clone(), torch.zeros_like(w), state]
+
+        def groups(a):
+            return [tuple(list(t.unbind(0)) for t in a[:3])]
+
+        got, want = fresh(st.clone()), fresh(st.clone())
+        kr.cgs2_givens_shards(groups(got), got[3], combine)
+        kr.cgs2_shard_plain(*groups(want)[0], want[3])
+        kr.givens_step_masked(want[3], m)
+        torch.cuda.synchronize()
+        L = kr.state_layout(m)
+        what = (f"K11-S {inst} {shards} x {shard[0]} x {shard[1]} i={i}"
+                + (" split" if split else ""))
+        err = float((got[0][:, i + 1] - want[0][:, i + 1]).abs().max())
+        scale = float(want[0][:, i + 1].abs().max())
+        body = slice(L.H, L.y)
+        err_st = float((got[3][body] - want[3][body]).abs().max())
+        scale_st = float(want[3][body].abs().max())
+        check(err <= TOL_KERNEL[inst] * scale,
+              f"{what}: V[i+1] max err {err} > {TOL_KERNEL[inst]} x {scale}")
+        check(err_st <= TOL_KERNEL[inst] * scale_st,
+              f"{what}: state max err {err_st} of {scale_st}")
+        hg, hw = got[3][:kr.HEADER].tolist(), want[3][:kr.HEADER].tolist()
+        check(all(hg[k] == hw[k] for k in (kr.I, kr.J, kr.DONE, kr.NORMB,
+                                           kr.TOL, kr.MAX_ITER))
+              and hg[kr.I] == i + 1
+              and abs(hg[kr.RESID] - hw[kr.RESID])
+              <= TOL_KERNEL[inst] * abs(hw[kr.RESID]),
+              f"{what}: header {hg}, plain {hw}")
+        check(torch.equal(got[2], got[0][:, i + 1]), f"{what}: u != V[i+1]")
+        check(torch.equal(got[0][:, :i + 1], V[:, :i + 1])
+              and bool(torch.isnan(got[0][:, i + 2:]).all()),
+              f"{what}: a row other than i + 1 moved")
+        idle = fresh(self.krylov_state(m, i, done=1.0))
+        before = [t.clone() for t in idle]
+        kr.cgs2_givens_shards(groups(idle), idle[3], combine)
+        check(all(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+                  for a, b in zip(idle, before)),
+              f"{what}: an inactive step changed its inputs")
+        del idle, before, want
+        item = V.element_size()
+        N = shards * n
+        nbytes = (i + 4) * N * item
+        bms, bby = bound_ms(nbytes, 8 * (i + 1) * N,
+                            peak=PEAK_F64_CUDA_CORES)
+        states = iter([st.clone() for _ in range(30)])
+        plains = iter([st.clone() for _ in range(10)])
+        gs = groups(got)
+        Vs, ws, us = gs[0]
+
+        def plain():
+            fresh_st = next(plains)
+            kr.cgs2_shard_plain(Vs, ws, us, fresh_st)
+            kr.givens_step_masked(fresh_st, m)
+
+        def library():
+            # the per-shard torch CGS2 K11-S replaced (the earlier
+            # ShardedSpace.cgs2_givens without its K12 launch)
+            Vf = [p[:i + 1] for p in Vs]
+
+            def total(parts):
+                acc = parts[0].clone()
+                for p in parts[1:]:
+                    acc += p
+                return acc
+
+            def project(wf):
+                h = total([Vk @ wk for Vk, wk in zip(Vf, wf)])
+                return h, [wk - h @ Vk for Vk, wk in zip(Vf, wf)]
+
+            h1, wf = project(ws)
+            h2, wf = project(wf)
+            wnorm = torch.sqrt(total([wk @ wk for wk in wf]))
+            scale_ = torch.where(wnorm == 0.0, 1.0, wnorm)
+            for p, uk, wk in zip(Vs, us, wf):
+                torch.div(wk, scale_, out=p[i + 1])
+                uk.copy_(p[i + 1])
+
+        return {"i": i, "shards": shards, "n_shard": n, "restart": m,
+                "route": "split" if split else "fused",
+                "max_abs_err": err, "max_abs_plain": scale,
+                "max_abs_err_state": err_st,
+                "ms": event_ms(torch, lambda: kr.cgs2_givens_shards(
+                    gs, next(states), combine), flush=self.flush),
+                "plain_ms": event_ms(torch, plain, reps=5, flush=self.flush),
+                "library_ms": event_ms(torch, library, reps=5,
+                                       flush=self.flush),
+                "bytes": nbytes, "bound_ms": bms, "bound_by": bby}
+
     def k12(self, i, m=80):
-        """K12 at step i (restart m): the Givens step alone (the sharded
-        route's launch; one device folds it into K11, whose row times it
-        there) on a seeded state against givens_step_plain (the whole state;
+        """K12 at step i (restart m): the Givens step alone (no path's
+        launch: K11 and K11-S fold it in, and K11's row times it there) on
+        a seeded state against givens_step_plain (the whole state;
         gate 1e-14 of its largest value: the same operations, each rounded
         alike) and the back-substitution of the i + 1 steps it leaves
         against givens_backsub_plain (1e-12: its sums in another order).
@@ -1403,7 +1544,7 @@ KERNEL_FUNCTIONS = {
     "k1": "m2l_translate_[a-z_]*kernel", "k2": "near_contract_kernel",
     "k3": "offsets_translate_kernel", "k9d": "diffusion_apply_kernel",
     "k9": "pcg_(cluster|grid)_kernel", "k10": "halo_fill_kernel",
-    "k11": "cgs2_kernel",
+    "k11": "cgs2_kernel", "k11s": "cgs2_shards_kernel",
     "k12_step": "givens_kernel", "k12_backsub": "backsub_kernel",
     "k8": "transfer_(up|down)_kernel",
 }
@@ -1471,8 +1612,9 @@ def graph_kernels(graph):
     return out
 
 
-def replay_launches(kern, s):
-    """Each GMRES step that solver s holds captured: {plan: {family:
+def replay_launches(kern, graphs):
+    """Each GMRES step held captured in `graphs` (a solver's _graphs, or a
+    sharded phase's dict): {plan: {family:
     (launches its capture counted for a replay, kernel nodes of the
     family's CUDA function in its graph)}}.  The capture's counts are all
     that a solve's counters infer: an eager launch is counted by its
@@ -1481,7 +1623,7 @@ def replay_launches(kern, s):
 
     names = {id(d): name for name, d in kern.counters}
     out = {}
-    for key, plan in s._graphs.items():
+    for key, plan in graphs.items():
         if plan.graph is None:
             continue
         counted = {}
@@ -1570,7 +1712,7 @@ def solve_calls(torch, s, qd, precond=None):
     return calls, hold
 
 
-def solve_device_time(torch, kern, out, fn, precond=None, solver=None,
+def solve_device_time(torch, kern, out, fn, precond=None, graphs=None,
                       eager=None):
     """The counted solve again under the profiler (the same work: its
     counters were read; the graph is captured by now; the charge already
@@ -1588,8 +1730,8 @@ def solve_device_time(torch, kern, out, fn, precond=None, solver=None,
     solve, and none when the same solves ran outside a whole run; more
     than PROFILER_MISS_MAX fails.  Every launch is held exactly as well:
     what the counters infer, the launches of a captured step, by
-    replay_launches (each of the solver's captured steps against the
-    kernel nodes of its graph, family by family), and the eager launches
+    replay_launches (each captured step in `graphs` against the kernel
+    nodes of its graph, family by family), and the eager launches
     by eager_launches on `eager` (fn, hold): one of each call the solve
     makes outside its captured step.  With the DSA preconditioner, K9's
     device seconds in the repeat (precond_s), their share of repeat_s and
@@ -1623,8 +1765,8 @@ def solve_device_time(torch, kern, out, fn, precond=None, solver=None,
                     "precond_share_of_solve": k9 / wall if per else None,
                     "precond_ms_per_cg_iteration":
                         1e3 * k9 / max(cg, 1) if per else None})
-    if solver is not None:
-        out["replay_launches"] = replay_launches(kern, solver)
+    if graphs is not None:
+        out["replay_launches"] = replay_launches(kern, graphs)
         for key, fams in out["replay_launches"].items():
             for fam, (n, nodes) in fams.items():
                 check(n == nodes, f"{what}: a replay of the step {key} "
@@ -1672,41 +1814,38 @@ def counted_solve(torch, kern, s, q, precond=None, warm=True):
         out.update(dsa_counts(precond))
     qd = torch.as_tensor(q, device=DEVICE)
     solve_device_time(torch, kern, out,
-                      lambda: s.solve(qd, precond=precond), precond, s,
-                      solve_calls(torch, s, qd, precond))
+                      lambda: s.solve(qd, precond=precond), precond,
+                      s._graphs, solve_calls(torch, s, qd, precond))
     return res, out
 
 
-def gmres_launches(run, inst, sharded=False):
-    """K11 and K12 launches of a counted solve: on one device K11, with
-    K12's Givens step as its epilogue, once a step and no K12 step of its
-    own; sharded, K12's step once a step (the sharded CGS2 is torch per
-    shard) and no K11; K12's back-substitution once a cycle."""
+def gmres_launches(run, inst, route=None):
+    """K11, K11-S and K12 launches of a counted solve, K12's Givens step
+    always their epilogue (no K12 step of its own): on one device
+    (route None) K11 once a step; sharded, K11-S once a step on the fused
+    route, four times a step on the split route (a process group); K12's
+    back-substitution once a cycle."""
     g = run["gmres"]
-    out = {"k12_backsub": g["cycles"]}
-    if sharded:
-        out["k12_step"] = g["steps"]
-    else:
+    out = {"k12_backsub": g["cycles"], "k12_step": 0}
+    if route is None:
         out[f"k11_{inst}"] = g["steps"]
+    else:
+        out[f"k11s_{inst}"] = g["steps"] * {"fused": 1, "split": 4}[route]
     return out
 
 
-def check_gmres(name, run, iterations, per_forward=1, extra=0,
-                sharded=False):
-    """The counted solve's GMRES steps: one device, every step replayed
-    from the captured graph but one eager step per capture (sharded: none
-    captured); at most one step after convergence per inner solve;
+def check_gmres(name, run, iterations, per_forward=1, extra=0):
+    """The counted solve's GMRES steps: every step replayed from the
+    captured graph but one eager step per capture (one device and sharded
+    alike); at most one step after convergence per inner solve;
     host_reads within iterations + 2 cycles + 2 per inner solve; and the
     matvecs the steps' replays add up to: per_forward sweeps for r0, each
     step and each cycle's residual of every inner solve, plus `extra` (the
     rhs, counted where it goes through the same counter)."""
     g = run["gmres"]
-    if sharded:
-        check(g["replays"] == 0, f"{name}: sharded steps replayed")
-    else:
-        check(g["replays"] > 0 and g["replays"] == g["steps"] - g["captures"],
-              f"{name}: {g['steps']} steps, {g['replays']} replayed, "
-              f"{g['captures']} captures")
+    check(g["replays"] > 0 and g["replays"] == g["steps"] - g["captures"],
+          f"{name}: {g['steps']} steps, {g['replays']} replayed, "
+          f"{g['captures']} captures")
     check(g["steps_after_done"] <= g["solves"],
           f"{name}: {g['steps_after_done']} steps after convergence in "
           f"{g['solves']} solves")
@@ -1894,8 +2033,8 @@ def dense_run(torch, kern, s):
                 "steps_after_done": out["gmres"]["steps_after_done"],
                 "graph_capture_s": out["gmres"]["capture_s"]})
     qd = torch.as_tensor(q, device=DEVICE)
-    solve_device_time(torch, kern, out, lambda: s.solve(qd), solver=s,
-                      eager=solve_calls(torch, s, qd))
+    solve_device_time(torch, kern, out, lambda: s.solve(qd),
+                      graphs=s._graphs, eager=solve_calls(torch, s, qd))
     x = res.x.cpu().numpy().reshape(-1)
     out.update({
         "iterations": res.iterations, "converged": res.converged,
@@ -2656,12 +2795,15 @@ def free_port() -> int:
     return port
 
 
-def sharded_solve(torch, kern, s, mesh, q, tol, restart=80, max_iter=400,
-                  placed=None):
+def sharded_solve(torch, kern, s, mesh, q, tol, graphs, restart=80,
+                  max_iter=400, placed=None):
     """The sharded corrected matvec and a GMRES solve of u - K0(sigma_s u)
     = K0 q on Sharded fields (the JAX package's tests/test_parallel.py
-    solve), with the counters set to 0 just before and read just after:
-    launches, collectives (parallel.halo), matvecs.  placed: the
+    solve, as benchmarks/sharded_solve.py:107-112 jits it), with the
+    counters set to 0 just before and read just after: launches,
+    collectives (parallel.halo), matvecs.  Every step is one replay of the
+    step captured into `graphs`, the dict the phase keeps for its placed
+    triple (a capture at the first solve that uses it).  placed: the
     sharded_solver(s, mesh) triple, placed by the caller (default: placed
     here).  The true residual is taken through the one-device operator,
     or through the sharded one where the solver's caches were moved onto
@@ -2673,23 +2815,34 @@ def sharded_solve(torch, kern, s, mesh, q, tol, restart=80, max_iter=400,
     sig = api.shard_field(mesh, s.sigma_s)
     u = api.shard_field(mesh, torch.as_tensor(q, dtype=s.dtype,
                                               device=DEVICE))
-    calls = []
+    calls = {"matvecs": 0}      # a host counter: replays add to it
 
     def matvec(v):
-        calls.append(1)
+        calls["matvecs"] += 1
         return v - apply_fn(caches, ms[0], 0, sig * v)
 
     def solve():
         b = apply_fn(caches, ms[0], 0, u)
-        return gmres(matvec, b, restart=restart, max_iter=max_iter, tol=tol)
+        return gmres(matvec, b, restart=restart, max_iter=max_iter, tol=tol,
+                     graphs=graphs, counters=[(calls, "matvecs")])
 
+    # a first solve (the step's capture where `graphs` has none), then
+    # the counted one
+    g0 = gmres_stats()
+    t0 = time.perf_counter()
+    solve()
+    torch.cuda.synchronize()
+    first = {"solve_first_s": time.perf_counter() - t0,
+             "solve_first_gmres": gmres_since(g0)}
     kern.reset()
     halo.reset_collectives()
+    calls["matvecs"] = 0
     g0 = gmres_stats()
     t0 = time.perf_counter()
     res = solve()
     torch.cuda.synchronize()
-    out = {"solve_s": time.perf_counter() - t0, "matvecs": 1 + len(calls),
+    out = {"solve_s": time.perf_counter() - t0, **first,
+           "matvecs": 1 + calls["matvecs"],
            "launches": kern.counts(),
            "collectives": halo.collective_stats()._asdict(),
            "gmres": gmres_since(g0),
@@ -2697,20 +2850,20 @@ def sharded_solve(torch, kern, s, mesh, q, tol, restart=80, max_iter=400,
            "givens_estimate": res.residual}
     out.update({"host_reads": out["gmres"]["host_reads"],
                 "steps_after_done": out["gmres"]["steps_after_done"],
-                "graph_capture_s": out["gmres"]["capture_s"]})
+                "graph_capture_s": first["solve_first_gmres"]["capture_s"]})
     from aniso_torch.kernels import krylov
 
     st = torch.zeros(krylov.state_layout(restart).len, dtype=torch.float64,
                      device=DEVICE)
 
     def eager_calls():
-        # the rhs and every matvec, each step's Givens step, each cycle's
-        # back-substitution: no step of a sharded solve is captured
+        # what runs outside the captured step: the rhs, r0 and each
+        # cycle's residual (a matvec each), the back-substitution
         apply_fn(caches, ms[0], 0, sig * u)
-        krylov.givens_step(st, restart)
         krylov.givens_backsub(st, restart)
 
-    solve_device_time(torch, kern, out, solve, eager=(eager_calls, ()))
+    solve_device_time(torch, kern, out, solve, graphs=graphs,
+                      eager=(eager_calls, [(calls, "matvecs")]))
     x = res.x.full()
     qt = torch.as_tensor(q, dtype=s.dtype, device=DEVICE)
     if s._caches is not None:
@@ -2756,24 +2909,27 @@ def sharded_k8(s, mesh):
 
 
 def check_sharded_counts(name, out, mesh, s, sharded_levels, field_bytes,
-                         inst="f32"):
-    """Launches per matvec: K10 once for u and once per sharded level
-    (one launch: every shard on one card), K1-S and K2-S once per shard and
-    sharded level, K1 whole-level once per replicated level, K8's passes
-    as sharded_k8 counts them; permute bytes O(halo), all-gather bytes only
-    those of the replicated levels' M."""
+                         inst="f32", route="fused"):
+    """Every step replayed (check_gmres); launches per matvec: K10 once for
+    u and once per sharded level (one launch: every shard on one card),
+    K1-S and K2-S once per shard and sharded level, K1 whole-level once per
+    replicated level, K8's passes as sharded_k8 counts them; K11-S and
+    K12 as gmres_launches counts them on `route`; permute bytes O(halo),
+    all-gather bytes only those of the replicated levels' M; every
+    captured step's kernel nodes its counted launches (solve_device_time's
+    replay_launches)."""
     tcfg = s._tcfg
     n, shards = out["matvecs"], mesh.size
     repl = [lv for lv in range(2, tcfg.leaf_level + 1)
             if lv not in sharded_levels]
-    check_gmres(name, out, out["iterations"], extra=1, sharded=True)
+    check_gmres(name, out, out["iterations"], extra=1)
     check_launches(name, out, {
         f"k10_{inst}": n * (1 + len(sharded_levels)),
         f"k1_shard_{inst}": n * shards * len(sharded_levels),
         f"k2_shard_{inst}": n * shards,
         f"k1_{inst}": n * len(repl),
         **{k: n * v for k, v in sharded_k8(s, mesh).items()},
-        **gmres_launches(out, inst, sharded=True)})
+        **gmres_launches(out, inst, route)})
     st = out["collectives"]
     itemsize = 4 if inst == "f32" else 8
     gathered = n * sum(4 ** lv * R * itemsize for lv in repl)
@@ -2868,7 +3024,7 @@ def run_sharded512(torch, kern):
      out["sharded_matvec_device_kernels"]) = device_ms_per_call(
         torch, lambda: apply_fn(caches, ms[0], 0, u))
     del apply_fn, caches, ms
-    res, run, x, _ = sharded_solve(torch, kern, s, mesh, q, 1e-7)
+    res, run, x, _ = sharded_solve(torch, kern, s, mesh, q, 1e-7, {})
     out.update(run)
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     out["other_meshes"] = other_meshes(torch, kern, s, qt, ref)
@@ -2901,7 +3057,7 @@ def run_sharded64_compat(torch, kern):
            "set_coeff_s": timed_set_coeff(torch, s)}
     mesh = api.make_mesh(devices=[DEVICE] * 4)
     res, run, x, (apply_fn, caches, ms) = sharded_solve(
-        torch, kern, s, mesh, bench_charge(grid), 1e-7)
+        torch, kern, s, mesh, bench_charge(grid), 1e-7, {})
     out.update(run)
     out["mesh"] = list(mesh.shape)
     xf = x.double().cpu().numpy().reshape(-1)
@@ -2929,8 +3085,10 @@ def run_sharded64_compat(torch, kern):
 def run_distributed1(torch, kern):
     """parallel.distributed.init as a world-size-1 NCCL group on a free
     localhost port, a 2 x 2 mesh of 4 shards on the card over it: one
-    sharded matvec against the one-device one, and one all_reduce (the
-    norm of its result over the shards)."""
+    sharded matvec against the one-device one, one all_reduce (the norm of
+    its result over the shards), then the oracle64 problem solved on the
+    mesh (sharded_solve): K11-S's split route, each step four launches and
+    three all_reduces, captured with the step; then the group destroyed."""
     from aniso_torch.parallel import api, distributed, halo
 
     port = free_port()
@@ -2952,21 +3110,41 @@ def run_distributed1(torch, kern):
         out = {"phase": "distributed1", "backend": backend, "port": port,
                "world_size": torch.distributed.get_world_size(),
                "mesh": list(mesh.shape), "distributed": mesh.distributed,
-               "collectives": st._asdict(),
+               "capturable": out_sh.krylov_space().capturable,
+               "collectives_norm": st._asdict(),
                "matvec_rel_err": float(torch.linalg.vector_norm(got - ref)
                                        / torch.linalg.vector_norm(ref)),
                "norm_rel_err": abs(norm - float(torch.linalg.vector_norm(
                    ref.double()))) / float(torch.linalg.vector_norm(
                        ref.double()))}
+        del apply_fn, caches, ms, out_sh, got
+        res, run, x, _ = sharded_solve(torch, kern, s, mesh,
+                                       bench_charge(s.grid), 1e-7, {})
+        out.update(run)
+        xf = x.double().cpu().numpy().reshape(-1)
+        out["oracle_rel_linf"] = oracle_error(s.grid, "oracle_64", xf)
     finally:
         distributed.shutdown()
     emit(out)
     check(out["backend"] == "nccl" and out["world_size"] == 1
-          and out["distributed"], f"distributed1: {out}")
+          and out["distributed"] and out["capturable"], f"distributed1: {out}")
     check(out["matvec_rel_err"] < 1e-6,
           f"distributed1: matvec {out['matvec_rel_err']}")
     check(st.counts == {"all-reduce": 1} and out["norm_rel_err"] < 1e-5,
           f"distributed1: {st}, norm {out['norm_rel_err']}")
+    check(res.converged and abs(res.iterations - 18) <= 1,
+          f"distributed1: {res.iterations} iterations, expected 18 +- 1")
+    check(out["true_relative_residual"] < 1e-5
+          and out["oracle_rel_linf"] < 1e-3,
+          f"distributed1: true residual {out['true_relative_residual']}, "
+          f"{out['oracle_rel_linf']} vs oracle_64")
+    check_sharded_counts("distributed1", out, mesh, s,
+                         list(range(2, s._tcfg.leaf_level + 1)),
+                         s.grid.n_nodes * 4, route="split")
+    # three sums over shards a step, each an all_reduce of the group
+    steps = out["gmres"]["steps"]
+    check(out["collectives"]["counts"].get("all-reduce", 0) >= 3 * steps,
+          f"distributed1: {out['collectives']} in {steps} steps")
     return out
 
 
@@ -3039,7 +3217,8 @@ def run_sharded1024(torch, kern, s, x1):
     matvec of the charge is taken before, and north1024's x kept.
     Printed: placement_s, shard_copies_bytes (the memory placement added:
     about 0 once moved; sharded512's copies add the whole caches),
-    placement_peak_bytes and the phase's peak_memory_bytes, the sharded
+    placement_peak_bytes, solve_peak_bytes (the sharded solves', their
+    captured step held) and the phase's peak_memory_bytes, the sharded
     matvec's times.  Gates: the sharded matvec within 1e-6 of the
     one-device one, 14 +- 1 iterations, the true residual (through the
     sharded operator) < 1e-5, check_sharded_counts."""
@@ -3074,9 +3253,12 @@ def run_sharded1024(torch, kern, s, x1):
     (out["sharded_matvec_device_ms"],
      out["sharded_matvec_device_kernels"]) = device_ms_per_call(
         torch, lambda: apply_fn(caches, ms[0], 0, u))
+    torch.cuda.reset_peak_memory_stats()
     res, run, x, _ = sharded_solve(torch, kern, s, mesh, bench_charge(s.grid),
-                                   1e-7, placed=placed)
+                                   1e-7, {}, placed=placed)
     out.update(run)
+    # the solves' peak, the captured step's graph (its pool) held
+    out["solve_peak_bytes"] = torch.cuda.max_memory_allocated()
     out.update({"x_rel_diff_vs_one_device": float(
         torch.linalg.vector_norm(x - x1) / torch.linalg.vector_norm(x1)),
         "finite": bool(torch.isfinite(x).all()),
@@ -3236,9 +3418,11 @@ def main():
                   + usage.get(krylov.SOURCE, [])
                   + usage.get(pcg.SOURCE, []))
     emit({"phase": "redesigned_kernels", "ptxas": redesigned})
-    # K8's two kernels, K11's one and K9's two, compiled in both instances
+    # K8's two kernels, K11's one, K11-S's one and K9's two, compiled in
+    # both instances
     for name, src in ((KERNEL_FUNCTIONS["k8"], transfer.SOURCE),
                       (KERNEL_FUNCTIONS["k11"], krylov.SOURCE),
+                      (KERNEL_FUNCTIONS["k11s"], krylov.SOURCE),
                       ("pcg_cluster_kernel", pcg.SOURCE),
                       ("pcg_grid_kernel", pcg.SOURCE)):
         pat = re.compile(name)
@@ -3390,9 +3574,23 @@ def main():
     kry[BIG, "f32"] = {i: kern.k11(BIG, "f32", i) for i in steps}
     torch.cuda.empty_cache()
     k12 = {i: kern.k12(i) for i in steps}
+    # K11-S at the shards of sharded512 (8 of 256 x 128; f32 at every
+    # step, f64 at step 14) and sharded1024 (8 of 512 x 256, f32), and at
+    # sharded64_compat's and distributed1's (4 of 32 x 32, f32, step 14:
+    # the resident fused route and the split route)
+    k11s = {}
+    for i in steps:
+        k11s[f"512_f32_i{i}"] = kern.k11s(shard, 8, "f32", i)
+    k11s["512_f64_i14"] = kern.k11s(shard, 8, "f64", 14)
+    torch.cuda.empty_cache()
+    for i in steps:
+        k11s[f"1024_f32_i{i}"] = kern.k11s(big_shard, 8, "f32", i)
+        torch.cuda.empty_cache()
+    k11s["64_f32_i14"] = kern.k11s((32, 32), 4, "f32", 14)
+    k11s["64_f32_i14_split"] = kern.k11s((32, 32), 4, "f32", 14, split=True)
     emit({"phase": "krylov_vs_plain",
           "k11": {f"{sz}_{inst}": rows for (sz, inst), rows in kry.items()},
-          "k12": k12})
+          "k11s": k11s, "k12": k12})
 
     bench, _ = run_problem(torch, kern, "bench", 64, 0.95, False,
                            expect_iters=14, timing=True)
@@ -3775,6 +3973,28 @@ def main():
                     launches_dsa64=sum(o[k]["launches"]["k11_f64"]
                                        for o in dsa64
                                        for k in ("plain", "dsa"))),
+        # K11-S, the sharded step (CGS2 with the Givens step as its
+        # epilogue): launches once a step of sharded512's solve (the fused
+        # route); times at step 14 on sharded512's 8 shards, the other
+        # steps, f64 and sharded1024's shards beside; library_ms the
+        # per-shard torch CGS2 it replaced
+        {"name": "cgs2_shards", "id": "K11-S", "route": "cuda",
+         "source": "aniso_torch/csrc/krylov.cu",
+         "replaces": "aniso_tpu/solver/gmres.py:13",
+         "replaces_body": "aniso_tpu/solver/gmres.py:160",
+         "launches": sh512["launches"]["k11s_f32"],
+         "launches_sharded64": sh64["launches"]["k11s_f32"],
+         "launches_sharded1024": sh1024["launches"]["k11s_f32"],
+         "launches_distributed1_split": dist1["launches"]["k11s_f32"],
+         "max_abs_err": max(r["max_abs_err"] for k, r in k11s.items()
+                            if "f32" in k),
+         **{k: k11s["512_f32_i14"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "shapes": "sharded512: 8 shards of 256 x 128 x 9, step 14, "
+                   "restart 80",
+         **{f"{k}_{key}": r[k] for key, r in k11s.items()
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "max_abs_err_f64": k11s["512_f64_i14"]["max_abs_err"]},
         # K12's back-substitution, once a cycle: bench's cycle ends after 14
         # steps (a 15 x 15 triangle), a full cycle's 80 x 80 beside, with
         # torch.linalg.solve_triangular on the same triangle as library_ms
@@ -3794,12 +4014,12 @@ def main():
          **{f"library_ms_k{i + 1}": k12[i]["backsub_library_ms"]
             for i in steps},
          **{f"bound_ms_k{i + 1}": k12[i]["backsub_bound_ms"] for i in steps}},
-        # K12's Givens step on its own: the sharded route's launch, once a
-        # step (one device runs it as K11's epilogue: fused_cost_ms)
+        # K12's Givens step on its own: no path launches it (K11 and K11-S
+        # run it as their epilogue: fused_cost_ms); timed apart
         {"name": "givens", "id": "K12", "route": "cuda",
          "source": "aniso_torch/csrc/krylov.cu",
          "replaces": "aniso_tpu/solver/gmres.py:66",
-         "launches": sh512["launches"]["k12_step"],
+         "launches": sh512["launches"]["k12_step"], "on_main_path": False,
          "launches_bench": bench["launches"]["k12_step"],
          "launches_refined512": rl["k12_step"],
          "launches_sharded1024": sh1024["launches"]["k12_step"],

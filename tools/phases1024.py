@@ -8,7 +8,8 @@ caches move onto the mesh) and about two minutes, one of them the kernels'
 build.  Prints the nvidia-smi name and power limit line, then one JSON line
 a stage: the build, each kernel's rows at north1024's and sharded1024's
 shapes (K1 at every level of 1024^2, K2, K8, K11 at steps 0, 14 and 79;
-K10, K1-S, K2-S on one 512 x 256 shard; each against its plain version,
+K10, K1-S, K2-S on one 512 x 256 shard, K11-S on eight of them at steps
+0, 14 and 79; each against its plain version,
 then timed, as chip_smoke.py's kernels_vs_plain rows), then the two phases'
 lines with their gates.  K6's resident weights are built by north1024's
 set_coeff here (chip_smoke.py builds them earlier, in refined512), so its
@@ -60,7 +61,9 @@ def main():
             ("k1s_f32", lambda: kern.k1s(big, "f32", lv[1:])),
             ("k2s_f32", lambda: kern.k2s(*shard, "f32")),
             ("k11_f32", lambda: [kern.k11(big, "f32", i)
-                                 for i in (0, 14, 79)])):
+                                 for i in (0, 14, 79)]),
+            ("k11s_f32", lambda: [kern.k11s(shard, 8, "f32", i)
+                                  for i in (0, 14, 79)])):
         t0 = time.perf_counter()
         try:
             cs.emit({"phase": "row", "name": name, "rows": fn(),

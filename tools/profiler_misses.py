@@ -54,9 +54,9 @@ def main(argv=None) -> int:
         setattr(cs, "run_" + name, in_phase(name, getattr(cs, "run_" + name)))
     gated = cs.solve_device_time
 
-    def repeated(torch, kern, out, fn, precond=None, solver=None,
+    def repeated(torch, kern, out, fn, precond=None, graphs=None,
                  eager=None):
-        gated(torch, kern, out, fn, precond, solver, eager)
+        gated(torch, kern, out, fn, precond, graphs, eager)
         if phase[0] is None:
             return
         lost = [out["profiler_missed"]]

@@ -6,13 +6,17 @@ checkouts of the port on one card.
 
 imports aniso_torch from DIR (default: the checkout that holds this file),
 builds each phase's solver and its sharded operator once, solves once
-untimed, then times `reps` solves (the rhs matvec and GMRES, as the phases
-time them) and profiles one more.  It prints one JSON line: the card and
-its power limit, the tree, and per phase the times, their median, the
-iterations, and the device seconds and device kernels of the profiled
-solve; matvec_host_s: the host seconds spent inside GMRES's matvec calls
-(issuing their kernels: the card runs behind), rest_host_s: the solve's
-other seconds (the rhs, GMRES's own work and its waits on the card).
+untimed (where the tree captures the sharded step, into a dict of graphs
+kept for the phase, as chip_smoke.py keeps one), then times `reps` solves
+(the rhs matvec and GMRES, as the phases time them) and profiles one
+more.  It prints one JSON line: the card and its power limit, the tree,
+and per phase whether its steps were captured, the times, their median,
+the iterations, and the device seconds, device kernels and busy share
+(device seconds over its wall seconds) of the profiled solve;
+matvec_host_s: the host seconds spent inside GMRES's matvec calls made
+from Python (issuing their kernels: the card runs behind; a replayed
+step makes none), rest_host_s: the solve's other seconds (the rhs,
+GMRES's own work, its replays and its waits on the card).
 Run two trees alternately (A B B A ...) on one card to compare them.  The
 phases' shapes are those of chip_smoke.py:
   sharded512: 512^2, deg 3, g 0.5, np 4, f32, tol 1e-7, a 2 x 4 mesh;
@@ -75,9 +79,16 @@ def phase(torch, name, reps):
         in_matvec[0] += time.perf_counter() - t0
         return out
 
+    # a tree whose sharded step can be captured (ShardedSpace.capturable a
+    # property) keeps its graphs; an older one steps eagerly
+    captured = isinstance(getattr(api.ShardedSpace, "capturable", None),
+                          property)
+    graphs = {} if captured else None
+
     def solve():
         b = apply_fn(caches, ms[0], 0, u)
-        res = gmres(matvec, b, restart=80, max_iter=400, tol=1e-7)
+        res = gmres(matvec, b, restart=80, max_iter=400, tol=1e-7,
+                    graphs=graphs)
         torch.cuda.synchronize()
         return res
 
@@ -90,13 +101,18 @@ def phase(torch, name, reps):
         times.append(time.perf_counter() - t0)
         matvec_s.append(in_matvec[0])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         solve()
+        wall = time.perf_counter() - t0
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return {"solve_s": times, "median_s": statistics.median(times),
+    device_s = sum(e.self_device_time_total for e in rows) / 1e6
+    return {"captured": captured, "solve_s": times,
+            "median_s": statistics.median(times),
             "matvec_host_s": matvec_s,
             "rest_host_s": [t - mv for t, mv in zip(times, matvec_s)],
             "iterations": res.iterations, "converged": bool(res.converged),
-            "device_s": sum(e.self_device_time_total for e in rows) / 1e6,
+            "device_s": device_s, "profiled_wall_s": wall,
+            "device_busy_share": device_s / wall,
             "device_kernels": sum(e.count for e in rows)}
 
 
