@@ -30,9 +30,13 @@ test (:154-156, :191-192), and the back-substitution that follows it
       CPU runs the sharded step as the card's graph does.
 
 The CUDA kernels are csrc/krylov.cu; its header states the bound (bytes for
-K11, a launch's latency for K12) and the design (K11 one cooperative launch
-in three phases between grid barriers, fixed-order float64 sums, V read
-once where a block's chunk of it fits shared memory (cgs2_plan), block 0
+K11, a launch's latency for K12) and the design (K11 and K11-S one block
+code, one cooperative launch in three passes between grid barriers over
+the shards' vectors cut into one range an SM, fixed-order float64 sums;
+on a small field the lean instance, its range resident or read in place;
+else at step i a block keeps the most of its range that fits shared memory
+and streams the rest through a ring of bulk copies (k11_plan, a pure
+function of the shapes; step_shape, what a block does at step i), block 0
 running the Givens step after the last barrier; K12's step alone one
 thread; the back-substitution one block, H's triangle in shared memory,
 32-column diagonal blocks solved on one warp).  The step's i, j,
@@ -64,22 +68,28 @@ SYMBOLS = {"f32": "aniso_cgs2_f32", "f64": "aniso_cgs2_f64"}
 _ARGTYPES = ((ctypes.c_void_p,) * 5
              + (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_int, ctypes.c_longlong)
-             + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+             + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
 _STATE_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
 SHARD_SYMBOLS = {"f32": "aniso_cgs2_shards_f32",
                  "f64": "aniso_cgs2_shards_f64"}
-_SHARD_ARGTYPES = ((ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
+_SHARD_ARGTYPES = ((ctypes.c_void_p, ctypes.c_int)
                    + (ctypes.c_void_p,) * 2
                    + (ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_longlong) + (ctypes.c_int,) * 6
+                      ctypes.c_int, ctypes.c_longlong) + (ctypes.c_int,) * 7
                    + (ctypes.c_void_p,))
 MAX_SHARDS = 16                 # K11-S's shards a launch (kMaxShards)
 FUSED = 4                       # K11-S's one-launch phase (kFused)
-THREADS = 512                   # K11's block (kThreads in the source)
-WARPS = THREADS // 32
-ROWS = 8                        # rows the streamed pass (a) holds (kRows)
-TILE = 128                      # the narrowest streamed (b) tile (kTile)
-MIN_VECTORS = 32                # a block's least share of a row, in vectors
+EMPTY = 5                       # the empty step's phase (kEmpty)
+CONSUMER_WARPS = 12             # K11's consumer warps (kConsumerWarps)
+LEAN_WARPS = 16                 # the lean instance's warps (kLeanWarps)
+RMAX = 8                        # rows a thread sums in registers (kRmax)
+MAX_STAGES = 4                  # the ring's stages at most (kMaxStages)
+ALIGN = 8                       # vectors of a 128-byte line (kAlign)
+STAGE_MAX = 65536               # a stage's bytes at most
+STAGES = 3                      # the ring's stages
+L2_BLOCK = 320 * 1024           # a vector block's rows' bytes (kL2Block)
+BULK_MIN = 2048                 # a bulk-copied row's least bytes (kBulkMin)
+MIN_VECTORS = 32                # a block's least share, in vectors
 
 launches = {"f32": 0, "f64": 0}                  # K11
 shard_launches = {"f32": 0, "f64": 0}            # K11-S
@@ -155,52 +165,203 @@ def cgs2_plain(V, w, u, state) -> None:
     state[L.h2:L.h2 + i + 1] = h2[:i + 1].to(torch.float64)
 
 
-class Cgs2Plan(NamedTuple):
-    """K11's launch: `blocks` blocks (at most one an SM), each owning
-    `chunk` elements of every row; resident: the block's chunk of V's m
-    rows and of w held in shared memory (V read once), else V streamed
-    three times, pass (b) keeping up to `stash` rows of a tile of TILE
-    vectors (fewer rows of a wider tile) in shared memory, the others read
-    again."""
+class K11Plan(NamedTuple):
+    """K11's and K11-S's launch (csrc/krylov.cu's Plan): `blocks` blocks
+    (at most one an SM), each owning `chunk` vectors of vec values of the
+    shards' concatenated rows (the last block fewer); a ring of `stages`
+    stages of `stage_bytes` (none: the lean instance, where a block's range
+    of every row fits its shared memory); `res_bytes` beside it for the
+    resident share (none on the split route); `smem` bytes of dynamic
+    shared memory, `pool` of them after the ring instance's head."""
     blocks: int
     chunk: int
-    resident: bool
-    stash: int
-    smem: int       # bytes of dynamic shared memory
+    vec: int
+    stages: int
+    stage_bytes: int
+    res_bytes: int
+    smem: int
+    pool: int       # the shared memory after the head: a block's whole
+                    # range, where it fits there, needs no ring
 
 
-def _head_bytes(m: int) -> int:
-    """h1, h2 and the warps' row sums (csrc/krylov.cu:cgs2_head)."""
-    return 8 * ((2 * (m + 1) + WARPS * max(m + 1, ROWS) + 1) & ~1)
+class StepShape(NamedTuple):
+    """What a block of the plan does at step i (csrc/krylov.cu:shape_of):
+    R rows; the resident share, r vectors at row stride rs packs, read G
+    lanes a vector, the rows in `rounds`; the rest in nvb vector blocks of
+    vb vectors (gs lanes a vector), each nc chunks of rc rows, a chunk a
+    stage at row stride ts."""
+    R: int
+    G: int
+    rounds: int
+    r: int
+    rs: int
+    vb: int
+    gs: int
+    rc: int
+    nc: int
+    ts: int
+    nvb: int
+    tile: bool
+    whole: bool     # the range resident in the pool, no ring this step
+
+
+def head_bytes(m: int) -> int:
+    """h1, h2, the consumer warps' row and norm sums, the mbarriers, the
+    block's segments and the step's shape (csrc/krylov.cu:k11_head)."""
+    n = ((2 + CONSUMER_WARPS) * (m + 1) + CONSUMER_WARPS + 2 * MAX_STAGES
+         + 1 + 3 * MAX_SHARDS + 1 + 8 + 1) & ~1
+    return 8 * n
+
+
+def lean_head_bytes(m: int) -> int:
+    """The lean instance's head: h1, h2 and its warps' row sums
+    (csrc/krylov.cu:lean_head)."""
+    return 8 * (((2 + LEAN_WARPS) * (m + 1) + 1) & ~1)
+
+
+def lanes(R: int) -> int:
+    """The lanes that share a vector at R rows (csrc/krylov.cu:lanes_of)."""
+    G = 1
+    while G < 32 and -(-R // G) > RMAX:
+        G *= 2
+    return G
+
+
+def _stride_floor(x: int, G: int) -> int:
+    """The largest row stride up to x that keeps a quarter-warp's loads in
+    eight bank groups at G lanes a vector (0 if none)."""
+    if x <= 0:
+        return 0
+    if G == 1:
+        return x
+    if G >= 8:
+        return x if x & 1 else x - 1
+    return max(0, x - (x - 8 // G) % 8)
+
+
+def _stride_ceil(x: int, G: int) -> int:
+    if x <= 0:
+        return 0
+    if G == 1:
+        return x
+    if G >= 8:
+        return x if x & 1 else x + 1
+    return x + (8 // G - x) % 8
+
+
+def _whole_lines(x: int) -> int:
+    return x - x % ALIGN if x >= ALIGN else x
+
+
+def step_shape(i: int, cv: int, pack: int, plan: K11Plan,
+               resident: bool = True) -> StepShape:
+    """The shape of step i for a block of cv vectors of `pack` bytes: the
+    resident share the whole range where it fits the pool, else the most
+    that fits res_bytes beside the ring; tiles of every row and w
+    where a stage holds them for rows of BULK_MIN bytes or more; else a
+    vector block a vector for each group of gs lanes of the consumer
+    threads, gs the fewest (a power of two up to 32) that keep its rows
+    under L2_BLOCK bytes and one row in a stage.  A plan with no ring (the
+    lean instance, which has no step shape of its own): the whole range
+    resident on the fused route, read in place on the split one."""
+    R = i + 1
+    G = lanes(R)
+    rounds = -(-R // (RMAX * G))
+    if not plan.stages:
+        r = cv if resident else 0
+        return StepShape(R, G, rounds, r, r, 0, 0, 0, 0, 0, 0, False,
+                         resident)
+    r = 0
+    whole = resident and (R + 1) * _stride_ceil(cv, G) * pack <= plan.pool
+    if whole:
+        r = cv
+    elif resident and plan.res_bytes > 0:
+        r = min(cv, _whole_lines(_stride_floor(
+            plan.res_bytes // ((R + 1) * pack), G)))
+    vb = gs = rc = nc = ts = nvb = 0
+    tv = (_whole_lines(_stride_floor(plan.stage_bytes // ((R + 1) * pack), G))
+          if plan.stages else 0)
+    tile = bool(plan.stages and cv > r and tv * pack >= BULK_MIN)
+    if tile:
+        vb, gs, ts, rc, nc = tv, G, _stride_ceil(tv, G), R, 1
+        nvb = -(-(cv - r) // tv)
+    elif plan.stages and cv > r:
+        threads = CONSUMER_WARPS * 32
+        l2 = L2_BLOCK // (R * pack)
+        one = plan.stage_bytes // pack
+        gs = 1
+        while gs < 32 and not (threads // gs <= l2 and
+                               _stride_ceil(threads // gs, gs) <= one):
+            gs *= 2
+        vb = threads // gs
+        ts = _stride_ceil(vb, gs)
+        rc = min(plan.stage_bytes // (ts * pack), R, RMAX * gs)
+        nc = -(-R // rc)
+        nvb = -(-(cv - r) // vb)
+    return StepShape(R, G, rounds, r, _stride_ceil(r, G), vb, gs, rc, nc,
+                     ts, nvb, tile, whole)
+
+
+def shard_resident(i: int, plan: K11Plan, item: int, cv=None,
+                   split: bool = False) -> int:
+    """The vectors a block of the plan (cv of them; default a whole chunk)
+    keeps in shared memory at step i: rows 0..i and w."""
+    cv = plan.chunk if cv is None else cv
+    return step_shape(i, cv, plan.vec * item, plan, not split).r
 
 
 @functools.lru_cache(maxsize=None)
-def cgs2_plan(n: int, m: int, item: int, vec: int, sms: int,
-              smem_max: int = SMEM_BLOCK, resident=None) -> Cgs2Plan:
-    """The launch of K11 on rows of n values of `item` bytes, restart m,
-    vec values a load, on a card of `sms` SMs with `smem_max` bytes of
-    shared memory a block: one block an SM (fewer where a block would own
-    less than MIN_VECTORS vectors), resident where the chunk of m + 1
-    rows fits (resident=None; True or False forces the branch, True
-    raising where it does not fit)."""
-    nv = n // vec
-    cv = -(-nv // max(1, min(sms, -(-nv // MIN_VECTORS))))
-    blocks = -(-nv // cv)
+def k11_plan(ns: tuple, m: int, item: int, vec: int, sms: int,
+             split: bool = False, smem_max: int = SMEM_BLOCK) -> K11Plan:
+    """The launch of K11 (ns = (n,)) or K11-S on shards of ns values a row,
+    restart m, `item` bytes a value, vec values a load, on a card of `sms`
+    SMs with `smem_max` bytes of shared memory a block; a pure function of
+    the shapes (no step), so that one captured graph serves every step.
+    One block an SM (fewer where a block would own less than MIN_VECTORS
+    vectors), each a range of whole 128-byte lines.  The lean instance (no
+    ring) where a block's range of the m rows and w fits its shared memory
+    beside its head (bench's 64^2 field, the 4 x 32^2 shards): fused, the
+    range resident; split, read in place.  Else a ring of STAGES stages of
+    up to STAGE_MAX bytes and, fused, the rest beside it for the resident
+    share, a step whose whole range fits the pool keeping it all there
+    (sharded512's steps 0 and 1)."""
+    total = sum(n // vec for n in ns)
+    blocks = max(1, min(sms, -(-total // MIN_VECTORS)))
+    chunk = -(-total // blocks)
+    chunk += -chunk % ALIGN
+    blocks = -(-total // chunk)
     pack = vec * item
-    head = _head_bytes(m)
-    res_smem = head + (m + 1) * cv * pack
-    fits = res_smem <= smem_max
-    if resident is None:
-        resident = fits
-    if resident:
-        if not fits:
-            raise ValueError(f"K11: {m + 1} rows of {cv * vec} values do "
-                             "not fit a block's shared memory")
-        return Cgs2Plan(blocks, cv * vec, True, 0, res_smem)
-    fixed = head + THREADS * (pack + 8 * vec)
-    stash = max(0, min(m, (smem_max - fixed) // (TILE * pack)))
-    return Cgs2Plan(blocks, cv * vec, False, stash,
-                    fixed + stash * TILE * pack)
+    lean = lean_head_bytes(m)
+    if lean + (m + 1) * chunk * pack <= smem_max:
+        smem = lean + (1 if split else m + 1) * chunk * pack
+        return K11Plan(blocks, chunk, vec, 0, 0, 0, smem, 0)
+    head = head_bytes(m)
+    stage = min(STAGE_MAX, (smem_max - head) // STAGES // 16 * 16)
+    res = 0 if split else (smem_max - head - STAGES * stage) // 16 * 16
+    smem = head + STAGES * stage + res
+    plan = K11Plan(blocks, chunk, vec, STAGES, stage, res, smem, smem - head)
+    if step_shape(m - 1, chunk, pack, plan, False).rc < 1:
+        raise ValueError(f"K11: a stage of {stage} bytes holds no chunk of "
+                         f"{m + 1} rows")
+    return plan
+
+
+def block_ranges(ns: tuple, plan: K11Plan):
+    """Each block's segments in block order: (shard, first vector in the
+    shard's row, vectors), the blocks' ranges cutting the shards'
+    concatenation (csrc/krylov.cu, the kernel's first lines)."""
+    off = [0]
+    for n in ns:
+        off.append(off[-1] + n // plan.vec)
+    out = []
+    for b in range(plan.blocks):
+        x0 = b * plan.chunk
+        x1 = min(x0 + plan.chunk, off[-1])
+        out.append([(s, max(x0, off[s]) - off[s],
+                     min(x1, off[s + 1]) - max(x0, off[s]))
+                    for s in range(len(ns))
+                    if max(x0, off[s]) < min(x1, off[s + 1])])
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -236,6 +397,14 @@ def cgs2_givens(V, w, u, state) -> None:
     _launch_cgs2(V, w, u, state, givens=True)
 
 
+def _vec(item, tensors) -> int:
+    """Values a load: 16 bytes where every row and pointer takes them."""
+    vec = 16 // item
+    if any(t.shape[-1] % vec or t.data_ptr() % 16 for t in tensors):
+        return 1
+    return vec
+
+
 def _launch_cgs2(V, w, u, state, givens: bool) -> None:
     m = V.shape[0] - 1
     inst = _cuda.instance("V", V)
@@ -244,18 +413,16 @@ def _launch_cgs2(V, w, u, state, givens: bool) -> None:
                     ("u", u, (n,)))
     _check_state(state, m)
     item = V.element_size()
-    vec = 16 // item
-    if n % vec or any(t.data_ptr() % 16 for t in (V, w, u)):
-        vec = 1                   # one value a load
-    plan = cgs2_plan(n, m, item, vec, _num_sms(state.device.index or 0))
+    vec = _vec(item, (V, w, u))
+    plan = k11_plan((n,), m, item, vec, _num_sms(state.device.index or 0))
     part = torch.empty((2 * (m + 1) + 1) * plan.blocks, dtype=torch.float64,
                        device=state.device)
     symbol = SYMBOLS[inst]
     fn = _cuda.load(SOURCE, symbol, _ARGTYPES)
     rc = fn(_cuda.ptr(V), _cuda.ptr(w), _cuda.ptr(u), _cuda.ptr(state),
             _cuda.ptr(part), part.numel(), n, m, plan.blocks, plan.chunk,
-            int(plan.resident), plan.stash, vec, int(givens), plan.smem,
-            _cuda.stream(state.device))
+            plan.stages, plan.stage_bytes, plan.res_bytes, vec, int(givens),
+            plan.smem, _cuda.stream(state.device))
     _cuda.raise_on_error(symbol, rc)
     launches[inst] += 1
 
@@ -358,6 +525,16 @@ def cgs2_givens_shards(groups, state, combine=None) -> None:
             combine([fn.sums[sl] for fn in launch])
 
 
+def cgs2_shards_empty(V, w, u, state) -> None:
+    """K11-S's empty step on one card's shards (a plan with a ring): the
+    fused launch's grid, its three grid barriers and sums at the state's
+    step with no vector and no write (its fixed cost, for measurement; no
+    solver path launches it)."""
+    m = V[0].shape[0] - 1
+    _check_state(state, m)
+    _shard_launch(V, w, u, state, m, split=False, givens=False)(EMPTY)
+
+
 def _shard_launch(V, w, u, st, m, split: bool, givens: bool):
     """K11-S's launch on one card's shards: its table, plan and scratch,
     as fn(phase); fn.sums: the split route's h1, h2 and |w''|^2."""
@@ -373,16 +550,12 @@ def _shard_launch(V, w, u, st, m, split: bool, givens: bool):
         if Vk.device != device or wk.device != device or uk.device != device:
             raise ValueError("K11-S: a group's shards on more than one card")
     item = V[0].element_size()
-    vec = 16 // item
-    if any(t.shape[-1] % vec or t.data_ptr() % 16
-           for t in (*V, *w, *u)):
-        vec = 1                   # one value a load
-    n = max(Vk.shape[1] for Vk in V)
-    sms = _num_sms(device.index or 0)
-    plan = cgs2_plan(n, m, item, vec, max(1, sms // len(V)),
-                     resident=False if split else None)
-    blocks = plan.blocks * len(V)
-    part = torch.empty((2 * (m + 1) + 1) * blocks, dtype=torch.float64,
+    vec = _vec(item, (*V, *w, *u))
+    plan = k11_plan(tuple(Vk.shape[1] for Vk in V), m, item, vec,
+                    _num_sms(device.index or 0), split=split)
+    if plan.chunk >= 1 << 31:
+        raise ValueError(f"K11-S: {plan.chunk} vectors a block")
+    part = torch.empty((2 * (m + 1) + 1) * plan.blocks, dtype=torch.float64,
                        device=device)
     sums = (torch.empty(2 * m + 3, dtype=torch.float64, device=device)
             if split else None)
@@ -394,15 +567,16 @@ def _shard_launch(V, w, u, st, m, split: bool, givens: bool):
     fn = _cuda.load(SOURCE, symbol, _SHARD_ARGTYPES)
 
     def run(phase):
-        rc = fn(ctypes.cast(arr, ctypes.c_void_p), len(V), plan.blocks,
-                _cuda.ptr(st), _cuda.ptr(part), part.numel(),
-                _cuda.ptr(sums), m, plan.chunk, int(plan.resident),
-                plan.stash, vec, int(givens), phase, plan.smem,
+        rc = fn(ctypes.cast(arr, ctypes.c_void_p), len(V), _cuda.ptr(st),
+                _cuda.ptr(part), part.numel(), _cuda.ptr(sums), m,
+                plan.blocks, plan.chunk, plan.stages, plan.stage_bytes,
+                plan.res_bytes, vec, int(givens), phase, plan.smem,
                 _cuda.stream(device))
         _cuda.raise_on_error(symbol, rc)
         shard_launches[inst] += 1
 
     run.sums = sums
+    run.blocks = plan.blocks
     return run
 
 

@@ -85,15 +85,22 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            epilogue, against K11 alone then givens_step_plain (1e-14) and
            against the two plain versions, timed beside K11 alone; K11-S
            (the sharded step, CGS2 with the Givens step as its epilogue)
-           at sharded512's shards (8 of 256 x 128; f32 at steps 0, 14, 79,
-           f64 at 14), sharded1024's (8 of 512 x 256, f32, steps 0, 14,
-           79) and 4 shards of 32 x 32 (step 14: the fused route resident,
-           and the split route), the basis rows above i NaN, against
+           at sharded512's shards (8 of 256 x 128; f32 at steps 0, 1, 2,
+           14, 79 (1 the last whose block ranges stay whole in shared
+           memory, 2 the first that streams), f64 at 14), sharded1024's (8
+           of 512 x 256, f32, steps 0, 14, 79) and 4 shards of 32 x 32
+           (step 14: the fused route resident, and the split route), the
+           basis rows above i NaN, against
            cgs2_shard_plain then givens_step_masked (TOL_KERNEL; the rows
            up to i untouched, those above i + 1 still NaN; an inactive
            step a no-op), timed beside its plain version and the per-shard
-           torch CGS2 it replaced (library_ms); K12's step alone (on no
-           path) against givens_step_plain
+           torch CGS2 it replaced (library_ms); K11-S's empty step (its
+           launch's grid, barriers and sums with no vector: the fixed cost)
+           at sharded512's and sharded1024's grids, steps 0, 14, 79, held
+           to write nothing; kernels/krylov.py:step_shape against the
+           ring kernel's own shape_of (aniso_k11_shape) at every step of
+           the ring plans of these paths (k11_shapes); K12's step alone (on no path) against
+           givens_step_plain
            (1e-14), beside an empty launch's floor, and its
            back-substitution (1e-12) beside torch.linalg.solve_triangular
            on the same triangle
@@ -295,6 +302,10 @@ from aniso_torch.utils.roofline import (
 )
 
 TOL_KERNEL = {"f32": 1e-5, "f64": 1e-12}
+# K11-S's steps where a sharded512 block's range (float32) stops fitting
+# shared memory: the last whole, the first partial (kernels/krylov.py:
+# shard_resident; tests/test_torch_k11s_plan.py holds them on the CPU)
+K11S_BOUNDARY = (1, 2)
 # K7's float32 store (float64 arithmetic, each value rounded once to
 # float32: at most 2^-24 of the largest) against its float64 plain rows
 TOL_STORE_F32 = 1e-7
@@ -1127,6 +1138,34 @@ class Kernels:
                                        flush=self.flush),
                 "bytes": nbytes, "bound_ms": bms, "bound_by": bby}
 
+    def k11s_floor(self, shard, shards, inst, i, m=80, nq=NQ):
+        """K11-S's empty step at step i on `shards` shards of shard = (lx,
+        ly) squares: the fused launch's cooperative grid, its three grid
+        barriers and sums with no vector (krylov.cgs2_shards_empty): the
+        fixed cost of a launch, timed.  It writes nothing: V, w, u and the
+        state are held bitwise equal to what they were (its plain version
+        is the identity)."""
+        torch, kr = self.torch, self.krylov
+        n = shard[0] * shard[1] * nq
+        V = self.rand((shards, m + 1, n), inst, normal=True, seed=i)
+        w = self.rand((shards, n), inst, normal=True, seed=1000 + i)
+        u = torch.zeros_like(w)
+        st = self.krylov_state(m, i, j=i + 1)
+        before = [t.clone() for t in (V, w, u, st)]
+        args = [list(t.unbind(0)) for t in (V, w, u)]
+
+        def run():
+            kr.cgs2_shards_empty(*args, st)
+
+        run()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((V, w, u, st), before)),
+              f"K11-S empty step {inst} {shards} x {shard} i={i}: it wrote")
+        return {"i": i, "shards": shards, "n_shard": n, "restart": m,
+                "max_abs_err": 0.0, "ms": event_ms(torch, run,
+                                                   flush=self.flush),
+                "bytes": 0, "bound_ms": 0.0, "bound_by": "bytes"}
+
     def k12(self, i, m=80):
         """K12 at step i (restart m): the Givens step alone (no path's
         launch: K11 and K11-S fold it in, and K11's row times it there) on
@@ -1538,13 +1577,53 @@ def device_profile(torch, fn):
             {e.key: e.count for e in rows}, wall)
 
 
+def k11_shapes(kern, shard, big_shard, m=80):
+    """kernels/krylov.py:step_shape, which the CPU tests check, held field
+    by field against the kernel's own shape_of (aniso_k11_shape, built
+    from the same source) at every step, for a whole chunk and the last
+    block's range, fused and split, at the shapes of every path whose plan
+    has a ring: K11 at 512^2 and 1024^2, K11-S at sharded512's shards (f32,
+    f64) and sharded1024's.  Returns the shapes compared."""
+    import ctypes
+
+    kr = kern.krylov
+    fn = kr._cuda.load(kr.SOURCE, "aniso_k11_shape",
+                       (ctypes.c_int, ctypes.c_longlong)
+                       + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
+    out = (ctypes.c_longlong * 13)()
+    sms = kr._num_sms(0)
+    checked = 0
+    cases = [((NORTH * NORTH * NQ,), 4), ((BIG * BIG * NQ,), 4),
+             ((shard[0] * shard[1] * NQ,) * 8, 4),
+             ((shard[0] * shard[1] * NQ,) * 8, 8),
+             ((big_shard[0] * big_shard[1] * NQ,) * 8, 4)]
+    for ns, item in cases:
+        for split in (False, True):
+            plan = kr.k11_plan(ns, m, item, 16 // item, sms, split)
+            check(plan.stages > 0, f"K11 plan of {ns}: no ring")
+            pack = plan.vec * item
+            total = sum(n // plan.vec for n in ns)
+            for cv in {plan.chunk, total - (plan.blocks - 1) * plan.chunk}:
+                for i in range(m):
+                    rc = fn(i, cv, pack, plan.stages, plan.stage_bytes,
+                            plan.res_bytes, plan.pool, int(not split),
+                            ctypes.cast(out, ctypes.c_void_p))
+                    want = [int(x) for x in kr.step_shape(i, cv, pack, plan,
+                                                          not split)]
+                    check(rc == 0 and list(out) == want,
+                          f"K11 shape of {ns} split={split} cv={cv} i={i}: "
+                          f"shape_of {list(out)}, step_shape {want}")
+                    checked += 1
+    return checked
+
+
 # the CUDA function each launch counter's wrapper launches once a call (the
 # family: the counter's name before its instance; K12's two entries apart)
 KERNEL_FUNCTIONS = {
     "k1": "m2l_translate_[a-z_]*kernel", "k2": "near_contract_kernel",
     "k3": "offsets_translate_kernel", "k9d": "diffusion_apply_kernel",
     "k9": "pcg_(cluster|grid)_kernel", "k10": "halo_fill_kernel",
-    "k11": "cgs2_kernel", "k11s": "cgs2_shards_kernel",
+    "k11": "cgs2_(lean_)?kernel", "k11s": "cgs2_shards_(lean_)?kernel",
     "k12_step": "givens_kernel", "k12_backsub": "backsub_kernel",
     "k8": "transfer_(up|down)_kernel",
 }
@@ -3578,8 +3657,11 @@ def main():
     # step, f64 at step 14) and sharded1024 (8 of 512 x 256, f32), and at
     # sharded64_compat's and distributed1's (4 of 32 x 32, f32, step 14:
     # the resident fused route and the split route)
+    # (steps 1 and 2 are where a sharded512 block's range stops fitting
+    # shared memory in float32: whole at 1, a share at 2); the empty step,
+    # K11-S's fixed cost, at sharded512's and sharded1024's grids
     k11s = {}
-    for i in steps:
+    for i in sorted({*steps, *K11S_BOUNDARY}):
         k11s[f"512_f32_i{i}"] = kern.k11s(shard, 8, "f32", i)
     k11s["512_f64_i14"] = kern.k11s(shard, 8, "f64", 14)
     torch.cuda.empty_cache()
@@ -3588,9 +3670,14 @@ def main():
         torch.cuda.empty_cache()
     k11s["64_f32_i14"] = kern.k11s((32, 32), 4, "f32", 14)
     k11s["64_f32_i14_split"] = kern.k11s((32, 32), 4, "f32", 14, split=True)
+    k11s_floor = {f"{sz}_f32_i{i}": kern.k11s_floor(sh, 8, "f32", i)
+                  for sz, sh in ((NORTH, shard), (BIG, big_shard))
+                  for i in steps}
+    torch.cuda.empty_cache()
     emit({"phase": "krylov_vs_plain",
           "k11": {f"{sz}_{inst}": rows for (sz, inst), rows in kry.items()},
-          "k11s": k11s, "k12": k12})
+          "k11s": k11s, "k11s_floor": k11s_floor, "k12": k12,
+          "k11_shapes_checked": k11_shapes(kern, shard, big_shard)})
 
     bench, _ = run_problem(torch, kern, "bench", 64, 0.95, False,
                            expect_iters=14, timing=True)
@@ -3994,6 +4081,8 @@ def main():
                    "restart 80",
          **{f"{k}_{key}": r[k] for key, r in k11s.items()
             for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"empty_step_ms_{key}": r["ms"]
+            for key, r in k11s_floor.items()},
          "max_abs_err_f64": k11s["512_f64_i14"]["max_abs_err"]},
         # K12's back-substitution, once a cycle: bench's cycle ends after 14
         # steps (a 15 x 15 triangle), a full cycle's 80 x 80 beside, with

@@ -131,33 +131,40 @@ FIELDS = {"bench": 64 * 64 * 9, "512": 512 * 512 * 9}
 @pytest.mark.parametrize("item", [4, 8])
 @pytest.mark.parametrize("field", sorted(FIELDS))
 def test_cgs2_plan_reads_v_once_where_it_fits(field, item):
-    """K11's plan is a cached pure function of (n, m, item, vec, SMs,
-    shared memory): on bench's field one block an SM holds its chunk of V's
-    80 rows and of w in shared memory (V read once), in float32 and
-    float64; at 512^2 the chunk does not fit and V streams, with the rows
-    of a tile it keeps; each fits a block; either branch can be asked
-    for, a resident one that does not fit raises."""
+    """K11's plan (kernels/krylov.py:k11_plan, K11-S's on one shard) is a
+    cached pure function of (n, m, item, vec, SMs, shared memory): on
+    bench's field one block an SM holds its range of V's 80 rows and of w
+    in shared memory at every step (V read once; the lean instance, no
+    ring), in float32 and float64; at 512^2 V streams through a ring of 3
+    stages beside a resident share, the whole range resident at step 0 in
+    float32 (V read once there); each fits a block; the split plan keeps
+    nothing resident (bench's: the lean instance reading in place).  A
+    short row: fewer blocks, each at least MIN_VECTORS vectors."""
     n, m, vec = FIELDS[field], 80, 16 // item
-    plan = krylov.cgs2_plan(n, m, item, vec, 132)
-    assert plan is krylov.cgs2_plan(n, m, item, vec, 132)
-    assert plan.blocks == 132 and plan.chunk % vec == 0
-    assert (plan.blocks - 1) * plan.chunk < n <= plan.blocks * plan.chunk
+    plan = krylov.k11_plan((n,), m, item, vec, 132)
+    assert plan is krylov.k11_plan((n,), m, item, vec, 132)
+    assert plan.blocks in (128, 132) and plan.chunk % krylov.ALIGN == 0
+    nv = n // vec
+    assert (plan.blocks - 1) * plan.chunk < nv <= plan.blocks * plan.chunk
     assert plan.smem <= krylov.SMEM_BLOCK
-    assert plan.resident == (field == "bench")
-    head = 8 * ((2 + krylov.WARPS) * (m + 1))
-    if plan.resident:
-        assert plan.smem >= head + (m + 1) * plan.chunk * item
+    assert (plan.stages == 0) == (field == "bench")
+    if plan.stages == 0:
+        assert plan.smem >= krylov.lean_head_bytes(m) \
+            + (m + 1) * plan.chunk * vec * item
+        assert all(krylov.shard_resident(i, plan, item) == plan.chunk
+                   for i in range(m))
     else:
-        assert 0 < plan.stash <= m
-        assert plan.stash == m           # (b) reads V once too
-        assert plan.smem >= head + plan.stash * krylov.TILE * 16
-        with pytest.raises(ValueError, match="do not fit"):
-            krylov.cgs2_plan(n, m, item, vec, 132, resident=True)
-    streamed = krylov.cgs2_plan(n, m, item, vec, 132, resident=False)
-    assert not streamed.resident and streamed.smem <= krylov.SMEM_BLOCK
-    # a short row: fewer blocks, each at least MIN_VECTORS vectors
-    short = krylov.cgs2_plan(4099, m, item, 1, 132)
-    assert short.resident and short.chunk >= krylov.MIN_VECTORS
+        assert 3 <= plan.stages <= krylov.MAX_STAGES
+        whole = krylov.shard_resident(0, plan, item) == plan.chunk
+        assert whole == (item == 4)
+        assert krylov.shard_resident(m - 1, plan, item) < plan.chunk
+    streamed = krylov.k11_plan((n,), m, item, vec, 132, split=True)
+    assert streamed.res_bytes == 0
+    assert (streamed.stages == 0) == (field == "bench")
+    assert streamed.smem <= krylov.SMEM_BLOCK
+    short = krylov.k11_plan((4099,), m, item, 1, 132)
+    assert short.stages == 0 and short.chunk >= krylov.MIN_VECTORS
+    assert short.res_bytes % 16 == 0 and short.smem <= krylov.SMEM_BLOCK
     assert (short.blocks - 1) * short.chunk < 4099 <= \
         short.blocks * short.chunk
 
@@ -507,14 +514,19 @@ def test_cgs2_kernel_matches_plain_on_card(cuda_device, dtype, i, n):
 @pytest.mark.parametrize("i", [14, 79])
 def test_cgs2_both_branches_and_replays_on_card(cuda_device, monkeypatch,
                                                 dtype, i, n, resident):
-    """K11 with V resident in shared memory and streamed (the plan's
-    branch forced) against cgs2_plain; an inactive step a no-op; the step
-    captured in a CUDA graph, replayed twice from the same inputs, gives
-    the eager launch's bits."""
+    """K11 with V resident in shared memory at every step (the plan at
+    these fields: the lean instance) and streamed through the ring instance
+    alone (a plan for a shared memory of three 4 KB stages forced: no
+    resident share, the range whole only at early steps) against
+    cgs2_plain; an inactive step a no-op; the step captured in a CUDA
+    graph, replayed twice from the same inputs, gives the eager launch's
+    bits."""
     import functools
 
-    monkeypatch.setattr(krylov, "cgs2_plan", functools.partial(
-        krylov.cgs2_plan.__wrapped__, resident=resident))
+    if not resident:
+        monkeypatch.setattr(krylov, "k11_plan", functools.partial(
+            krylov.k11_plan.__wrapped__,
+            smem_max=krylov.head_bytes(80) + 3 * 4096))
     m = 80
     gen = torch.Generator(device=cuda_device).manual_seed(100 + i)
     V = torch.randn((m + 1, n), generator=gen, dtype=dtype,

@@ -21,8 +21,9 @@ givens_step_masked, in float64, on inputs made from a numpy seed:
 JAX is imported inside the CPU tests only.  The tests marked `cuda` hold
 K11-S against its plain version on the card (the fused route, the split
 route, and two groups of shards summed between launches; float32 and
-float64; steps 0, 14 and 79; NaN rows above i) and replay a sharded solve's
-captured step (run them there with `python -m pytest
+float64; steps 0, 14 and 79 and the two where a block's range stops fitting
+shared memory; NaN rows above i; the fused step replayed bitwise from a
+CUDA graph) and replay a sharded solve's captured step (run them there with `python -m pytest
 tests/test_torch_sharded_gmres.py -m cuda --noconftest`).
 """
 
@@ -319,46 +320,99 @@ def _sum_in_place(parts):
         p.copy_(acc)
 
 
+def _whole_steps(m, shards, n, dtype):
+    """The last step at which a block's whole range of these shards stays
+    in shared memory on this card, and the one after (the plan's)."""
+    item = torch.finfo(dtype).bits // 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = krylov.k11_plan((n,) * shards, m, item, 16 // item, sms)
+    whole = [i for i in range(m)
+             if krylov.shard_resident(i, plan, item) == plan.chunk]
+    assert whole and whole[-1] < m - 1
+    return whole[-1], whole[-1] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "split", "two groups"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("i", [0, 14, 79, "last whole", "first partial"])
+def test_k11s_matches_plain_on_card(cuda_device, route, dtype, i):
+    """Eight shards of 64 x 32 squares, 9 nodes each, restart 80, the rows
+    above i NaN: K11-S's ring instance (one launch; four; four a group of
+    four shards with their sums added between the launches) against
+    cgs2_shard_plain then givens_step_masked on the same card, at steps 0,
+    14, 79 and at the last step whose block ranges stay whole in shared
+    memory and the one after; an inactive step a no-op; the fused step
+    captured in a CUDA graph and replayed twice from the same inputs gives
+    the eager launch's bits."""
+    m, shards, n = 80, 8, 64 * 32 * 9
+    if isinstance(i, str):
+        i = _whole_steps(m, shards, n, dtype)[i == "first partial"]
+    _k11s_against_plain(cuda_device, route, dtype, i, m, (n,) * shards)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["fused", "split", "two groups"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("i", [0, 14, 79])
-def test_k11s_matches_plain_on_card(cuda_device, route, dtype, i):
-    """Eight shards of 64 x 32 squares, 9 nodes each, restart 80, the rows
-    above i NaN: K11-S (one launch; four; four a group of four shards with
-    their sums added between the launches) against cgs2_shard_plain then
-    givens_step_masked on the same card; an inactive step a no-op."""
-    m, shards, n = 80, 8, 64 * 32 * 9
+@pytest.mark.parametrize("ns", [(32 * 32 * 9,) * 4,
+                                (32 * 32 * 9, 32 * 31 * 9, 32 * 33 * 9,
+                                 32 * 32 * 9)],
+                         ids=["4x32x32", "unequal"])
+def test_k11s_lean_matches_plain_on_card(cuda_device, route, dtype, i, ns):
+    """The lean instance (no ring: a block's range of every row fits its
+    shared memory) on sharded64_compat's four shards of 32 x 32 squares
+    and on four unequal ones (blocks whose range crosses from one shard
+    into the next), as the test above."""
+    item = torch.finfo(dtype).bits // 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for split in (False, True):
+        assert krylov.k11_plan(ns, 80, item, 16 // item, sms,
+                               split).stages == 0
+    _k11s_against_plain(cuda_device, route, dtype, i, 80, ns)
+
+
+def _k11s_against_plain(cuda_device, route, dtype, i, m, ns):
     gen = torch.Generator(device=cuda_device).manual_seed(i)
-    V = torch.randn((shards, m + 1, n), generator=gen, dtype=dtype,
-                    device=cuda_device)
-    V /= torch.linalg.vector_norm(V, dim=(0, 2), keepdim=True)
-    V[:, i + 1:] = float("nan")
-    w = torch.randn((shards, n), generator=gen, dtype=dtype,
-                    device=cuda_device)
+    V = [torch.randn((m + 1, n), generator=gen, dtype=dtype,
+                     device=cuda_device) for n in ns]
+    norm = torch.sqrt(sum((Vk.double() ** 2).sum(dim=1) for Vk in V))
+    for Vk in V:
+        Vk /= norm[:, None].to(dtype)
+        Vk[i + 1:] = float("nan")
+    w = [torch.randn((n,), generator=gen, dtype=dtype, device=cuda_device)
+         for n in ns]
     st = make_state(m, i, j=i + 1, seed=i).to(cuda_device)
+    half = len(ns) // 2
 
     def parts():
-        return [V.clone(), w.clone(), torch.zeros_like(w), st.clone()]
+        return [[x.clone() for x in V], [x.clone() for x in w],
+                [torch.zeros_like(x) for x in w], st.clone()]
+
+    def cat(p):
+        return [torch.cat([x.flatten() for x in t]) if isinstance(t, list)
+                else t for t in p]
 
     got, want = parts(), parts()
-    Vs, ws, us = (list(t.unbind(0)) for t in got[:3])
+    Vs, ws, us = got[:3]
     groups = {"fused": [(Vs, ws, us)], "split": [(Vs, ws, us)],
-              "two groups": [(Vs[:4], ws[:4], us[:4]),
-                             (Vs[4:], ws[4:], us[4:])]}[route]
+              "two groups": [(Vs[:half], ws[:half], us[:half]),
+                             (Vs[half:], ws[half:], us[half:])]}[route]
     combine = None if route == "fused" else _sum_in_place
     n0 = dict(krylov.shard_launches)
     krylov.cgs2_givens_shards(groups, got[3], combine)
     inst = krylov._cuda.INSTANCES[dtype]
     assert krylov.shard_launches[inst] - n0[inst] == (
         1 if route == "fused" else 4 * len(groups))
-    krylov.cgs2_shard_plain(*(list(t.unbind(0)) for t in want[:3]), want[3])
+    krylov.cgs2_shard_plain(*want[:3], want[3])
     krylov.givens_step_masked(want[3], m)
     torch.cuda.synchronize()
-    assert rel(got[0][:, i + 1].cpu(), want[0][:, i + 1].cpu()) < _GATE[dtype]
-    assert torch.equal(got[2], got[0][:, i + 1])
-    assert torch.equal(got[0][:, :i + 1], V[:, :i + 1])
-    assert torch.isnan(got[0][:, i + 2:]).all()
+    for g, x, u0 in zip(got[0], want[0], got[2]):
+        assert rel(g[i + 1].cpu(), x[i + 1].cpu()) < _GATE[dtype]
+        assert torch.equal(u0, g[i + 1])
+        assert torch.isnan(g[i + 2:]).all()
+    for g, x in zip(got[0], V):
+        assert torch.equal(g[:i + 1], x[:i + 1])
     L = krylov.state_layout(m)
     for sl in (slice(L.H, L.y), slice(0, L.H)):
         assert rel(got[3][sl].cpu(), want[3][sl].cpu()) < _GATE[dtype]
@@ -366,12 +420,37 @@ def test_k11s_matches_plain_on_card(cuda_device, route, dtype, i):
     # inactive: nothing moves
     idle = parts()
     idle[3][krylov.DONE] = 1.0
-    before = [t.clone() for t in idle]
-    Vs, ws, us = (list(t.unbind(0)) for t in idle[:3])
-    krylov.cgs2_givens_shards([(Vs, ws, us)], idle[3], combine)
+    before = [t.clone() for t in cat(idle)]
+    krylov.cgs2_givens_shards([tuple(idle[:3])], idle[3], combine)
     torch.cuda.synchronize()
-    for a, b in zip(idle, before):
+    for a, b in zip(cat(idle), before):
         assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    if route != "fused":
+        return
+    # the captured step, replayed twice from the same inputs
+    eager = [x.clone() for x in cat(got)]
+    cap = parts()
+    Vs, ws, us = cap[:3]
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        krylov.cgs2_givens_shards([(Vs, ws, us)], cap[3], None)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    replays = []
+    for _ in range(2):
+        for a, x in zip(cap, parts()):
+            for ak, xk in zip(*((a, x) if isinstance(a, list)
+                                else ([a], [x]))):
+                ak.copy_(xk)
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([x.clone() for x in cat(cap)])
+    for r in replays:
+        assert all(torch.equal(torch.nan_to_num(a), torch.nan_to_num(e))
+                   for a, e in zip(r, eager))
 
 
 @pytest.mark.cuda

@@ -71,7 +71,10 @@ def test_later_slices_raise(change, backend):
         TransportSolver(cfg, backend=backend, device="cpu")
 
 
-def _pair_n2():
+@pytest.fixture(scope="module")
+def pair_n2():
+    """(JAX, port) N = 2 solvers at 8^2 with the same medium, built once:
+    the tests below solve and apply, and change neither."""
     kw = dict(domain_size=8, quad_rule=2, kernel_size=2, g=0.7, np_cheb=3,
               sing_rule=6, tol=1e-10)
     js = JSolver(JConfig(**kw), backend="fmm")
@@ -84,11 +87,11 @@ def _pair_n2():
     return js, ts
 
 
-def test_precond_and_higher_modes_raise():
+def test_precond_and_higher_modes_raise(pair_n2):
     """What used to raise now runs: the N = 2 solver builds, its modes
     0..2 match JAX's, and a solve with the identity as preconditioner is
     the plain solve.  A mode outside 0..2N-2 still raises."""
-    js, ts = _pair_n2()
+    js, ts = pair_n2
     g = ts.grid
     assert ts.n_modes == 3 and len(ts._mode_statics) == 3
     u = np.random.default_rng(5).standard_normal(g.nodes_x.shape)
@@ -107,10 +110,10 @@ def test_precond_and_higher_modes_raise():
     assert torch.equal(same.x, plain.x)
 
 
-def test_n2_solve_matches_jax():
+def test_n2_solve_matches_jax(pair_n2):
     """The coupled two-mode solve: the same iteration count and x to
     1e-10."""
-    js, ts = _pair_n2()
+    js, ts = pair_n2
     g = ts.grid
     q = np.random.default_rng(6).standard_normal((2,) + g.nodes_x.shape)
     ref = js.solve(jnp.asarray(q))

@@ -3,7 +3,8 @@
 device time, cold L2) for several trees in one call.
 
     python3 tools/kernel_ab.py [--root DIR ...] \\
-        [--variants k1|k2|k8|k9|k10] [--only PREFIX,...] [--out FILE]
+        [--variants k1|k2|k8|k9|k10|k11s|k11s_probe] [--only PREFIX,...] \\
+        [--out FILE]
 
 The trees are each --root (default: this checkout; another one is, say, a
 parent commit unpacked with `git archive` into a gitignored directory),
@@ -37,6 +38,8 @@ HALO_CU = "aniso_torch/csrc/halo_fill.cu"
 TRANSFER_PY = "aniso_torch/kernels/transfer.py"
 TRANSFER_CU = "aniso_torch/csrc/transfer.cu"
 PCG_PY = "aniso_torch/kernels/pcg.py"
+KRYLOV_PY = "aniso_torch/kernels/krylov.py"
+KRYLOV_CU = "aniso_torch/csrc/krylov.cu"
 
 # group -> (source it launches, rows from (chip_smoke.Kernels, chip_smoke)):
 # the shapes of the paths that launch each kernel
@@ -100,6 +103,55 @@ GROUPS = {
         "krylov.cu", lambda k, cs, sz=sz, inst=inst: [
             dict(k.k11(sz, inst, i), step=i) for i in (0, 14, 79)])
        for inst in ("f32", "f64") for sz in (64, 512)},
+    # K11-S: the sharded step (CGS2 with the Givens epilogue) at the shards
+    # of sharded512 (8 of 256 x 128; f32 at steps 0, 1, 2, 14 and 79, where
+    # step 1 is the last to hold a block's whole range in shared memory and
+    # step 2 the first to keep a share, and f64 at 14), sharded1024 (8 of
+    # 512 x 256) and sharded64_compat (4 of 32 x 32, the fused and the
+    # split route)
+    "k11s_f32_512": ("krylov.cu", lambda k, cs: [
+        dict(k.k11s((256, 128), 8, "f32", i), step=i)
+        for i in (0, 1, 2, 14, 79)]),
+    "k11s_f64_512": ("krylov.cu", lambda k, cs: [
+        dict(k.k11s((256, 128), 8, "f64", 14), step=14)]),
+    "k11s_f32_1024": ("krylov.cu", lambda k, cs: [
+        dict(k.k11s((512, 256), 8, "f32", i), step=i) for i in (0, 14, 79)]),
+    "k11s_f32_64": ("krylov.cu", lambda k, cs: [
+        dict(k.k11s((32, 32), 4, "f32", 14, split=split), step=14)
+        for split in (False, True)]),
+    # K11-S's fixed cost, the empty step (tools/k11s_probe.py), at the
+    # shards of sharded512 and sharded1024
+    "k11s_floor": ("krylov.cu", lambda k, cs: [
+        dict(row, step=i) for shard in ((256, 128), (512, 256))
+        for i in (0, 14, 79)
+        for row in _probe().floor(k, cs, shard, 8, i)]),
+    # pass (a)'s copies alone (the ring's floor; a K11_PROBE build of a
+    # tree of the ring design: --variants k11s_probe)
+    "k11s_stream": ("krylov.cu", lambda k, cs: [
+        dict(row, step=i) for shard in ((256, 128), (512, 256))
+        for i in (0, 14, 79)
+        for row in _probe().stream(k, cs, shard, 8, i)]),
+    # one fused step traced (and the empty step at sharded512's shards):
+    # the median block's time at each mark (a K11_PROBE build, as above)
+    "k11s_trace": ("krylov.cu", lambda k, cs: [
+        dict(row, step=i) for shard, empty in (((256, 128), False),
+                                               ((512, 256), False),
+                                               ((256, 128), True),
+                                               ((32, 32), False))
+        for i in (0, 14, 79)
+        for row in _probe().trace(k, cs, shard, 8, i, empty=empty)]),
+    # K11 alone, 20 launches replayed from one graph, caches warm (the
+    # other rows flush L2 before each sample), on bench's 64^2 field and
+    # at 512^2
+    "k11_warm": ("krylov.cu", lambda k, cs: [
+        dict(row, step=i, sz=sz) for sz, steps in ((64, (0, 14, 79)),
+                                                   (512, (0, 14)))
+        for i in steps for row in _probe().warm(k, cs, sz, i)]),
+    # K11 on the 1024^2 field on its own 132 blocks and on K11-S's
+    # partition of 8 shards (128 blocks)
+    "k11_partition": ("krylov.cu", lambda k, cs: [
+        dict(row, step=i) for i in (0, 14, 79) for sms in (132, 128)
+        for row in _probe().partition(k, cs, 1024, i, sms)]),
     # K9: one DSA preconditioner call at the grids and dtypes of dsa64
     # (64^2 f64), demo128 (128^2 f32) and dsa512 (512^2 f32), and between
     # them, where kernels/pcg.py's plan chooses between its instances; each
@@ -176,6 +228,21 @@ VARIANTS = {
         "cluster_wherever_it_fits": [(PCG_PY, "if sz <= CLUSTER_MAX_SZ "
                                       "else ()", "if True else ()")],
     }),
+    "k11s": (("k11s_f32_512", "k11s_f32_1024", "k11s_f32_64",
+              "k11s_floor", "k11s_stream", "k11_f32_64", "k11_f32_512"), {
+        # a vector block's rows at most 160 KB (committed: 320 KB):
+        # narrower blocks at many rows, (b)'s second sweep more often in L2
+        "l2_block_160k": [(KRYLOV_CU, "constexpr int kL2Block = 320 * 1024;",
+                           "constexpr int kL2Block = 160 * 1024;")],
+        # a ring of 4 stages of 32 KB (committed: 3 of 64 KB)
+        "ring_4x32k": [(KRYLOV_PY, "STAGE_MAX = 65536 ", "STAGE_MAX = 32768 "),
+                       (KRYLOV_PY, "STAGES = 3 ", "STAGES = 4 ")],
+    }),
+    # the measurement-only phases of the ring kernel (the copies alone, a
+    # traced step), compiled in a copy of the tree with K11_PROBE set
+    "k11s_probe": (("k11s_stream", "k11s_trace"), {
+        "probe": [(KRYLOV_CU, "#define K11_PROBE 0", "#define K11_PROBE 1")],
+    }),
     "k10": (("k10",), {
         # an interior run's warps: half as many (one for each 4 x 32 x
         # kUnroll values), or twice as many (committed: 2 x 32 x kUnroll)
@@ -190,6 +257,13 @@ VARIANTS = {
                       "constexpr int kUnroll = 4;")],
     }),
 }
+
+
+def _probe():
+    """tools/k11s_probe.py of this checkout (it serves both designs)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import k11s_probe
+    return k11s_probe
 
 
 def patched_tree(root, out_dir, name, patches):
@@ -239,6 +313,8 @@ def rows(root, tag, groups):
     k = cs.Kernels(torch, scratch.zero_)
     for name in groups:
         out = GROUPS[name][1](k, cs)
+        if not out:                   # a probe this tree's design lacks
+            continue
         for row in out:
             print(json.dumps({"tag": tag, "group": name, **row}), flush=True)
         print(json.dumps({"tag": tag, "group": name,

@@ -1,6 +1,6 @@
-"""Wall times of the sharded GMRES solves of chip_smoke.py's sharded512 and
-sharded64_compat phases, repeated in one process, for comparing two
-checkouts of the port on one card.
+"""Wall times of the sharded GMRES solves of chip_smoke.py's sharded512,
+sharded64_compat and distributed1 phases, repeated in one process, for
+comparing two checkouts of the port on one card.
 
     python3 tools/sharded_times.py [--tree DIR] [--reps 5]
 
@@ -21,12 +21,16 @@ Run two trees alternately (A B B A ...) on one card to compare them.  The
 phases' shapes are those of chip_smoke.py:
   sharded512: 512^2, deg 3, g 0.5, np 4, f32, tol 1e-7, a 2 x 4 mesh;
   sharded64_compat: 64^2, N = 2, g 0.95, the reference's basis quirk, a
-  2 x 2 mesh.
+  2 x 2 mesh;
+  distributed1: 64^2, N = 1, g 0.95, the basis quirk, a 2 x 2 mesh over a
+  world-size-1 NCCL group on a free localhost port (K11-S's split route,
+  its all_reduces in the captured step).
 """
 
 import argparse
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -35,9 +39,10 @@ import time
 import numpy as np
 
 PHASES = {
-    # name: (sz, g, compat, kernel_size, shards)
-    "sharded512": (512, 0.5, False, 1, 8),
-    "sharded64_compat": (64, 0.95, True, 2, 4),
+    # name: (sz, g, compat, kernel_size, shards, process group)
+    "sharded512": (512, 0.5, False, 1, 8, False),
+    "sharded64_compat": (64, 0.95, True, 2, 4, False),
+    "distributed1": (64, 0.95, True, 1, 4, True),
 }
 
 
@@ -57,11 +62,28 @@ def solver(sz, g, compat, kernel_size):
 
 
 def phase(torch, name, reps):
+    sz, g, compat, kernel_size, shards, group = PHASES[name]
+    if not group:
+        return solves(torch, name, reps)
+    from aniso_torch.parallel import distributed
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    distributed.init(f"127.0.0.1:{port}", 1, 0)
+    try:
+        return solves(torch, name, reps)
+    finally:
+        distributed.shutdown()
+
+
+def solves(torch, name, reps):
     from aniso_torch.parallel import api
     from aniso_torch.solver.gmres import gmres
     from torch.profiler import ProfilerActivity, profile
 
-    sz, g, compat, kernel_size, shards = PHASES[name]
+    sz, g, compat, kernel_size, shards, _ = PHASES[name]
     s = solver(sz, g, compat, kernel_size)
     grid = s.grid
     mesh = api.make_mesh(devices=["cuda"] * shards)
