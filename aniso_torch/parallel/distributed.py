@@ -15,6 +15,7 @@ read (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional
 
@@ -29,22 +30,32 @@ def init(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     backend: Optional[str] = None,
+    timeout: Optional[float] = None,
 ) -> None:
     """torch.distributed.init_process_group across processes.
 
     coordinator "host:port" (rank 0 listens there); values may also come
     from ANISO_COORDINATOR, ANISO_NUM_PROCESSES, ANISO_PROCESS_ID.  backend:
-    "nccl" when CUDA is present, else "gloo"; under NCCL each process takes
-    the card local_device() names.
+    "nccl" unless the caller names another; under NCCL each process takes
+    the card local_device() names, and without CUDA it raises before any
+    group forms: a group on the CPU is asked for by name (backend="gloo",
+    the CLI's --device cpu).  timeout: seconds for the rendezvous and each
+    collective (torch's default when None).
     """
     coordinator = coordinator or os.environ.get("ANISO_COORDINATOR")
     if num_processes is None and "ANISO_NUM_PROCESSES" in os.environ:
         num_processes = int(os.environ["ANISO_NUM_PROCESSES"])
     if process_id is None and "ANISO_PROCESS_ID" in os.environ:
         process_id = int(os.environ["ANISO_PROCESS_ID"])
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    backend = backend or "nccl"
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "distributed.init: NCCL needs CUDA, which is not available; "
+            "for a process group on the CPU pass backend=\"gloo\" (the "
+            "CLI's --device cpu)")
     kw = {}
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout)
     if num_processes is not None:
         kw["world_size"] = num_processes
     if process_id is not None:

@@ -1,11 +1,8 @@
-"""aniso_torch's CLI and IO against aniso_tpu's, on the CPU.
-
-`run --device cpu` on an 8^2 data.cfg with each backend: the x it writes
-matches the JAX CLI's (run in-process, its dense backend on JAX's pure line
-integral: the reference's native library's build races between test
-workers) to 1e-10, result.csv and points.csv are byte for byte what JAX's
-writers give for the same values, and a second run warm-starts from
-result.csv.  The checkpoint round trip, `info`, and what raises.
+"""aniso_torch's CLI on the CPU: the checkpoint round trip, `info`,
+`--compat-global-basis`, `--distributed` with one gloo process (and what it
+raises without a group), and the refusal to run without a card unless
+`--device cpu` asks.  The runs held against aniso_tpu's CLI and IO are in
+test_torch_cli_jax.py, which takes its data.cfg from here.
 """
 
 import json
@@ -15,12 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-import aniso_tpu.native
-from aniso_tpu import cli as j_cli
-from aniso_tpu.utils import io as j_io
-
 from aniso_torch import cli
 from aniso_torch.utils import io
+
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JOIN_S = 60     # the process-group join and each collective
+RUN_S = 240     # the subprocess of the --distributed run, start to end
 
 CFG = """kernelSize = 1
 g = 0.95
@@ -40,43 +39,6 @@ def cfg_path(tmp_path):
     path = tmp_path / "data.cfg"
     path.write_text(CFG)
     return str(path)
-
-
-def iterations(out: str) -> int:
-    line = [ln for ln in out.splitlines() if ln.startswith("GMRES ")][-1]
-    return int(line.rsplit("iters=", 1)[1])
-
-
-@pytest.mark.parametrize("backend", ["dense", "fmm"])
-def test_run_matches_jax_cli(backend, cfg_path, tmp_path, capsys,
-                             monkeypatch):
-    res, pts = str(tmp_path / "result.csv"), str(tmp_path / "points.csv")
-    args = ["run", cfg_path, "--backend", backend, "--points", pts,
-            "--result", res]
-    assert cli.main(args + ["--device", "cpu"]) == 0
-    cold = iterations(capsys.readouterr().out)
-    x = np.loadtxt(res)
-    assert x.shape == (8 * 8 * 9,) and np.isfinite(x).all()
-
-    monkeypatch.setattr(aniso_tpu.native, "available", lambda: False)
-    jres, jpts = str(tmp_path / "j_result.csv"), str(tmp_path / "j_pts.csv")
-    assert j_cli.main(["run", cfg_path, "--backend", backend, "--points",
-                       jpts, "--result", jres]) == 0
-    assert iterations(capsys.readouterr().out) == cold
-    want = np.loadtxt(jres)
-    assert np.abs(x - want).max() / np.abs(want).max() < 1e-10
-
-    # the files, byte for byte, as JAX's writers give them for these values
-    again = str(tmp_path / "again.csv")
-    j_io.write_result_csv(x, again)
-    with open(res, "rb") as a, open(again, "rb") as b:
-        assert a.read() == b.read()
-    with open(pts, "rb") as a, open(jpts, "rb") as b:
-        assert a.read() == b.read()
-
-    # warm start from result.csv
-    assert cli.main(args + ["--device", "cpu"]) == 0
-    assert iterations(capsys.readouterr().out) <= 1
 
 
 def test_checkpoint_round_trip(cfg_path, tmp_path, capsys):
@@ -109,28 +71,60 @@ def test_distributed_raises(cfg_path, monkeypatch):
         cli.main(["run", cfg_path, "--device", "cpu", "--distributed"])
 
 
-def test_distributed_one_process_matches_plain_run(cfg_path, tmp_path,
-                                                    capsys):
+# the plain run, the --distributed run and `info` in one fresh process,
+# the join bounded by the timeout the CLI's init call is given here
+_DIST_RUN = r"""
+import functools, json, sys
+from aniso_torch import cli
+from aniso_torch.parallel import distributed
+
+base, plain, dist, coordinator, join_s = json.loads(sys.argv[1])
+distributed.init = functools.partial(distributed.init, timeout=join_s)
+rcs = [cli.main(base + ["--result", plain]),
+       cli.main(base + ["--result", dist, "--distributed", "--coordinator",
+                        coordinator, "--num-processes", "1",
+                        "--process-id", "0"])]
+print("INFO")
+rcs.append(cli.main(["info"]))
+print("RCS", json.dumps(rcs))
+"""
+
+
+def test_distributed_one_process_matches_plain_run(cfg_path, tmp_path):
     """--distributed with one process on a localhost coordinator (gloo on
     the CPU): the same x as the run without it, and `info` then still
-    reports process 0 of 1."""
-    import socket
+    reports process 0 of 1.  Run in a process of its own with a bound on
+    the whole run and one of JOIN_S on the join; the rendezvous's store
+    is this process's, on a port the kernel picked and that stays bound
+    (every rank a client of it, as under torch's elastic agent)."""
+    import datetime
+    import subprocess
+    import sys
 
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
+    import torch.distributed as tdist
+
+    store = tdist.TCPStore("127.0.0.1", 0, is_master=True,
+                           timeout=datetime.timedelta(seconds=JOIN_S),
+                           wait_for_workers=False)
     plain, dist = tmp_path / "plain.csv", tmp_path / "dist.csv"
     base = ["run", cfg_path, "--device", "cpu", "--backend", "fmm",
             "--points", str(tmp_path / "p.csv")]
-    assert cli.main(base + ["--result", str(plain)]) == 0
-    assert cli.main(base + ["--result", str(dist), "--distributed",
-                            "--coordinator", f"127.0.0.1:{port}",
-                            "--num-processes", "1", "--process-id", "0"]) == 0
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               TORCHELASTIC_USE_AGENT_STORE="True")
+    try:
+        run = subprocess.run(
+            [sys.executable, "-c", _DIST_RUN, json.dumps(
+                [base, str(plain), str(dist), f"127.0.0.1:{store.port}",
+                 JOIN_S])],
+            env=env, cwd=ROOT, capture_output=True, text=True,
+            timeout=RUN_S)
+    finally:
+        del store
+    assert run.returncode == 0, run.stderr[-3000:]
+    info, rcs = run.stdout.split("\nINFO\n", 1)[1].rsplit("RCS ", 1)
+    assert json.loads(rcs) == [0, 0, 0]       # plain, --distributed, info
     np.testing.assert_array_equal(np.loadtxt(dist), np.loadtxt(plain))
-    capsys.readouterr()
-    assert cli.main(["info"]) == 0
-    info = json.loads(capsys.readouterr().out)
+    info = json.loads(info)
     assert (info["process_index"], info["process_count"]) == (0, 1)
 
 
@@ -148,25 +142,6 @@ def test_info_reports_cuda_devices(capsys):
     assert len(info["devices"]) == info["device_count"]
 
 
-def test_io_matches_jax(tmp_path):
-    rng = np.random.default_rng(2)
-    x = rng.standard_normal(50)
-    xs, ys = rng.random((2, 50))
-    for mod in (io, j_io):
-        mod.write_result_csv(x, str(tmp_path / f"{mod.__name__}.r"))
-        mod.write_points_csv(xs, ys, str(tmp_path / f"{mod.__name__}.p"))
-    for ext in ("r", "p"):
-        with open(tmp_path / f"{io.__name__}.{ext}", "rb") as a, \
-                open(tmp_path / f"{j_io.__name__}.{ext}", "rb") as b:
-            assert a.read() == b.read()
-    got = io.load_result_csv(str(tmp_path / f"{io.__name__}.r"), n=50)
-    assert np.array_equal(got, x)
-    assert io.load_result_csv(str(tmp_path / "absent.csv")) is None
-    with pytest.raises(ValueError):
-        io.load_result_csv(str(tmp_path / f"{io.__name__}.r"), n=49)
-    assert not os.path.exists(tmp_path / "absent.csv")
-
-
 def test_compat_flag_reaches_the_solver(cfg_path, tmp_path, capsys):
     """--compat-global-basis selects the reference's basis quirk, which a
     data.cfg cannot; the banner and the checkpoint's config show it."""
@@ -178,24 +153,3 @@ def test_compat_flag_reaches_the_solver(cfg_path, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "compat_global_basis    = True" in out
     assert io.load_checkpoint(ck)["config"]["compat_global_basis"] is True
-
-
-def test_profiler_report_matches_jax():
-    """The port's Profiler keeps the reference's tic/toc semantics and
-    prints JAX's table for the same section times."""
-    from aniso_tpu.utils.profiler import Profiler as JProfiler
-    from aniso_torch.utils.profiler import Profiler, timed
-
-    profs = [Profiler(), JProfiler()]
-    for p in profs:
-        p.tic("setup")
-        p.tic("ignored while clocking")
-        p.toc()
-        p.tic("solve")
-        p.toc(count=False)
-        p._times = {"setup": 1.25, "solve": 0.5}
-        p._total = 1.25
-    assert profs[0].report() == profs[1].report()
-    assert "[U]" in profs[0].report().splitlines()[1]
-    median, samples = timed(lambda: None, reps=3)
-    assert len(samples) == 3 and median == sorted(samples)[1]

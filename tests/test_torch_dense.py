@@ -42,6 +42,8 @@ from aniso_torch.ops.compat import to_local_equivalent
 from aniso_torch.ops.fields import evaluate_at_nodes_np
 from aniso_torch.solver.operator import TransportSolver
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 F64 = torch.float64
 
 

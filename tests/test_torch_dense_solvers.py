@@ -21,6 +21,8 @@ from aniso_torch.solver.operator import TransportSolver
 
 from test_torch_dense import pure_jax, rel, sigma
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def test_dense_operator_deg9_matches_jax():
     """deg 9, past K7's compiled degrees (1-8; the card takes it in K7's

@@ -32,6 +32,8 @@ from aniso_torch.ops.dense import build_dense_smooth
 from aniso_torch.solver.dsa import _face_coeffs
 from aniso_torch.solver.operator import TransportSolver, resolve_device
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

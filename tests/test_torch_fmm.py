@@ -12,6 +12,7 @@ f64 sums in another order).
 import functools
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -36,7 +37,16 @@ from aniso_torch.kernels.offsets import (
 )
 from aniso_torch.solver.operator import TransportSolver
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 F64 = torch.float64
+
+# JAX's matvec internals under jit, as the JAX package's jitted matvec runs
+# them: called eagerly, each of their primitives compiles on its own
+translate_j = jax.jit(j_apply._m2l_translate)
+translate_offsets_j = jax.jit(j_apply._m2l_translate_offsets)
+vlist_gather_j = jax.jit(j_apply._vlist_gather)
+near_apply_j = jax.jit(j_apply._near_apply, static_argnums=2)
 
 
 def rel(a, b):
@@ -209,10 +219,10 @@ def test_offsets_plain_matches_jax_translate(sz, level):
     M = np.random.default_rng(level).standard_normal((m, m, 16))
     Wo = j_smooth.build_m2l_offsets_fine(js.grid, js._tcfg, level, 4,
                                          jnp.float64)
-    want = j_apply._m2l_translate_offsets(
+    want = translate_offsets_j(
         {"Wo": Wo["Wo"], "coeffs": jnp.asarray(js._coeffs_np)},
         js._mode_statics[0]["m2l_cosr"][level],
-        j_apply._vlist_gather(jnp.asarray(M)),
+        vlist_gather_j(jnp.asarray(M)),
     )
     got = offsets_translate_plain(
         t_smooth.build_m2l_offsets_fine(ts.grid, ts._tcfg, level, 4, F64,
@@ -259,8 +269,7 @@ def test_m2l_plain_matches_jax_translate(level):
     M = np.random.default_rng(level).standard_normal((m, m, 16))
     E_j = js._caches["m2l_E"][level]
     cosr_j = js._mode_statics[0]["m2l_cosr"][level]
-    want = j_apply._m2l_translate(E_j, cosr_j,
-                                  j_apply._vlist_gather(jnp.asarray(M)))
+    want = translate_j(E_j, cosr_j, vlist_gather_j(jnp.asarray(M)))
     got = m2l_translate_plain(
         ts._caches["m2l_E"][level], ts._mode_statics[0]["m2l_cosr"][level],
         torch.as_tensor(M), ts._fmm_static["shift"],
@@ -272,8 +281,7 @@ def test_m2l_plain_matches_jax_translate(level):
 def test_near_plain_matches_jax_near_apply(compat):
     js, ts = pair(16, compat)
     u = field(ts.grid)
-    want = j_apply._near_apply(js._caches, js._mode_statics[0], 0,
-                               jnp.asarray(u))
+    want = near_apply_j(js._caches, js._mode_statics[0], 0, jnp.asarray(u))
     ms = ts._mode_statics[0]
     assert (ms["duffy"] is not None) == compat
     got = near_contract_plain(

@@ -37,6 +37,8 @@ import torch
 from aniso_torch.kernels import krylov
 from aniso_torch.solver import gmres as t_gmres
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def jax_gmres():
     """(jax.numpy, aniso_tpu.solver.gmres), for the CPU tests only."""

@@ -30,6 +30,8 @@ from aniso_torch.convert import _m2l_level_from_jax, mode_static_from_jax_numpy
 from aniso_torch.fmm.apply import parity_shift_table_np
 from aniso_torch.parallel import api, halo
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 try:  # jax >= 0.8
     from jax import shard_map
 except ImportError:  # pragma: no cover
@@ -40,7 +42,7 @@ F64 = torch.float64
 # torch's CPU thread pool starts here, before JAX's OpenMP host engine runs
 # in this process: started after it, torch's first multi-threaded calls
 # were seen to differ from its later calls on the same inputs by ~1e-9
-# relative (ROADMAP queue C5); started first, every call agrees.
+# relative (ROADMAP queue C item 1); started first, every call agrees.
 torch.exp(torch.ones(1 << 20, dtype=torch.float64)).sum()
 
 
@@ -73,8 +75,8 @@ def jax_exchange(jm, block, axes):
                                        0 if ax == "x" else 1)
         return v
 
-    f = shard_map(local, mesh=jm, in_specs=P("x", "y"),
-                  out_specs=P("x", "y"))
+    f = jax.jit(shard_map(local, mesh=jm, in_specs=P("x", "y"),
+                          out_specs=P("x", "y")))
     return np.asarray(f(jax.device_put(block, NamedSharding(jm, P("x",
                                                                    "y")))))
 
@@ -143,7 +145,9 @@ def test_near_apply_local_matches_jax_shardmap(meshes, mode, compat):
     ms = js._mode_statics[mode]
     caches = j_api.shard_pytree(jm, js._caches)
     ms_sh = j_api.shard_pytree(jm, ms)
-    f = j_halo.make_near_apply_shardmap(jm, mode, "duffy" in ms)
+    # under jit, as JAX's sharded_solver runs it: one compile, where the
+    # eager call compiles each primitive on its own
+    f = jax.jit(j_halo.make_near_apply_shardmap(jm, mode, "duffy" in ms))
     want = np.asarray(f(caches["near_E"], ms_sh["near_cosrw"],
                         ms_sh["near_static"], caches["sigma_w"],
                         ms_sh.get("duffy"),
@@ -180,7 +184,7 @@ def test_fine_translate_local_matches_jax_shardmap(meshes, level):
     m = 1 << level
     M = np.random.default_rng(level).standard_normal((m, m, 9))
     E4_sh = j_api.shard_pytree(jm, {"m2l_E": {level: E4}})["m2l_E"][level]
-    f = j_halo.make_fine_translate_shardmap(jm, "row")
+    f = jax.jit(j_halo.make_fine_translate_shardmap(jm, "row"))
     want = np.asarray(f(E4_sh, j_api.replicate(jm, cosr),
                         j_api.shard_field(jm, jnp.asarray(M)), 0.0))
 

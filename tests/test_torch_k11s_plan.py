@@ -34,6 +34,8 @@ import torch
 
 from aniso_torch.kernels import krylov
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 M = 80
 SMS = 132
 NQ = 9

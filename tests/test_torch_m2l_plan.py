@@ -17,6 +17,8 @@ import pytest
 from aniso_torch.fmm.apply import parity_shift_table_np
 from aniso_torch.kernels import m2l
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 SHIFT = parity_shift_table_np()
 
 

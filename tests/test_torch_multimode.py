@@ -15,6 +15,7 @@ taken in another order), 1e-10 for the solve's x.
 import functools
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -36,7 +37,16 @@ from aniso_torch.solver.operator import (
     TransportSolver, _mode_coupling, mode_chi,
 )
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 F64 = torch.float64
+
+# JAX's matvec internals under jit, as the JAX package's jitted matvec runs
+# them: called eagerly, each of their primitives compiles on its own
+translate_j = jax.jit(j_apply._m2l_translate)
+translate_offsets_multi_j = jax.jit(j_apply._m2l_translate_offsets_multi)
+vlist_gather_j = jax.jit(j_apply._vlist_gather)
+near_apply_j = jax.jit(j_apply._near_apply, static_argnums=2)
 
 
 def rel(a, b):
@@ -145,7 +155,7 @@ def test_m2l_all_modes_plain_matches_jax_per_mode(level):
     js, ts = pair(3)
     m = 1 << level
     M = np.random.default_rng(level).standard_normal((m, m, 16))
-    gsel = j_apply._vlist_gather(jnp.asarray(M))
+    gsel = vlist_gather_j(jnp.asarray(M))
     E = torch.tensor(_m2l_level_from_jax(
         jax_caches_np(js._caches)["m2l_E"][level]), dtype=F64)
     assert E.shape == ts._caches["m2l_E"][level].shape
@@ -154,7 +164,7 @@ def test_m2l_all_modes_plain_matches_jax_per_mode(level):
         ts._fmm_static["shift"])
     assert got.shape == (5, m, m, 16)
     for d in range(5):
-        want = j_apply._m2l_translate(
+        want = translate_j(
             js._caches["m2l_E"][level],
             js._mode_statics[d]["m2l_cosr"][level], gsel)
         assert rel(got[d].numpy(), np.asarray(want)) < 1e-12
@@ -179,8 +189,8 @@ def test_near_all_modes_plain_matches_jax_per_mode(compat):
         torch.as_tensor(u), ts._caches["sigma_w"], st["duffy"])
     assert got.shape == (3, 16, 16, 9)
     for d in range(3):
-        want = j_apply._near_apply(js._caches, js._mode_statics[d], d,
-                                   jnp.asarray(u))
+        want = near_apply_j(js._caches, js._mode_statics[d], d,
+                            jnp.asarray(u))
         assert rel(got[d].numpy(), np.asarray(want)) < 1e-12
     if compat:
         assert st["duffy"].shape == (3, 16, 16, 9, 9)

@@ -7,13 +7,14 @@ translate at np 4; K1's and K3's at np 6 (r = 36); K3's operation count.
 Tolerance: 1e-12 of the maximum (f64 sums taken in another order).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from aniso_tpu.core.config import SolverConfig as JConfig
-from aniso_tpu.fmm import apply as j_apply
 from aniso_tpu.fmm import smooth as j_smooth
 from aniso_tpu.solver.operator import TransportSolver as JSolver
 
@@ -27,7 +28,12 @@ from aniso_torch.kernels.offsets import (
 )
 from aniso_torch.solver.operator import TransportSolver
 
-from test_torch_multimode import F64, pair, rel, sigma
+from test_torch_multimode import (
+    F64, pair, rel, sigma, translate_j, translate_offsets_multi_j,
+    vlist_gather_j,
+)
+
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("level", [3, 4])
@@ -39,10 +45,10 @@ def test_offsets_all_modes_plain_matches_jax_multi(level):
     M = np.random.default_rng(10 + level).standard_normal((m, m, 16))
     Wo = j_smooth.build_m2l_offsets_fine(js.grid, js._tcfg, level, 4,
                                          jnp.float64)
-    want = j_apply._m2l_translate_offsets_multi(
+    want = translate_offsets_multi_j(
         {"Wo": Wo["Wo"], "coeffs": jnp.asarray(js._coeffs_np)},
         [ms["m2l_cosr"][level] for ms in js._mode_statics],
-        j_apply._vlist_gather(jnp.asarray(M)),
+        vlist_gather_j(jnp.asarray(M)),
     )
     got = offsets_translate_plain(
         t_smooth.build_m2l_offsets_fine(ts.grid, ts._tcfg, level, 4, F64,
@@ -54,6 +60,17 @@ def test_offsets_all_modes_plain_matches_jax_multi(level):
         assert rel(got[d].numpy(), np.asarray(want[d])) < 1e-12
 
 
+@functools.lru_cache(maxsize=None)
+def np6_pair():
+    """(JAX solver, port solver, coefficients) at 16^2, deg 2, N = 2, np 6,
+    built once a worker: the tests read them and change neither."""
+    kw = dict(domain_size=16, quad_rule=2, kernel_size=2, g=0.8,
+              sing_rule=6, np_cheb=6, dtype="float64")
+    js = JSolver(JConfig(**kw), backend="fmm")
+    ts = TransportSolver(SolverConfig(**kw), backend="fmm", device="cpu")
+    return js, ts, project_field(ts.grid, sigma(ts.grid)[1])
+
+
 @pytest.mark.parametrize("level", [3, 4])
 def test_np6_translates_plain_match_jax(level):
     """np 6 (r = 36), past the compiled all-modes r of earlier kernels:
@@ -61,14 +78,10 @@ def test_np6_translates_plain_match_jax(level):
     mode on JAX's dense E of the level, and K3's plain version against
     JAX's _m2l_translate_offsets_multi on JAX's weight blocks, both carried
     across by convert (16^2, deg 2, N = 2: 3 modes; B = 2 and 1)."""
-    kw = dict(domain_size=16, quad_rule=2, kernel_size=2, g=0.8,
-              sing_rule=6, np_cheb=6, dtype="float64")
-    js = JSolver(JConfig(**kw), backend="fmm")
-    ts = TransportSolver(SolverConfig(**kw), backend="fmm", device="cpu")
-    coeffs = project_field(ts.grid, sigma(ts.grid)[1])
+    js, ts, coeffs = np6_pair()
     m, r = 1 << level, 36
     M = np.random.default_rng(30 + level).standard_normal((m, m, r))
-    gsel = j_apply._vlist_gather(jnp.asarray(M))
+    gsel = vlist_gather_j(jnp.asarray(M))
     shift = ts._fmm_static["shift"]
     cosr = ts._mode_stack["m2l_cosr"][level]
     assert cosr.shape == (3, 4, r, 27 * r)
@@ -78,7 +91,7 @@ def test_np6_translates_plain_match_jax(level):
     got = m2l_translate_plain(E, cosr, torch.as_tensor(M), shift)
     assert got.shape == (3, m, m, r)
     for d in range(3):
-        want = j_apply._m2l_translate(
+        want = translate_j(
             E_j, js._mode_statics[d]["m2l_cosr"][level], gsel)
         assert rel(got[d].numpy(), np.asarray(want)) < 1e-12
     Wo_j = j_smooth.build_m2l_offsets_fine(js.grid, js._tcfg, level, 6,
@@ -86,7 +99,7 @@ def test_np6_translates_plain_match_jax(level):
     got = offsets_translate_plain(
         torch.tensor(_m2l_level_from_jax(Wo_j)["Wo"]),
         torch.as_tensor(coeffs), cosr, torch.as_tensor(M), shift)
-    want = j_apply._m2l_translate_offsets_multi(
+    want = translate_offsets_multi_j(
         {"Wo": Wo_j["Wo"], "coeffs": jnp.asarray(coeffs)},
         [ms["m2l_cosr"][level] for ms in js._mode_statics], gsel)
     for d in range(3):

@@ -12,6 +12,7 @@ test_torch_multimode.py.
 import functools
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -29,6 +30,8 @@ from aniso_torch.solver.refine import RefinedResult
 from test_torch_multimode import (
     F64, fields, jax_caches_np, jax_mode_statics_np, rel, sigma,
 )
+
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,7 +59,9 @@ def test_twin_coupled_operator_matches_jax(op, caches):
     with the port's own twin caches and with JAX's carried across."""
     js, ts, _ = refine_pair()
     u = fields(ts.grid, 2, 71)
-    want = np.asarray(getattr(js, op)(jnp.asarray(u)))
+    # placed as JAX's refined_solve places its vectors (committed to the
+    # twin's device), so that the solve below reuses these compiles
+    want = np.asarray(getattr(js, op)(jax.device_put(u, js._twin_device)))
     keep = ts._caches64, ts._mode_stack64
     if caches == "from_jax":
         ts._caches64 = caches_from_jax_numpy(

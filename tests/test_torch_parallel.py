@@ -40,12 +40,14 @@ from aniso_torch.parallel.api import Replicated, Sharded
 from aniso_torch.solver.gmres import gmres
 from aniso_torch.solver.operator import TransportSolver
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 CPU8 = ["cpu"] * 8
 
 # torch's CPU thread pool starts here, before JAX's OpenMP host engine runs
 # in this process: started after it, torch's first multi-threaded calls
 # were seen to differ from its later calls on the same inputs by ~1e-9
-# relative (ROADMAP queue C5); started first, every call agrees.
+# relative (ROADMAP queue C item 1); started first, every call agrees.
 torch.exp(torch.ones(1 << 20, dtype=torch.float64)).sum()
 
 

@@ -29,6 +29,8 @@ from aniso_torch.kernels import _cuda
 from aniso_torch.kernels import pcg as k9
 from aniso_torch.solver import dsa as t_dsa
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def diffusion_inputs(sz, seed):
     """A medium with sigma_t in [1, 21) and absorption in [0.1, 1.1), and

@@ -12,7 +12,7 @@ stop at different points below the 1e-11 f64 residual both reach.
 import functools
 
 import numpy as np
-import jax.numpy as jnp
+import jax
 import pytest
 import torch
 
@@ -25,6 +25,8 @@ from aniso_torch.fmm import apply as t_apply
 from aniso_torch.fmm.smooth import build_m2l_E, per_offset_levels
 from aniso_torch.solver.operator import TransportSolver
 from aniso_torch.solver.refine import RefinedResult, refined_solve
+
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F64 = torch.float64
 
@@ -83,7 +85,9 @@ def test_forward64_matches_jax(caches):
     twin caches and with JAX's twin carried across by convert."""
     js, ts, _, _ = refine_pair()
     u = np.random.default_rng(4).standard_normal((1,) + ts.grid.nodes_x.shape)
-    want = np.asarray(js._forward64(jnp.asarray(u)))
+    # placed as JAX's refined_solve places its vectors (committed to the
+    # twin's device), so that these calls reuse the solve's compiles
+    want = np.asarray(js._forward64(jax.device_put(u, js._twin_device)))
     if caches == "from_jax":
         jc = {k: (v if k == "m2l_E" else np.asarray(v))
               for k, v in js._caches64.items()}
@@ -107,7 +111,7 @@ def test_forward64_matches_jax(caches):
 def test_rhs64_matches_jax():
     js, ts, _, _ = refine_pair()
     _, q = problem(ts.grid)
-    want = np.asarray(js._rhs64(jnp.asarray(q[None])))
+    want = np.asarray(js._rhs64(jax.device_put(q[None], js._twin_device)))
     got = ts._rhs64(q)
     assert got.shape == (1, 16, 16, 9)
     assert rel(got.numpy(), want) < 1e-12

@@ -31,6 +31,8 @@ from aniso_torch.fmm.smooth import _fine_offset_entries
 from aniso_torch.solver.operator import TransportSolver
 from aniso_torch.utils import roofline
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(domain_size=16, quad_rule=2, kernel_size=1, g=0.5, sing_rule=4,
            np_cheb=3)

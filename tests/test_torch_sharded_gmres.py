@@ -37,6 +37,8 @@ from aniso_torch.parallel import api, halo
 from aniso_torch.solver import gmres as t_gmres
 from aniso_torch.solver.operator import TransportSolver
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 M = 8
 FIELD = (8, 8, 3)
 

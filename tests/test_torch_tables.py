@@ -34,6 +34,8 @@ import aniso_torch.ops.duffy as t_duffy
 import aniso_torch.ops.fields as t_fields
 import aniso_torch.ops.near as t_near
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ORACLE64 = os.path.join(os.path.dirname(__file__), "..", "benchmarks",
                         "oracle_64", "data.cfg")
 

@@ -37,6 +37,8 @@ from aniso_torch.kernels import m2l, transfer
 from aniso_torch.solver import operator
 from aniso_torch.solver.operator import TransportSolver
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 F64 = torch.float64
 TOL = 1e-13
 
