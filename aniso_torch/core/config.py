@@ -2,8 +2,8 @@
 
 Copy of aniso_tpu/core/config.py (the port keeps its own: importing any
 aniso_tpu module imports JAX).  Every field is kept so that a data.cfg
-parses the same in both packages; what the port does not implement
-(refine_twin="host") solver.operator rejects.
+parses the same in both packages, and the port runs every value that
+validate accepts.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ class SolverConfig:
     # numerics
     dtype: str = "float64"        # float32 | float64
     # mixed-precision iterative refinement (f32 inner GMRES, f64 outer
-    # residuals) and where its f64 twin lives (the port keeps it on the
-    # device; "host" raises in solver.operator)
+    # residuals) and where its f64 twin lives: "device" (the solver's) or
+    # "host" (the CPU, built in numpy)
     refine: bool = False
     refine_twin: str = "device"
     # reference-compat: evaluate per-square Legendre expansions at *global*

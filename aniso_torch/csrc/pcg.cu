@@ -1,6 +1,6 @@
 // K9: the Jacobi-preconditioned CG of the DSA preconditioner, the whole
-// loop in one launch, for sm_90a, in two instances from one template each:
-// float32 and float64.
+// loop in one launch, for sm_90a, in three instances from one template
+// each: float32 and float64.
 //
 // Replaces aniso_tpu/solver/dsa.py:pcg (:114-141), which the JAX package
 // runs as one lax.while_loop on the device with its stopping test there too
@@ -25,11 +25,18 @@
 // (written once, read once with its neighbours) and the blocks' partial
 // sums: 2 * 4 * sz^2 bytes in f32, 0.13 MB at 128^2, 0.04 us at 3.35 TB/s.
 // The practical floor is the latency of the loop's two barriers and two
-// sums across blocks, which the barrier loop kernels measure alone.
+// sums across blocks, which the barrier loop kernels measure alone.  The
+// strided instance keeps the state in global memory: an iteration must read
+// and write x, r and p once each and read the stencil's five fields and
+// diag, 11 values a cell (z = r / diag can be formed where it is used; 185
+// MB a CG iteration at 2048^2 in f32, 55 us at 3.35 TB/s); as written it
+// moves 17 (z stored, z and p of its own cells read in both halves, A p
+// written and read again).
 //
-// Design.  A thread owns C cells (1, 2, 4, 8 or 16) for the whole loop: x,
-// r, z, inv_diag, p, Ap and the stencil's coefficients stay in registers.
-// Two instances, chosen by kernels/pcg.py:pcg_plan before the launch:
+// Design.  In the cluster and grid instances a thread owns C cells (1, 2,
+// 4, 8 or 16) for the whole loop: x, r, z, inv_diag, p, Ap and the
+// stencil's coefficients stay in registers.  Three instances, chosen by
+// kernels/pcg.py:pcg_plan before the launch:
 //   * cluster (pcg_cluster_kernel): the grids one thread-block cluster
 //     holds (at most 16 blocks of 512 threads; dsa64's 64^2, demo128's
 //     128^2).  One cluster, launched by cudaLaunchKernelEx with a cluster
@@ -48,7 +55,19 @@
 //     old p go through global memory, read with ld.global.cg (L2); partial
 //     sums, one a block, are summed by every block in the same fixed order
 //     after the grid barrier.
-// Both run two barriers an iteration: after the p.Ap partials and after
+//   * strided (pcg_strided_kernel): every other grid (past 1039^2 on the
+//     H100: 132 SMs x 512 threads x 16 cells), in one cooperative launch of
+//     as many blocks as the card holds at once.  A thread takes its cells
+//     by a grid-stride loop in each half of an iteration; x, r, z, the old
+//     p and A p live in global memory (read with ld.global.cg), nothing of
+//     a cell in registers across a barrier.  The first half forms p of the
+//     cell and of its neighbours from z and the old p, applies the stencil
+//     and writes A p; the second forms the cell's p again (the same bits),
+//     updates x, r and z and writes z and p as the old p of the next
+//     iteration.  Each half touches other cells only by reading z and the
+//     old p in the first, which the second writes after the barrier
+//     between them; the sums are the grid instance's.
+// All run two barriers an iteration: after the p.Ap partials and after
 // the r.r / r.z partials.  After the first, each thread writes its new z
 // and its current p (the old p of the next iteration) to two buffers;
 // after the second, once beta is known, the stencil forms each
@@ -300,8 +319,104 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_grid_kernel(
     }
 }
 
-// The grid instance's loop without its arithmetic: iters iterations of
-// the same block sums, partial writes, grid sums and two grid barriers.
+// -- the strided instance --
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) pcg_strided_kernel(
+    const T* __restrict__ Dx,         // (sz - 1, sz)
+    const T* __restrict__ Dy,         // (sz, sz - 1)
+    const T* __restrict__ robin,      // (sz, sz)
+    const T* __restrict__ sigma_a,    // (sz, sz)
+    const T* __restrict__ diag,       // (sz, sz) the Jacobi diagonal
+    const T* __restrict__ b,          // (sz, sz)
+    T* x,                             // (sz, sz) out: the iterate
+    T* zb,                            // (sz, sz) scratch: z
+    T* pb,                            // (sz, sz) scratch: the old p
+    T* rb,                            // (sz, sz) scratch: r
+    T* ab,                            // (sz, sz) scratch: A p
+    T* part,                          // (3, blocks) scratch
+    int* iters,                       // (1,) out
+    int sz, T inv_dx2, T inv_dx, double tol2, int max_iter) {
+    cg::grid_group grid = cg::this_grid();
+    __shared__ T sh1[kWarps][1];
+    __shared__ T sh2[kWarps][2];
+    const int n = sz * sz;
+    const int nb = gridDim.x;
+    const int stride = nb * kThreads;
+    const int start = blockIdx.x * kThreads + threadIdx.x;
+    T* part_pap = part;               // (1, nb)
+    T* part_rr_rz = part + nb;        // (2, nb)
+
+    T s2[2] = {T(0), T(0)};           // r.r, r.z
+    for (int id = start; id < n; id += stride) {
+        const T r = b[id];
+        const T z = aniso::mul(T(1) / diag[id], r);
+        x[id] = T(0);
+        rb[id] = r;
+        zb[id] = z;                   // p0 = z0 for the first stencil
+        s2[0] = aniso::add(s2[0], aniso::mul(r, r));
+        s2[1] = aniso::add(s2[1], aniso::mul(r, z));
+    }
+    grid_reduce(s2, sh2, part_rr_rz, grid);
+    T rr = s2[0];
+    T rz = s2[1];
+    T beta = T(0);
+    const double stop = tol2 * (rr == T(0) ? 1.0 : (double)rr);
+    int k = 0;
+    while (k < max_iter && (double)rr > stop) {
+        const bool first = k == 0;
+        T s1[1] = {T(0)};             // p.Ap
+        for (int id = start; id < n; id += stride) {
+            const aniso::Cell<T> cell =
+                aniso::load_cell(Dx, Dy, robin, sigma_a, id, sz);
+            int q[4];
+            neighbours(cell, sz, id, q);
+            T zn[4], pn[4];
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+                zn[t] = __ldcg(zb + q[t]);
+                pn[t] = __ldcg(pb + q[t]);
+            }
+            const T p = p_from(__ldcg(zb + id), __ldcg(pb + id), beta, first);
+            T nb4[4];
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+                nb4[t] = p_from(zn[t], pn[t], beta, first);
+            }
+            const T ap = aniso::apply_cell(cell, sz, p, nb4[0], nb4[1],
+                                           nb4[2], nb4[3], inv_dx2, inv_dx);
+            ab[id] = ap;
+            s1[0] = aniso::add(s1[0], aniso::mul(p, ap));
+        }
+        grid_reduce(s1, sh1, part_pap, grid);          // barrier 1
+        const T alpha = rz / s1[0];
+        s2[0] = s2[1] = T(0);
+        for (int id = start; id < n; id += stride) {
+            const T p = p_from(__ldcg(zb + id), __ldcg(pb + id), beta, first);
+            const T r = aniso::sub(__ldcg(rb + id),
+                                   aniso::mul(alpha, __ldcg(ab + id)));
+            const T z = aniso::mul(T(1) / diag[id], r);
+            x[id] = aniso::add(__ldcg(x + id), aniso::mul(alpha, p));
+            rb[id] = r;
+            zb[id] = z;
+            pb[id] = p;
+            s2[0] = aniso::add(s2[0], aniso::mul(r, r));
+            s2[1] = aniso::add(s2[1], aniso::mul(r, z));
+        }
+        grid_reduce(s2, sh2, part_rr_rz, grid);        // barrier 2
+        rr = s2[0];
+        beta = s2[1] / rz;
+        rz = s2[1];
+        ++k;
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+        *iters = k;
+    }
+}
+
+// The grid and strided instances' loop without its arithmetic: iters
+// iterations of the same block sums, partial writes, grid sums and two grid
+// barriers.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) barrier_grid_kernel(T* part,
                                                                 int iters) {
@@ -548,11 +663,18 @@ __global__ void __launch_bounds__(kThreads) barrier_cluster_kernel(
 
 // -- launches --
 
-enum { kGrid = 0, kCluster = 1 };
+enum { kGrid = 0, kCluster = 1, kStrided = 2 };
 
-// The kernel of an instance, C cells a thread (nullptr: not compiled).
+// The kernel of an instance, C cells a thread (nullptr: not compiled; the
+// strided instance takes any number of cells a thread).
 template <typename T>
 const void* pcg_function(int instance, int cells) {
+    if (instance == kStrided) {
+        return cells >= 1 ? (const void*)pcg_strided_kernel<T> : nullptr;
+    }
+    if (instance != kGrid && instance != kCluster) {
+        return nullptr;
+    }
 #define ANISO_K9_FN(CV)                                                   \
     case CV:                                                              \
         return instance == kCluster                                       \
@@ -600,8 +722,8 @@ cudaError_t cluster_attributes(const void* fn, int smem) {
     return err;
 }
 
-// The occupancy the plan weighs: for the grid instance the blocks an SM
-// holds at once, for the cluster instance the clusters of `blocks` blocks
+// The occupancy the plan weighs: for the grid and strided instances the
+// blocks an SM holds at once, for the cluster instance the clusters of `blocks` blocks
 // with `smem` bytes each the card holds at once (0: none can be scheduled).
 template <typename T>
 int occupancy(int instance, int cells, int blocks, int smem, int* out) {
@@ -612,7 +734,7 @@ int occupancy(int instance, int cells, int blocks, int smem, int* out) {
         || (size_t)smem > aniso::kSmemBlock) {
         return (int)cudaErrorInvalidValue;
     }
-    if (instance == kGrid) {
+    if (instance != kCluster) {
         return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             out, fn, kThreads, 0);
     }
@@ -653,7 +775,9 @@ cudaError_t check_cooperative(const void* fn, int blocks) {
 
 // The plan (kernels/pcg.py:pcg_plan) checked again: the grid instance's
 // blocks cover the cells, C cells a thread; the cluster's blocks own whole
-// rows, at most 16 blocks, rows x sz cells within a block's C x 512.
+// rows, at most 16 blocks, rows x sz cells within a block's C x 512; the
+// strided instance's blocks cover the cells at C cells a thread, and its
+// cell indices stay within an int.
 bool plan_ok(int instance, int cells, int blocks, int rows, int smem,
              int sz, int item, int part_len) {
     const long long n = (long long)sz * sz;
@@ -661,6 +785,10 @@ bool plan_ok(int instance, int cells, int blocks, int rows, int smem,
     if (sz < 1 || blocks < 1 || pcg_function<float>(instance, cells)
         == nullptr) {
         return false;
+    }
+    if (instance == kStrided) {
+        return blocks * per >= n && 3LL * blocks <= part_len
+               && n + (long long)blocks * kThreads <= 0x7fffffffLL;
     }
     if (instance == kGrid) {
         return blocks * per >= n && (blocks - 1) * per < n
@@ -676,10 +804,10 @@ bool plan_ok(int instance, int cells, int blocks, int rows, int smem,
 template <typename T>
 int launch(const void* Dx, const void* Dy, const void* robin,
            const void* sigma_a, const void* diag, const void* b, void* x,
-           void* zb, void* pb, void* part, int part_len, void* iters, int sz,
-           double inv_dx2, double inv_dx, double tol2, int max_iter,
-           int instance, int cells, int blocks, int rows, int smem,
-           void* stream) {
+           void* zb, void* pb, void* rb, void* ab, void* part, int part_len,
+           void* iters, int sz, double inv_dx2, double inv_dx, double tol2,
+           int max_iter, int instance, int cells, int blocks, int rows,
+           int smem, void* stream) {
     if (!plan_ok(instance, cells, blocks, rows, smem, sz, (int)sizeof(T),
                  part_len)) {
         return (int)cudaErrorInvalidValue;
@@ -696,7 +824,22 @@ int launch(const void* Dx, const void* Dy, const void* robin,
     int* it = static_cast<int*>(iters);
     T idx2 = (T)inv_dx2, idx = (T)inv_dx;
     cudaError_t err;
-    if (instance == kGrid) {
+    if (instance == kStrided) {
+        err = check_cooperative(fn, blocks);
+        if (err != cudaSuccess) {
+            return (int)err;
+        }
+        T* zt = static_cast<T*>(zb);
+        T* pt = static_cast<T*>(pb);
+        T* rbt = static_cast<T*>(rb);
+        T* at = static_cast<T*>(ab);
+        T* part_t = static_cast<T*>(part);
+        void* args[] = {&Dxt, &Dyt, &rt,  &st_a, &dt,   &bt,
+                        &xt,  &zt,  &pt,  &rbt,  &at,   &part_t,
+                        &it,  &sz,  &idx2, &idx, &tol2, &max_iter};
+        err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads),
+                                          args, 0, st);
+    } else if (instance == kGrid) {
         err = check_cooperative(fn, blocks);
         if (err != cudaSuccess) {
             return (int)err;
@@ -737,7 +880,7 @@ int launch_barriers(void* part, int part_len, int sz, int instance,
     }
     const cudaStream_t st = (cudaStream_t)stream;
     cudaError_t err;
-    if (instance == kGrid) {
+    if (instance != kCluster) {
         const void* fn = (const void*)barrier_grid_kernel<T>;
         err = check_cooperative(fn, blocks);
         if (err != cudaSuccess) {
@@ -766,22 +909,23 @@ int launch_barriers(void* part, int part_len, int sz, int instance,
 
 }  // namespace
 
-// K9 on one plan (kernels/pcg.py:pcg_plan; instance 0 grid, 1 cluster),
-// checked again here.  zb, pb: (sz, sz) scratch and part: part_len >= 3
-// blocks values of scratch, for the grid instance (the cluster keeps them
-// in shared memory; null there).
+// K9 on one plan (kernels/pcg.py:pcg_plan; instance 0 grid, 1 cluster, 2
+// strided), checked again here.  zb, pb: (sz, sz) scratch and part:
+// part_len >= 3 blocks values of scratch, for the grid and strided
+// instances (the cluster keeps them in shared memory; null there); rb, ab:
+// (sz, sz) scratch for the strided instance (null for the others).
 #define ANISO_K9_ENTRY(NAME, T)                                             \
     extern "C" int NAME(const void* Dx, const void* Dy, const void* robin,  \
                         const void* sigma_a, const void* diag,              \
                         const void* b, void* x, void* zb, void* pb,         \
-                        void* part, int part_len, void* iters, int sz,      \
-                        double inv_dx2, double inv_dx, double tol2,         \
-                        int max_iter, int instance, int cells, int blocks,  \
-                        int rows, int smem, void* stream) {                 \
-        return launch<T>(Dx, Dy, robin, sigma_a, diag, b, x, zb, pb, part,  \
-                         part_len, iters, sz, inv_dx2, inv_dx, tol2,        \
-                         max_iter, instance, cells, blocks, rows, smem,     \
-                         stream);                                           \
+                        void* rb, void* ab, void* part, int part_len,       \
+                        void* iters, int sz, double inv_dx2, double inv_dx, \
+                        double tol2, int max_iter, int instance, int cells, \
+                        int blocks, int rows, int smem, void* stream) {     \
+        return launch<T>(Dx, Dy, robin, sigma_a, diag, b, x, zb, pb, rb,    \
+                         ab, part, part_len, iters, sz, inv_dx2, inv_dx,    \
+                         tol2, max_iter, instance, cells, blocks, rows,     \
+                         smem, stream);                                     \
     }
 ANISO_K9_ENTRY(aniso_pcg_f32, float)
 ANISO_K9_ENTRY(aniso_pcg_f64, double)
@@ -799,8 +943,8 @@ extern "C" int aniso_pcg_occupancy_f64(int instance, int cells, int blocks,
 }
 
 // The barrier floor: iters iterations of the loop skeleton of the plan's
-// instance on its grid (part: 3 x blocks values of scratch for the grid
-// instance).
+// instance on its grid (part: 3 x blocks values of scratch for the grid and
+// strided instances, which share the skeleton).
 extern "C" int aniso_pcg_barriers_f32(void* part, int part_len, int sz,
                                       int instance, int cells, int blocks,
                                       int rows, int smem, int iters,

@@ -18,7 +18,12 @@ static, sigma-independent segment-quadrature weights (ops.segment_stencil):
     level of the f64 refinement twin does;
   * coarse M2L levels (B >= 4): f64, per-offset GEMMs on the device where
     boxes are many (K6, build_m2l_E_coarse_device), exact per-pair
-    integrals on the host engine (native.py) where they are few.
+    integrals on the host engine (native.py) where they are few;
+  * the host f64 refinement twin (refine_twin="host"): near E and every
+    M2L level dense, built in numpy on the host (build_near_E_np,
+    build_m2l_E_fine_np, the per-offset host GEMMs of
+    _coarse_dgemm_level_np or the host engine's per-pair integrals;
+    build_m2l_E_host), as the JAX package builds its host twin.
 
 Layouts are the GPU kernels' own (kernels.m2l, kernels.near,
 kernels.offsets): near E (sz, sz, nq_t, 3, 3, nq_s) and every dense M2L
@@ -377,6 +382,145 @@ def _coarse_perpair_level_np(
     if canonical_only:
         mirror_fill_coarse(E_out)
     return E_out.transpose(0, 1, 2, 4, 3, 5).reshape(4, m2, m2, -1)
+
+
+# ---------------------------------------------------------------------------
+# Host (numpy / BLAS) builders: the f64 twin of refine_twin="host"
+# ---------------------------------------------------------------------------
+
+
+def build_near_E_np(grid: Grid, coeffs_np: np.ndarray) -> np.ndarray:
+    """Host twin of build_near_E, f64, in K2's layout (sz, sz, nq_t, 3, 3,
+    nq_s) (aniso_tpu build_near_E_np, :425-435, which stores it (3, 3,
+    nq_t, nq_s, sz, sz)): one einsum of the static weights with the 3x3
+    coefficient windows."""
+    W = near_weights_np(grid.deg)
+    pad = np.pad(np.asarray(coeffs_np, np.float64), ((1, 1), (1, 1), (0, 0)))
+    win = np.lib.stride_tricks.sliding_window_view(pad, (3, 3), axis=(0, 1))
+    # win[i, j, q, c, d] = pad[i + c, j + d, q]
+    E = np.einsum("abtscdq,ijqcd->ijtabs", W, win, optimize=True)
+    return np.ascontiguousarray(E * grid.dx)
+
+
+def build_m2l_E_fine_np(grid: Grid, tcfg: TreeConfig, level: int,
+                        np_cheb: int, coeffs_np: np.ndarray) -> np.ndarray:
+    """Host twin of build_m2l_E_fine, f64, (4, m2, m2, r, 27r) in K1's
+    layout (aniso_tpu build_m2l_E_fine_np, :438-464): per class, the
+    (7B, 7B) coefficient windows at stride 2B contracted with the fine
+    weights of fine_m2l_weights_np."""
+    B = tcfg.box_size_squares(level)
+    m2 = tcfg.boxes(level) // 2
+    r = np_cheb * np_cheb
+    PX = 7 * B
+    W = fine_m2l_weights_np(grid.deg, np_cheb, B)
+    pad = np.pad(
+        np.asarray(coeffs_np, np.float64),
+        ((3 * B, 4 * B), (3 * B, 4 * B), (0, 0)),
+    )
+    ext = 2 * m2 * B + 5 * B
+    out = np.empty((4, m2, m2, W.shape[1]))
+    for px in (0, 1):
+        for py in (0, 1):
+            sl = pad[px * B:px * B + ext, py * B:py * B + ext]
+            win = np.lib.stride_tricks.sliding_window_view(
+                sl, (PX, PX), axis=(0, 1)
+            )[::2 * B, ::2 * B]
+            # win[x, y, q, a, b] = sl[2Bx + a, 2By + b, q]
+            out[2 * px + py] = np.einsum(
+                "pabq,xyqab->xyp", W[2 * px + py], win, optimize=True
+            )
+    return (out * grid.dx).reshape(4, m2, m2, r, 27 * r)
+
+
+def _coarse_dgemm_level_np(grid: Grid, tcfg: TreeConfig, level: int,
+                           np_cheb: int, coeffs_np: np.ndarray) -> np.ndarray:
+    """(4, m2, m2, 27, r, r) f64 E at a dgemm-eligible coarse level on the
+    host (aniso_tpu _coarse_dgemm_level_np, :610-645): the per-offset
+    static weights against B-granular coefficient windows, one host GEMM a
+    canonical (class, offset) entry, then the mirror fill.  The same
+    quadrature as the per-pair engine and as K6."""
+    B = tcfg.box_size_squares(level)
+    r = np_cheb * np_cheb
+    m2 = tcfg.boxes(level) // 2
+    pad = np.pad(np.asarray(coeffs_np, np.float64),
+                 ((3 * B, 4 * B), (3 * B, 4 * B), (0, 0)))
+    E6 = np.empty((4, m2, m2, 27, r, r), dtype=np.float64)
+    for (c, o, canonical, _, _, _, _) in coarse_mirror_table(np_cheb):
+        if not canonical:
+            continue
+        px, py = c >> 1, c & 1
+        di, dj = vlist_offsets(px, py)[o]
+        W, ox0, oy0 = _coarse_offset_weight_cached(grid.deg, np_cheb, B,
+                                                   di, dj)
+        bbx, bby = W.shape[1], W.shape[2]
+        x0 = px * B + ox0 + 3 * B
+        y0 = py * B + oy0 + 3 * B
+        sl = pad[x0:x0 + 2 * B * (m2 - 1) + bbx,
+                 y0:y0 + 2 * B * (m2 - 1) + bby]
+        win = np.lib.stride_tricks.sliding_window_view(
+            sl, (bbx, bby), axis=(0, 1)
+        )[::2 * B, ::2 * B]
+        # win[x, y, q, a, b] = sl[2Bx + a, 2By + b, q]
+        E6[c, :, :, o] = np.einsum(
+            "pabq,xyqab->xyp", W, win, optimize=True
+        ).reshape(m2, m2, r, r)
+    mirror_fill_coarse(E6)
+    return E6 * grid.dx
+
+
+def build_m2l_E_coarse_oracle_np(grid: Grid, tcfg: TreeConfig, level: int,
+                                 np_cheb: int,
+                                 coeffs_np: np.ndarray) -> np.ndarray:
+    """f64 (4, m2, m2, r*27*r) E at a coarse level from exact per-pair line
+    integrals of every (class, offset) entry on the host engine, no mirror
+    fill (aniso_tpu build_m2l_E_coarse_oracle_np, :773-790): the oracle of
+    the coarse builders."""
+    return _coarse_perpair_level_np(grid, tcfg, level, np_cheb, coeffs_np,
+                                    canonical_only=False)
+
+
+def build_m2l_E_coarse_np(grid: Grid, tcfg: TreeConfig, level: int,
+                          np_cheb: int, coeffs_np: np.ndarray) -> np.ndarray:
+    """f64 (4, m2, m2, r*27*r) E at a coarse level, on the host
+    (aniso_tpu build_m2l_E_coarse_np, :864-887): the per-offset host GEMMs
+    where boxes are many (_coarse_dgemm_level_np), else the host engine's
+    per-pair integrals on the canonical half and the mirror fill."""
+    if _coarse_dgemm_eligible(grid, tcfg, level, np_cheb):
+        m2 = tcfg.boxes(level) // 2
+        E6 = _coarse_dgemm_level_np(grid, tcfg, level, np_cheb, coeffs_np)
+        return E6.transpose(0, 1, 2, 4, 3, 5).reshape(4, m2, m2, -1)
+    return _coarse_perpair_level_np(grid, tcfg, level, np_cheb, coeffs_np)
+
+
+def build_m2l_E_coarse_all_np(grid: Grid, tcfg: TreeConfig, np_cheb: int,
+                              coeffs_np: np.ndarray) -> dict:
+    """f64 E of every coarse level on the host, {level: (4, m2, m2,
+    r*27*r)} (aniso_tpu build_m2l_E_coarse_all_np, :978-988): the host
+    twin's, which the fast path casts onto its device."""
+    return {lv: build_m2l_E_coarse_np(grid, tcfg, lv, np_cheb, coeffs_np)
+            for lv in coarse_m2l_levels(tcfg)}
+
+
+def build_m2l_E_host(grid: Grid, tcfg: TreeConfig, np_cheb: int,
+                     coeffs_np: np.ndarray, coarse_np=None) -> dict:
+    """The host twin's M2L cache: every level dense, f64, {level: CPU
+    tensor (4, m2, m2, r, 27r)} in K1's layout (aniso_tpu
+    build_m2l_E_host, :1125-1146): fine levels by build_m2l_E_fine_np,
+    coarse levels by build_m2l_E_coarse_np or, shared with the fast path,
+    from coarse_np (build_m2l_E_coarse_all_np's)."""
+    r = np_cheb * np_cheb
+    cache = {}
+    for level in range(coarsest_m2l_level(), tcfg.leaf_level + 1):
+        m2 = tcfg.boxes(level) // 2
+        if tcfg.box_size_squares(level) <= 2:
+            E = build_m2l_E_fine_np(grid, tcfg, level, np_cheb, coeffs_np)
+        elif coarse_np and level in coarse_np:
+            E = coarse_np[level]
+        else:
+            E = build_m2l_E_coarse_np(grid, tcfg, level, np_cheb, coeffs_np)
+        cache[level] = torch.as_tensor(E, dtype=torch.float64).reshape(
+            4, m2, m2, r, 27 * r)
+    return cache
 
 
 def build_m2l_E_coarse_all(grid: Grid, tcfg: TreeConfig, np_cheb: int,

@@ -22,13 +22,20 @@ mode-independent E caches once (fmm.smooth) and runs the FMM matvec
 all-modes sweep (fmm.apply.fmm_apply_all_modes) gives K_d(v_a) for every d
 from one read of the E caches.  Both run in float32 or float64.  With
 refine=True (fmm, dtype float32), set_coeff also builds the f64 twin of
-the operator on the device and solve() runs solver.refine.refined_solve:
-f32 inner GMRES, f64 outer residuals (aniso_tpu/solver/operator.py:157-182,
-261-272, 462-483).  solve takes a left preconditioner
-(solver.dsa.DsaPreconditioner) on either backend.
-
-Not ported (raises NotImplementedError): the host numpy twin
-(refine_twin="host").  refine=True with the dense backend raises as in JAX.
+the operator and solve() runs solver.refine.refined_solve: f32 inner
+GMRES, f64 outer residuals (aniso_tpu/solver/operator.py:157-182, 261-272,
+462-504).  refine_twin="device" (the default) keeps the twin on the
+solver's device, where its sweeps run K1, K2, K3 and K8 in f64.
+refine_twin="host" keeps it on the CPU, as JAX keeps it on its CPU
+backend: near E and every M2L level dense f64, built in numpy
+(fmm.smooth's host builders), its sweeps the plain PyTorch versions of K1,
+K2 and K8 in f64, the JAX host twin's own design (XLA's CPU backend) and
+the refinement's oracle, a twin built without the card's kernels.  It runs
+only where the config names it; the f32 fast path and the inner GMRES
+stay on the card, through the same kernels and captured steps as with
+"device".  solve takes a left preconditioner
+(solver.dsa.DsaPreconditioner) on either backend.  refine=True with the
+dense backend raises as in JAX.
 
 Every entry point runs on the GPU unless the caller passes device="cpu";
 without CUDA the default raises instead of running on the CPU.
@@ -49,7 +56,8 @@ from ..fmm.apply import (
     mode_view, stack_mode_statics,
 )
 from ..fmm.smooth import (
-    build_m2l_E, build_m2l_E_coarse_all, build_near_E, dense_budget_bytes,
+    build_m2l_E, build_m2l_E_coarse_all, build_m2l_E_coarse_all_np,
+    build_m2l_E_host, build_near_E, build_near_E_np, dense_budget_bytes,
     m2l_cache_bytes, per_offset_levels,
 )
 from ..fmm.structure import tree_config
@@ -106,17 +114,18 @@ class TransportSolver:
             raise NotImplementedError(
                 "refine=True needs the fmm backend (dense runs f64 as-is)"
             )
-        if cfg.refine and cfg.refine_twin == "host":
-            raise NotImplementedError(
-                "refine_twin='host' (the numpy twin on the host) is not "
-                "ported; the f64 twin lives on the device"
-            )
         self.device = resolve_device(device)
         self.dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+        # where the f64 twin of refine=True lives and runs
+        self._twin_device = (torch.device("cpu")
+                             if cfg.refine and cfg.refine_twin == "host"
+                             else self.device)
         if backend == "fmm" and self.device.type == "cuda":
             # the card's M2L kernels take np up to a limit (a row of 27 np^2
             # values in shared memory): refuse before anything is built
-            for dt in {self.dtype, torch.float64 if cfg.refine else None}:
+            twin = (torch.float64 if cfg.refine
+                    and self._twin_device.type == "cuda" else None)
+            for dt in {self.dtype, twin}:
                 if dt is not None:
                     check_np(cfg.np_cheb, dt)
         self.cfg = cfg
@@ -159,41 +168,43 @@ class TransportSolver:
         else:
             self._init_fmm(near)
 
-    def _couplings(self, dtype):
-        """(C_fwd, C_rhs) in `dtype` on the device."""
+    def _couplings(self, dtype, device=None):
+        """(C_fwd, C_rhs) in `dtype` on `device` (the solver's)."""
         return tuple(
             torch.as_tensor(_mode_coupling(self.cfg.kernel_size, self.chi,
                                            weighted),
-                            dtype=dtype, device=self.device)
+                            dtype=dtype, device=device or self.device)
             for weighted in (True, False))
 
     def _init_fmm(self, near):
         """The tree, the sweep operators and the per-mode tables; with
-        refine=True their f64 twin and its coupling tensors."""
+        refine=True their f64 twin and its coupling tensors, on the twin's
+        device."""
         cfg = self.cfg
         self._tcfg = tree_config(cfg.domain_size, cfg.max_level)
 
-        def statics(dtype):
+        def statics(dtype, device):
             """(sweep operators, the D modes' tables stacked, the same per
-            mode as views of the stack) in `dtype`."""
+            mode as views of the stack) in `dtype` on `device`."""
             stack = stack_mode_statics([
                 build_mode_static(self.grid, self._tcfg, cfg.np_cheb, m,
-                                  stencil, duffy, self.device, dtype)
+                                  stencil, duffy, device, dtype)
                 for m, (stencil, duffy) in enumerate(near)
             ])
             return (
-                build_fmm_static(self.grid, cfg.np_cheb, self.device, dtype),
+                build_fmm_static(self.grid, cfg.np_cheb, device, dtype),
                 stack,
                 [mode_view(stack, m) for m in range(self.n_modes)],
             )
 
         (self._fmm_static, self._mode_stack,
-         self._mode_statics) = statics(self.dtype)
+         self._mode_statics) = statics(self.dtype, self.device)
         if cfg.refine:
             # the f64 twin of the operator for the outer residuals
             (self._fmm_static64, self._mode_stack64,
-             self._mode_statics64) = statics(torch.float64)
-            self._C_fwd64, self._C_rhs64 = self._couplings(torch.float64)
+             self._mode_statics64) = statics(torch.float64, self._twin_device)
+            self._C_fwd64, self._C_rhs64 = self._couplings(
+                torch.float64, self._twin_device)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -211,10 +222,12 @@ class TransportSolver:
         runs on the host in f64.  Dense: the real matrices, then the smooth
         ones through K7 (raises first if they do not fit the card).  FMM:
         the coarse M2L levels are built in f64 on the device (K6) or, the
-        few-box ones, on the host engine; with refine=True the f64 twin
-        comes next; then the near E and the M2L levels in the solver's
-        dtype, whose fine levels are dense while they fit the device memory
-        left and per-offset beyond."""
+        few-box ones, on the host engine (with refine_twin="host" all of
+        them on the host, as JAX builds them there); with refine=True the
+        f64 twin comes next (twin_s, or twin_host_s for the host twin);
+        then the near E and the M2L levels in the solver's dtype, whose
+        fine levels are dense while they fit the device memory left and
+        per-offset beyond."""
         g = self.grid
         # release the previous caches first, and the graphs that read them
         self._graphs, self._graph_reads = {}, []
@@ -239,19 +252,33 @@ class TransportSolver:
             return
         sigma_w = sigma_nodes * (g.w2d * 0.25 * g.dx * g.dx)
 
+        host_twin = self.cfg.refine and self.cfg.refine_twin == "host"
         t0 = time.perf_counter()
-        coarse = build_m2l_E_coarse_all(
-            g, self._tcfg, self.cfg.np_cheb, coeffs_np, self.device
-        )
+        if host_twin:
+            # every coarse level on the host, shared by the twin and (cast)
+            # the fast path (aniso_tpu operator.py:351-366)
+            coarse_np = build_m2l_E_coarse_all_np(
+                g, self._tcfg, self.cfg.np_cheb, coeffs_np)
+            coarse = {lv: torch.from_numpy(E) for lv, E in coarse_np.items()}
+        else:
+            coarse = build_m2l_E_coarse_all(
+                g, self._tcfg, self.cfg.np_cheb, coeffs_np, self.device
+            )
         self._sync()
         phases["coarse_s"] = time.perf_counter() - t0
         if self.cfg.refine:
             t0 = time.perf_counter()
             self._sigma_s64 = torch.as_tensor(
-                sig_s_np, dtype=torch.float64, device=self.device)
-            self._caches64 = self._build_caches(
-                torch.float64, coeffs_np, sigma_w, coarse, phases, twin=True)
-            phases["twin_s"] = time.perf_counter() - t0
+                sig_s_np, dtype=torch.float64, device=self._twin_device)
+            if host_twin:
+                self._caches64 = self._build_host_twin(coeffs_np, sigma_w,
+                                                       coarse_np)
+                phases["twin_host_s"] = time.perf_counter() - t0
+            else:
+                self._caches64 = self._build_caches(
+                    torch.float64, coeffs_np, sigma_w, coarse, phases,
+                    twin=True)
+                phases["twin_s"] = time.perf_counter() - t0
         self._caches = self._build_caches(
             self.dtype, coeffs_np, sigma_w, coarse, phases)
 
@@ -320,6 +347,19 @@ class TransportSolver:
         phases[f"m2l{tag}_s"] = time.perf_counter() - t0
         return caches
 
+    def _build_host_twin(self, coeffs_np, sigma_w, coarse_np: dict) -> dict:
+        """The host f64 twin, {'sigma_w', 'near_E', 'm2l_E'} as CPU float64
+        tensors (aniso_tpu operator.py:484-504): near E and every M2L level
+        dense, in the layouts of K2 and K1, built in numpy; its coarse
+        levels are coarse_np's, which the fast path casts."""
+        g = self.grid
+        return {
+            "sigma_w": torch.as_tensor(sigma_w, dtype=torch.float64),
+            "near_E": torch.from_numpy(build_near_E_np(g, coeffs_np)),
+            "m2l_E": build_m2l_E_host(g, self._tcfg, self.cfg.np_cheb,
+                                      coeffs_np, coarse_np=coarse_np),
+        }
+
     def cache_report(self) -> dict:
         """Bytes per cache family (role of Aniso::displayKernelCacheSize,
         Aniso.cpp:19-47), in the port's unpadded GPU layouts: the dense
@@ -380,10 +420,10 @@ class TransportSolver:
         g = self.grid
         return u.reshape(g.sz, g.sz, g.nq).contiguous()
 
-    def _modes(self, u, dtype) -> torch.Tensor:
-        """u as (N, sz, sz, nq) on the device in `dtype`."""
+    def _modes(self, u, dtype, device=None) -> torch.Tensor:
+        """u as (N, sz, sz, nq) in `dtype` on `device` (the solver's)."""
         g = self.grid
-        u = torch.as_tensor(u, dtype=dtype, device=self.device)
+        u = torch.as_tensor(u, dtype=dtype, device=device or self.device)
         return u.reshape(self.cfg.kernel_size, g.sz, g.sz, g.nq)
 
     def _coupled(self, C, v, twin: bool = False) -> torch.Tensor:
@@ -451,28 +491,30 @@ class TransportSolver:
             raise RuntimeError("the f64 twin needs refine=True and set_coeff")
 
     def _apply64(self, u) -> torch.Tensor:
-        """K_0 u through the f64 twin (sz, sz, nq)."""
+        """K_0 u through the f64 twin (sz, sz, nq), on the twin's device."""
         self._require_twin()
         self.n_matvecs64 += 1
         return fmm_apply_mode(
             self._tcfg.leaf_level, self._fmm_static64, self._caches64,
             self._mode_statics64[0], 0,
             self._field(torch.as_tensor(u, dtype=torch.float64,
-                                        device=self.device)),
+                                        device=self._twin_device)),
         )
 
     def _forward64(self, u) -> torch.Tensor:
-        """f64 twin of forward() for the refinement residuals."""
+        """f64 twin of forward() for the refinement residuals, on the
+        twin's device."""
         self._require_twin()
-        u = self._modes(u, torch.float64)
+        u = self._modes(u, torch.float64, self._twin_device)
         return u - self._coupled(self._C_fwd64, self._sigma_s64 * u,
                                  twin=True)
 
     def _rhs64(self, q) -> torch.Tensor:
-        """f64 twin of rhs(): (N, sz, sz, nq)."""
+        """f64 twin of rhs(): (N, sz, sz, nq), on the twin's device."""
         self._require_twin()
-        return self._coupled(self._C_rhs64, self._modes(q, torch.float64),
-                             twin=True)
+        return self._coupled(
+            self._C_rhs64, self._modes(q, torch.float64, self._twin_device),
+            twin=True)
 
     def _forward_reads(self) -> list:
         """Every object forward() reads from the caches (the leaves of

@@ -14,8 +14,12 @@ by 4x: the f64 operator's or the f32 contraction's floor), or after
 MAX_REFINE rounds.  Starting from x_0 = 0, r_0 = b exactly and the first
 f64 matvec is skipped.
 
-The f64 state (b, x, r) stays on the solver's device; each round reads
-its residual norm back as a Python float.  Every round's inner solve
+The f64 state (b, x, r) lives with the f64 twin (aniso_tpu refine.py:
+76-97): on the solver's device for refine_twin="device", on the CPU for
+refine_twin="host", where each round sends the normalised f32 residual to
+the solver's device for the inner solve and brings its f32 correction back,
+one copy each way.  Each round reads its residual norm back as a Python
+float.  Every round's inner solve
 replays the one GMRES step the solver captured at its first (the graph is
 kept by dtype, shape, restart and preconditioner object, which the rounds
 share; solver.gmres).  The solver is a
@@ -35,7 +39,7 @@ MAX_REFINE = 10  # cap on inner solves; two reach 1e-11 from f32's ~1e-6
 
 
 class RefinedResult(NamedTuple):
-    x: torch.Tensor            # (N, sz, sz, nq) float64
+    x: torch.Tensor            # (N, sz, sz, nq) float64, on the twin's device
     residual: float            # true f64 relative residual |b - A x| / |b|
     iterations: int            # total inner (f32) matvec count
     converged: bool
@@ -60,7 +64,7 @@ def refined_solve(
     phases = {"rhs64_s": 0.0, "forward64_s": [], "inner_s": [],
               "inner_iters": [], "update_s": 0.0}
     f64 = torch.float64
-    dev = solver.device
+    dev = solver._twin_device
     shape = (solver.cfg.kernel_size,) + solver.grid.nodes_x.shape
     q = torch.as_tensor(charge, dtype=f64, device=dev).reshape(shape)
 
@@ -93,14 +97,14 @@ def refined_solve(
             return RefinedResult(x, rel, total_inner, False, k,
                                  tuple(history), phases)
         t0 = time.perf_counter()
-        res = solver.inner_gmres((r / rnorm).to(solver.dtype), inner_tol,
-                                 precond=precond)
+        r32 = (r / rnorm).to(solver.dtype).to(solver.device)
+        res = solver.inner_gmres(r32, inner_tol, precond=precond)
         solver._sync()
         phases["inner_s"].append(time.perf_counter() - t0)
         phases["inner_iters"].append(int(res.iterations))
         total_inner += int(res.iterations)
         t0 = time.perf_counter()
-        x = x + rnorm * res.x.to(f64)
+        x = x + rnorm * res.x.to(dev).to(f64)
         solver._sync()
         phases["update_s"] += time.perf_counter() - t0
     t0 = time.perf_counter()

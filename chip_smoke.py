@@ -41,8 +41,10 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            K9 (the DSA CG, one launch a call: one cluster at dsa64's and
            demo128's grids, one cooperative grid at dsa512's) at those
            grids and dtypes on their medium and first right-hand side,
-           against pcg_plain (counts within 1, x within K9_TOL of |x|), with
-           the instance its plan took, its time per CG iteration and the
+           against pcg_plain (counts within 1, x within K9_TOL of |x|), and
+           its strided instance at dsa2048's grid in f32 and f64 (counts
+           within 1%, x within TOL_KERNEL of |x|), with the instance its
+           plan took, its time per CG iteration beside its bound and the
            barrier floor of that instance's loop; np 6 and 7: K3 f32/f64 at the np6 phase's fine levels,
            K1-D f64 and K3-D f64 at demo128's twin shapes;
            K7 (the exact line integral, f64 arithmetic) at 16^2 and 64^2:
@@ -240,7 +242,29 @@ aniso_torch package beside it.  Phases, each printing one JSON line:
            second run warm-started from it in <= 1 iteration; oracle_16
            also without the flag (its error reported, no gate); oracle_64
            with --distributed as one process of an NCCL group (exit 0,
-           within 1e-3 of the oracle)
+           within 1e-3 of the oracle); oracle_64 refined with the f64 twin on
+           the host (a copy of its data.cfg with Refine = 1, RefineTwin =
+           host and dtype = float32 appended): exit 0, within 1e-3
+  host_twin64  bench's problem refined to tol 1e-10, once with the f64 twin
+           on the card and once on the host (refine_twin "host": numpy-built
+           dense f64 caches on the CPU, its sweeps K1, K2 and K8's plain
+           versions there): each true f64 residual (its own twin) below the
+           tol, the same rounds, inner iterations within 1 a round, the two
+           twins' operators within 1e-12 on the device twin's x, no f64
+           launch on the card in the host twin's run and its inner solves'
+           launches the device twin's; twin_host_s, each host residual's
+           seconds and the CPU's threads
+  dsa2048  dsa512's problem (deg 2, N = 1, g 0, sigma_s 20, sigma_a 0.2)
+           on the 2048^2 grid in benchmarks/dsa_bench.py's own float64,
+           tol 1e-8, GMRES(80), no refinement (in float32 the DSA solve's
+           true residual stays at 7.7e-5; run_dsa2048):
+           plain and with DsaPreconditioner(max_iter=8000: a call takes
+           3400-5400 CG iterations there), whose CG is K9's strided
+           instance (no register-resident instance holds
+           2048^2 cells); set_coeff and its phases, each M2L level's form,
+           peak memory; gates: the strided plan, K9 launches = the
+           preconditioner calls, no call at max_iter, fewer iterations with
+           DSA, true residuals < 1e-5, the launch gates
 
 Every solve runs GMRES with its state on the card and its Arnoldi step
 (the matvec, K11 or on a mesh K11-S, each with K12's Givens step as its
@@ -258,8 +282,8 @@ reads per inner solve, the matvecs the steps add up to, and K11
 launches = steps on one device, K11-S launches = steps sharded (4 x
 steps on distributed1's split route), K12 step launches 0, K12's
 back-substitution = cycles, K9's cluster instance = the preconditioner's
-calls on demo128 and dsa64 and its grid instance on dsa512, beside every
-other launch count.  A replay
+calls on demo128 and dsa64, its grid instance on dsa512 and its strided
+instance on dsa2048, beside every other launch count.  A replay
 runs no Python, so its launches are counted by the capture's increments:
 each captured step's graph holds them family by family against its kernel
 nodes, read through the driver API (replay_launches); one of each call a
@@ -316,6 +340,12 @@ TOL_STORE_F32 = 1e-7
 # NVIDIA H100)
 K9_TOL = {"f32": 1e-4, "f64": 1e-10}
 K9_COUNTS = {"f32": 0.15, "f64": 0.0}
+# the same at dsa2048's grid (the strided instance, up to
+# DSA2048_CG_MAX_ITER iterations): x within TOL_KERNEL, the counts within
+# 1%; three timed calls (the plain version, seconds a call there, one)
+K9_BIG_TOL = TOL_KERNEL
+K9_BIG_COUNTS = {"f32": 0.01, "f64": 0.01}
+K9_BIG_REPS = {"kernel": 3, "plain": 1}
 HOLD_CYCLES = 5_000_000          # GPU sleep before a kernel sample: ~2.5 ms
 SEED = 0
 DEVICE = "cuda"
@@ -325,6 +355,11 @@ NORTH = 512                      # the north-star grid (BASELINE.json)
 BIG = 1024                       # BASELINE.json config 5 (north1024)
 DEMO = 128                       # demo.m's grid, deg 1 (one node per square)
 DSA_SZ = 64                      # benchmarks/dsa_bench.py's larger grid, deg 2
+DSA_BIG = 2048                   # dsa2048: past the grid K9 holds in registers
+# the DSA CG's max_iter at 2048^2: a call takes 3400-5400 iterations there
+# on the card (about 4 x dsa512's 1046-1185: the CG's count grows with the
+# grid's side), past the 4000 that serves 512^2
+DSA2048_CG_MAX_ITER = 8000
 NP6_LEVELS = [2, 3, 4, 5]        # the np6 phase's (32^2), the last 2 fine
 MODES = 5                        # N of demo128 and mm512: D = 9 kernel modes
 # inner iterations of the JAX package on the CPU for the same problems:
@@ -831,21 +866,34 @@ class Kernels:
         cells with the DSA phases' medium (sigma_t 20.2, sigma_a 0.2, so D
         = 0.5 / 20.2) and their first right-hand side (sigma_s times the
         cell means of the Gaussian charge), at the preconditioner's tol
-        1e-8, against pcg_plain.  Gate: iteration
-        counts within 1 (f32: within K9_COUNTS of plain's), |x - x_plain|
-        <= K9_TOL |x_plain| (the same recurrences, each operation rounded
-        alike, over hundreds of iterations; only the dot products are
-        summed in another order).  Bound, for this run's k iterations: bytes (the six
-        input fields read once, x written once, p written and read once an
-        iteration) against operations (30 a cell an iteration: the stencil
-        17, three dot products 6, the four vector updates 7) at the type's
-        peak; beside it the loop's barrier floor (kernels.pcg.barrier_loop
-        for the same k on the same grid, in the same instance: two barriers
-        an iteration).  The row names the instance the plan took (one
-        cluster or one cooperative grid), its cells a thread and blocks."""
+        1e-8, against pcg_plain.  Gate: iteration counts within 1 or
+        K9_COUNTS of plain's (f64 within 1, f32 within 15%),
+        |x - x_plain| <= K9_TOL |x_plain| (the same recurrences, each
+        operation rounded alike, over hundreds of iterations; only the dot
+        products are summed in another order); at dsa2048's grid
+        K9_BIG_TOL and K9_BIG_COUNTS, up to DSA2048_CG_MAX_ITER iterations.
+        Bound, for this run's k iterations: bytes (the six input fields
+        read once, x written once, p written and read once an iteration;
+        for the strided instance, whose state lives in global memory, x, r
+        and p read and written once an iteration and the stencil's five
+        fields read once an iteration: 11 values a cell, z = r / diag
+        formed where it is used) against operations (30 a cell
+        an iteration: the stencil 17, three dot products 6, the four vector
+        updates 7) at the type's peak; beside it the loop's barrier floor
+        (kernels.pcg.barrier_loop for the same k on the same grid, in the
+        same instance: two barriers an iteration), each also per CG
+        iteration.  The row names the instance the plan took (one cluster,
+        one cooperative grid or the strided grid), its cells a thread and
+        blocks."""
         from aniso_torch.solver.dsa import make_diffusion_apply
 
         torch, pcg = self.torch, self.pcg
+        big = sz == DSA_BIG
+        x_tol = (K9_BIG_TOL if big else K9_TOL)[inst]
+        count_tol = (K9_BIG_COUNTS if big else K9_COUNTS)[inst]
+        reps, plain_reps = ((K9_BIG_REPS["kernel"], K9_BIG_REPS["plain"])
+                            if big else (7, 3))
+        max_iter = DSA2048_CG_MAX_ITER if big else max_iter
         dtype = torch.float32 if inst == "f32" else torch.float64
         full = torch.full((sz, sz), 0.5 / 20.2, dtype=dtype, device=DEVICE)
         st, diag = make_diffusion_apply(full, 0.2 + 0 * full, 1.0 / sz)
@@ -864,30 +912,35 @@ class Kernels:
         err = float(torch.linalg.vector_norm(got.x - want.x)
                     / torch.linalg.vector_norm(want.x))
         what = f"K9 {inst} {sz}^2"
-        check(abs(k - k_plain) <= max(1, K9_COUNTS[inst] * k_plain),
+        check(abs(k - k_plain) <= max(1, count_tol * k_plain),
               f"{what}: {k} iterations, plain {k_plain}")
         check(0 < k < max_iter, f"{what}: {k} iterations of {max_iter}")
-        check(err <= K9_TOL[inst], f"{what}: x differs by {err}")
+        check(err <= x_tol, f"{what}: x differs by {err} (gate {x_tol})")
+        plan = pcg.plan_on(torch.device(DEVICE).index or 0, sz, inst)
         n, item = sz * sz, b.element_size()
-        nbytes = item * (7 * n + 2 * n * k)
+        per_iteration = 11 if plan.instance == "strided" else 2
+        nbytes = item * (7 * n + per_iteration * n * k)
         flops = 30 * n * k
         bms, bby = bound_ms(nbytes, flops, inst)
-        ms = event_ms(torch, run, reps=7, flush=self.flush)
+        warm = min(3, reps)
+        ms = event_ms(torch, run, reps=reps, flush=self.flush, warmup=warm)
         floor = event_ms(torch, lambda: pcg.barrier_loop(sz, k, dtype,
                                                          DEVICE),
-                         reps=7, flush=self.flush)
-        plan = pcg.plan_on(torch.device(DEVICE).index or 0, sz, inst)
+                         reps=reps, flush=self.flush, warmup=warm)
         return [{"max_abs_err": err, "max_abs_err_is": "relative 2-norm",
+                 "x_gate": x_tol, "count_gate": count_tol,
                  "instance": plan.instance, "cells_a_thread": plan.cells,
                  "blocks": plan.blocks,
                  "iterations": k, "iterations_plain": k_plain,
                  "max_iter": max_iter, "ms": ms,
                  "ms_per_cg_iteration": ms / k,
                  "us_per_cg_iteration": 1e3 * ms / k,
-                 "plain_ms": event_ms(torch, plain, reps=3, flush=self.flush,
-                                      warmup=1),
+                 "plain_ms": event_ms(torch, plain, reps=plain_reps,
+                                      flush=self.flush,
+                                      warmup=min(1, plain_reps - 1)),
                  "bytes": nbytes, "flops": flops, "bound_ms": bms,
-                 "bound_by": bby, "barrier_floor_ms": floor,
+                 "bound_by": bby, "bound_ms_per_cg_iteration": bms / k,
+                 "barrier_floor_ms": floor,
                  "barrier_floor_ms_per_iteration": floor / k}]
 
     def krylov_state(self, m, i, j=1, done=0.0):
@@ -1622,7 +1675,7 @@ def k11_shapes(kern, shard, big_shard, m=80):
 KERNEL_FUNCTIONS = {
     "k1": "m2l_translate_[a-z_]*kernel", "k2": "near_contract_kernel",
     "k3": "offsets_translate_kernel", "k9d": "diffusion_apply_kernel",
-    "k9": "pcg_(cluster|grid)_kernel", "k10": "halo_fill_kernel",
+    "k9": "pcg_(cluster|grid|strided)_kernel", "k10": "halo_fill_kernel",
     "k11": "cgs2_(lean_)?kernel", "k11s": "cgs2_shards_(lean_)?kernel",
     "k12_step": "givens_kernel", "k12_backsub": "backsub_kernel",
     "k8": "transfer_(up|down)_kernel",
@@ -2233,7 +2286,11 @@ def run_cli(torch):
     oracle_16 on the dense one, each with the reference's basis quirk
     (--compat-global-basis) against its oracle, then again, warm-started
     from the result.csv it wrote; oracle_16 also without the quirk (the
-    mathematically consistent solution, which misses the oracle)."""
+    mathematically consistent solution, which misses the oracle); then
+    oracle_64 once as one process of an NCCL group, and once refined with
+    the host f64 twin: a copy of its data.cfg in the run's directory with
+    `Refine = 1`, `RefineTwin = host` and `dtype = float32` (the refined
+    mode's inner type, which validate requires) appended."""
     import tempfile
 
     from aniso_torch.core.geometry import make_grid
@@ -2242,24 +2299,35 @@ def run_cli(torch):
     env["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
+    host_twin = ("Refine = 1", "RefineTwin = host", "dtype = float32")
     cases = (("oracle_64", "fmm", ["--tol", "1e-10", "--compat-global-basis"],
-              1e-3),
-             ("oracle_16", "dense", ["--compat-global-basis"], 1e-2),
-             ("oracle_16", "dense", [], None),
+              1e-3, ()),
+             ("oracle_16", "dense", ["--compat-global-basis"], 1e-2, ()),
+             ("oracle_16", "dense", [], None, ()),
              # one process of a torch.distributed group (NCCL), cold only
              ("oracle_64", "fmm", ["--compat-global-basis", "--distributed",
                                    "--coordinator", f"127.0.0.1:{free_port()}",
                                    "--num-processes", "1",
-                                   "--process-id", "0"], 1e-3))
+                                   "--process-id", "0"], 1e-3, ()),
+             # refined, the f64 twin on the host, cold only
+             ("oracle_64", "fmm", ["--tol", "1e-10", "--compat-global-basis"],
+              1e-3, host_twin))
     out = {"phase": "cli", "runs": []}
     with tempfile.TemporaryDirectory() as tmp:
-        for k, (oracle, backend, extra, gate) in enumerate(cases):
+        for k, (oracle, backend, extra, gate, append) in enumerate(cases):
             cwd = os.path.join(tmp, str(k))
             os.makedirs(cwd)
-            cmd = [sys.executable, "-m", "aniso_torch", "run",
-                   os.path.join(ROOT, "benchmarks", oracle, "data.cfg"),
+            cfg = os.path.join(ROOT, "benchmarks", oracle, "data.cfg")
+            if append:
+                with open(cfg) as f:
+                    text = f.read()
+                cfg = os.path.join(cwd, "data.cfg")
+                with open(cfg, "w") as f:
+                    f.write(text.rstrip("\n") + "\n"
+                            + "".join(ln + "\n" for ln in append))
+            cmd = [sys.executable, "-m", "aniso_torch", "run", cfg,
                    "--backend", backend, *extra]
-            rerun = gate and "--distributed" not in extra
+            rerun = gate and "--distributed" not in extra and not append
             for warm in ((False, True) if rerun else (False,)):
                 t0 = time.perf_counter()
                 proc = subprocess.run(cmd, cwd=cwd, env=env,
@@ -2274,6 +2342,7 @@ def run_cli(torch):
                 sz = 64 if oracle == "oracle_64" else 16
                 x = np.loadtxt(os.path.join(cwd, "result.csv"))
                 run = {"oracle": oracle, "backend": backend, "args": extra,
+                       "cfg_appended": list(append),
                        "warm": warm, "seconds": seconds, "gmres": line,
                        "iterations": int(line.rsplit("iters=", 1)[1]),
                        "oracle_rel_linf": oracle_error(make_grid(sz, 3),
@@ -2670,6 +2739,200 @@ def run_dsa512(torch, kern):
           "dsa512: DSA did not cut the inner iterations")
     check(dsa["precond_calls"] > 0 and dsa["cg_iterations_max"] < 4000,
           f"dsa512: a CG call reached max_iter ({dsa['cg_iterations_max']})")
+    return out
+
+
+def run_host_twin64(torch, kern):
+    """bench's problem (64^2, deg 3, g 0.95, np 4) refined to tol 1e-10, its
+    f64 twin on the card (refine_twin "device") and on the host ("host":
+    near E and every M2L level dense f64 on the CPU, built in numpy, its
+    sweeps the plain versions of K1, K2 and K8 in f64 there).  Each solver
+    solves once (the step's capture), then the counted solve with the
+    launch counters set to 0 just before it.  Gates: each true f64
+    residual, recomputed by that solve's own twin, below the tol; the same
+    rounds; inner iterations within 1 a round; for the device twin's x,
+    |A64_host(x) - A64_device(x)| / |A64_device(x)| < 1e-12 (the card's f64
+    K1, K2, K3 and K8 against a twin built without them); the host twin's
+    run launches no f64 kernel on the card; each run's inner launches are
+    the same function of its own matvecs and steps (check_launches), and
+    where the two runs' inner iterations agree the host twin's inner
+    counts equal the device twin's; both converged.
+    Printed: set_coeff and its phases (twin_host_s), the seconds of each
+    host residual and of the host rhs, the CPU's threads."""
+    tol = 1e-10
+    out = {"phase": "host_twin64", "sz": 64, "g": 0.95, "tol": tol,
+           "cpu_threads": torch.get_num_threads(), "cpu_count": os.cpu_count()}
+    runs, solvers = {}, {}
+    for twin in ("device", "host"):
+        s = make_solver(torch, 64, 0.95, False, tol=tol, refine=True,
+                        refine_twin=twin)
+        q = bench_charge(s.grid)
+        run = {"set_coeff_s": timed_set_coeff(torch, s),
+               "set_coeff_phases_s": s.set_coeff_phases,
+               "cache_report_bytes": s.cache_report()}
+        t0 = time.perf_counter()
+        s.solve(q)
+        torch.cuda.synchronize()
+        run["solve_first_s"] = time.perf_counter() - t0
+        kern.reset()
+        n0, n64, g1 = s.n_matvecs, s.n_matvecs64, gmres_stats()
+        t0 = time.perf_counter()
+        res = s.solve(q)
+        torch.cuda.synchronize()
+        run.update({
+            "solve_s": time.perf_counter() - t0, "launches": kern.counts(),
+            "matvecs": s.n_matvecs - n0, "twin_sweeps": s.n_matvecs64 - n64,
+            "gmres": gmres_since(g1), "converged": res.converged,
+            "refinements": res.refinements, "history": list(res.history),
+            "inner_iterations": res.iterations,
+            "inner_iterations_per_round": res.phases["inner_iters"],
+            "refine_phases_s": res.phases, "x_device": str(res.x.device),
+            "true_f64_residual": true_residual64(torch, s, q, res.x),
+            "finite": bool(torch.isfinite(res.x).all())})
+        runs[twin], solvers[twin] = (res, run), s
+        out[twin] = run
+    dev, host = solvers["device"], solvers["host"]
+    x = runs["device"][0].x
+    a_dev = dev._forward64(x)
+    a_host = host._forward64(x).to(a_dev.device)
+    out["twins_rel_diff"] = float(torch.linalg.vector_norm(a_host - a_dev)
+                                  / torch.linalg.vector_norm(a_dev))
+    out["x_rel_diff_host_vs_device"] = float(
+        torch.linalg.vector_norm(runs["host"][0].x.to(x.device) - x)
+        / torch.linalg.vector_norm(x))
+    out["host_residual_s"] = runs["host"][0].phases["forward64_s"]
+    out["host_rhs64_s"] = runs["host"][0].phases["rhs64_s"]
+    out["twin_host_s"] = out["host"]["set_coeff_phases_s"]["twin_host_s"]
+    emit(out)
+    n_levels = dev._tcfg.leaf_level - 1
+    for twin, (res, run) in runs.items():
+        what = f"host_twin64 {twin}"
+        check(run["finite"] and tuple(res.x.shape) == (1, 64, 64, NQ),
+              f"{what}: bad x")
+        check(res.converged and run["true_f64_residual"] < tol,
+              f"{what}: true f64 residual {run['true_f64_residual']}")
+        check(run["x_device"] == ("cpu" if twin == "host" else "cuda:0"),
+              f"{what}: x on {run['x_device']}")
+        check_gmres(what, run, res.iterations)
+        f32 = {"k1_f32": n_levels * run["matvecs"], "k2_f32": run["matvecs"],
+               **k8_launches(dev, run["matvecs"]),
+               **gmres_launches(run, "f32")}
+        if twin == "device":
+            f64 = {k: v for k, v in k8_launches(
+                dev, 0, run["twin_sweeps"]).items()}
+            f64.update({"k1_f64": (n_levels - 2) * run["twin_sweeps"],
+                        "k2_f64": run["twin_sweeps"],
+                        "k3_f64": 2 * run["twin_sweeps"]})
+            f32.update(f64)
+        check_launches(what, run, f32)
+    dres, drun = runs["device"]
+    hres, hrun = runs["host"]
+    check(hres.refinements == dres.refinements,
+          f"host_twin64: {hres.refinements} rounds, device twin "
+          f"{dres.refinements}")
+    check(all(abs(a - b) <= 1 for a, b in zip(
+        hrun["inner_iterations_per_round"],
+        drun["inner_iterations_per_round"])),
+          f"host_twin64: inner iterations {hrun['inner_iterations_per_round']}"
+          f", device twin {drun['inner_iterations_per_round']}")
+    check(out["twins_rel_diff"] < 1e-12,
+          f"host_twin64: the twins differ by {out['twins_rel_diff']}")
+    card64 = {k: v for k, v in hrun["launches"].items()
+              if k.endswith("f64") and v}
+    check(not card64, f"host_twin64: the host twin launched {card64}")
+    inner = [k for k, v in drun["launches"].items()
+             if not k.endswith("f64") and v]
+    if hrun["inner_iterations_per_round"] == \
+            drun["inner_iterations_per_round"]:
+        check({k: hrun["launches"][k] for k in inner}
+              == {k: drun["launches"][k] for k in inner},
+              f"host_twin64: inner launches {hrun['launches']}, device twin "
+              f"{drun['launches']}")
+    return out
+
+
+def run_dsa2048(torch, kern):
+    """dsa512's problem on the 2048^2 grid (benchmarks/dsa_bench.py case 2:
+    deg 2, N = 1, g 0, sigma_s 20, sigma_a 0.2, the mode-0 Gaussian) in
+    the bench's own dtype, float64, to its tol 1e-8, GMRES(80), no
+    refinement: plain, then with
+    DsaPreconditioner(max_iter=DSA2048_CG_MAX_ITER), whose CG is K9's
+    strided instance (no register-resident instance holds 2048^2 cells).
+    Not float32: there the left-preconditioned solve stops on its
+    preconditioned residual (5.4e-8) with a true residual of 7.7e-5
+    (tools/dsa_f32_witness.py takes it apart).  Printed: set_coeff and
+    its phases (coarse_s: the host engine's per-pair levels and K6), the
+    form the dense budget gave each M2L level,
+    the peak memory, each counted solve (profiled repeat: K9's device
+    seconds) and the phase's seconds.  Gates: K9's plan the strided
+    instance; K9 launches = the preconditioner's calls; no call at
+    max_iter; fewer GMRES iterations with DSA; each true residual < 1e-5;
+    the launch gates of every solve phase."""
+    from aniso_torch.solver.dsa import DsaPreconditioner
+    from aniso_torch.utils.roofline import matvec_costs
+
+    t_phase = time.perf_counter()
+    sz, dtype, inst, tol = DSA_BIG, "float64", "f64", 1e-8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plan = kern.pcg.plan_on(torch.device(DEVICE).index or 0, sz, inst)
+    s = make_solver(torch, sz, 0.0, False, dtype=dtype, tol=tol,
+                    quad_rule=2)
+    grid = s.grid
+    sig_s = np.full_like(grid.nodes_x, 20.0)
+    t0 = time.perf_counter()
+    s.set_coeff(sig_s, sig_s + 0.2)
+    torch.cuda.synchronize()
+    out = {"phase": "dsa2048", "sz": sz, "deg": 2, "modes": 1, "g": 0.0,
+           "sigma_s": 20.0, "sigma_a": 0.2, "dtype": dtype, "tol": tol,
+           "cg_max_iter": DSA2048_CG_MAX_ITER, "k9_plan": plan._asdict(),
+           "set_coeff_s": time.perf_counter() - t0,
+           "set_coeff_phases_s": s.set_coeff_phases,
+           "cache_report_bytes": s.cache_report(),
+           "level_repr": matvec_costs(s)["level_repr"]}
+    q = mode0_charge(grid, 1)
+    pre = DsaPreconditioner(s, max_iter=DSA2048_CG_MAX_ITER)
+    runs = {}
+    for name in ("plain", "dsa"):
+        # the counted solve is the first (its step's capture included), as
+        # dsa64's: a warm-up solve costs 3-9 s here
+        res, run = counted_solve(torch, kern, s, q,
+                                 precond=pre if name == "dsa" else None,
+                                 warm=False)
+        run.update({"iterations": res.iterations,
+                    "converged": res.converged,
+                    "residual_estimate": res.residual,
+                    "true_relative_residual":
+                        true_residual(torch, s, q, res.x),
+                    "finite": bool(torch.isfinite(res.x).all())})
+        runs[name] = res
+        out[name] = run
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    n_off = sum(v == "offsets" for v in out["level_repr"].values())
+    n_dense = len(out["level_repr"]) - n_off
+    check(plan.instance == "strided",
+          f"dsa2048: K9's plan {plan}, not the strided instance")
+    for name, res in runs.items():
+        run, what = out[name], f"dsa2048 {name}"
+        check(run["finite"] and tuple(res.x.shape) == (1, sz, sz, 4),
+              f"{what}: bad x")
+        check(res.converged and run["true_relative_residual"] < 1e-5,
+              f"{what}: true residual {run['true_relative_residual']}")
+        n = run["matvecs"]
+        check_gmres(what, run, res.iterations, extra=1)
+        check_launches(what, run, {
+            f"k1_{inst}": n_dense * n, f"k2_{inst}": n,
+            f"k3_{inst}": n_off * n,
+            f"k9_strided_{inst}": run.get("precond_calls", 0),
+            **k8_launches(s, n), **gmres_launches(run, inst)})
+    dsa = out["dsa"]
+    check(runs["dsa"].iterations < runs["plain"].iterations,
+          "dsa2048: DSA did not cut the iterations")
+    check(dsa["precond_calls"] > 0
+          and dsa["cg_iterations_max"] < DSA2048_CG_MAX_ITER,
+          f"dsa2048: a CG call reached max_iter ({dsa['cg_iterations_max']})")
     return out
 
 
@@ -3380,11 +3643,13 @@ def ptxas_usage(log, names):
 
 def k9_extra(row):
     """K9's own numbers for the kernels line: the instance its plan took,
-    its call's CG iterations, time per iteration and the barrier floor of
-    that instance beside them."""
+    its call's CG iterations, time per iteration beside its bound and the
+    barrier floor of that instance."""
     return {k: row[k] for k in ("instance", "cells_a_thread", "blocks",
                                 "iterations", "ms_per_cg_iteration",
-                                "us_per_cg_iteration", "barrier_floor_ms",
+                                "us_per_cg_iteration",
+                                "bound_ms_per_cg_iteration",
+                                "barrier_floor_ms",
                                 "barrier_floor_ms_per_iteration")}
 
 
@@ -3503,7 +3768,8 @@ def main():
                       (KERNEL_FUNCTIONS["k11"], krylov.SOURCE),
                       (KERNEL_FUNCTIONS["k11s"], krylov.SOURCE),
                       ("pcg_cluster_kernel", pcg.SOURCE),
-                      ("pcg_grid_kernel", pcg.SOURCE)):
+                      ("pcg_grid_kernel", pcg.SOURCE),
+                      ("pcg_strided_kernel", pcg.SOURCE)):
         pat = re.compile(name)
         for inst in ("If", "Id"):          # float, double in the mangling
             check(any(pat.search(row["function"]) and inst in row["function"]
@@ -3573,6 +3839,9 @@ def main():
     # demo128 and dsa512 (f32)
     for sz, inst in ((DSA_SZ, "f64"), (DEMO, "f32"), (NORTH, "f32")):
         chk[sz, f"k9_{inst}"] = kern.k9(sz, inst)
+    # and its strided instance at dsa2048's grid, f32 and f64 (K9_BIG_*)
+    for inst in ("f32", "f64"):
+        chk[DSA_BIG, f"k9_{inst}"] = kern.k9(DSA_BIG, inst)
     # K7's whole build at oracle16_dense's shapes (all 2304^2 pairs) and at
     # dense64's (36,864^2 pairs; the first and last 512 rows checked); its
     # runtime-deg instance at deg 9, 10 and 12 (8^2; 128 rows checked)
@@ -3637,7 +3906,7 @@ def main():
     chk[BIG, "k1s_f32"] = kern.k1s(BIG, "f32", lv[BIG][1:])
     chk[BIG, "k2s_f32"] = kern.k2s(*big_shard, "f32")
     torch.cuda.empty_cache()
-    for sz in sorted({8, 16, 32, 64, 128, DSA_SZ, DEMO, NORTH, BIG}):
+    for sz in sorted({8, 16, 32, 64, 128, DSA_SZ, DEMO, NORTH, BIG, DSA_BIG}):
         emit({"phase": "kernels_vs_plain", "sz": sz,
               **{k: rows for (z, k), rows in chk.items() if z == sz}})
     # K11 at the one-mode fields of bench / f64_64 (64^2) and of refined512
@@ -3719,6 +3988,10 @@ def main():
     del s1024, x1024
     torch.cuda.empty_cache()
     run_cli(torch)
+    run_host_twin64(torch, kern)
+    torch.cuda.empty_cache()
+    dsa2048 = run_dsa2048(torch, kern)
+    torch.cuda.empty_cache()
 
     # times and bounds at each kernel's main-path shapes (summed over the
     # levels one matvec or twin sweep runs); errors the worst over every
@@ -3913,6 +4186,10 @@ def main():
                     dsa512={**k9_extra(chk[NORTH, "k9_f32"][0]),
                             "ms": chk[NORTH, "k9_f32"][0]["ms"],
                             "bound_ms": chk[NORTH, "k9_f32"][0]["bound_ms"]},
+                    strided_2048={**k9_extra(chk[DSA_BIG, "k9_f32"][0]),
+                             **{k: chk[DSA_BIG, "k9_f32"][0][k] for k in (
+                                 "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "max_abs_err")}},
                     max_abs_err_all_sizes=worst("k9_f32")),
         kernel_line("pcg_f64", "aniso_torch/csrc/pcg.cu",
                     "aniso_tpu/solver/dsa.py:114",
@@ -3920,6 +4197,12 @@ def main():
                     chk[DSA_SZ, "k9_f64"], id="K9 f64",
                     shapes=f"dsa64 DSA, {DSA_SZ}^2 cells, one call",
                     **k9_extra(chk[DSA_SZ, "k9_f64"][0]),
+                    launches_dsa2048=dsa2048["dsa"]["launches"][
+                        "k9_strided_f64"],
+                    dsa2048={**k9_extra(chk[DSA_BIG, "k9_f64"][0]),
+                             **{k: chk[DSA_BIG, "k9_f64"][0][k] for k in (
+                                 "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "max_abs_err")}},
                     max_abs_err_all_sizes=worst("k9_f64")),
         kernel_line("diffusion_apply", "aniso_torch/csrc/diffusion_apply.cu",
                     "aniso_tpu/solver/dsa.py:85",

@@ -9,9 +9,11 @@ equals the count of JAX's loop recomputed here in numpy with JAX's stencil
 (JAX's pcg returns no count).  The launch plan (pcg_plan, a pure function
 of the grid, the dtype, the SMs and each instance's occupancy) is held on
 the CPU: the cluster instance is never chosen beyond one cluster's
-capacity, and a grid no instance holds raises.  The tests marked `cuda`
-hold both instances of the kernel (one cluster, one cooperative grid)
-against pcg_plain on the card (x within 1e-4 of |x| in float32 and 1e-10
+capacity, a grid the register-resident instances do not hold takes the
+strided one, and only an empty grid (or a card that holds no block) raises.
+The tests marked `cuda` hold the three instances of the kernel (one
+cluster, one cooperative grid, the strided grid) against pcg_plain on the
+card (x within 1e-4 of |x| in float32 and 1e-10
 in float64, the counts within 1 in float64 and 15% in float32: the same
 loop, each operation rounded alike, its dot products summed in another
 order, which at tol 1e-8 moves where a float32 residual below the type's
@@ -163,13 +165,17 @@ def test_pcg_refuses_mismatched_shapes_and_dtypes(bad):
 SMS = 132                       # an H100 SXM
 
 
-def occupancy_of(cluster_blocks=16, grid_per_sm=1):
+def occupancy_of(cluster_blocks=16, grid_per_sm=1, strided_per_sm=None):
     """A card's occupancy for pcg_plan: clusters of up to `cluster_blocks`
-    blocks schedulable (one at a time), `grid_per_sm` blocks an SM."""
+    blocks schedulable (one at a time), `grid_per_sm` blocks of the grid
+    instance an SM and `strided_per_sm` of the strided one (by default as
+    many as of the grid instance)."""
     def occ(instance, cells, blocks, smem):
         assert cells in k9.CELLS
         if instance == "cluster":
             return int(blocks <= cluster_blocks)
+        if instance == "strided":
+            return grid_per_sm if strided_per_sm is None else strided_per_sm
         return grid_per_sm
     return occ
 
@@ -177,7 +183,7 @@ def occupancy_of(cluster_blocks=16, grid_per_sm=1):
 def check_plan(plan, sz, item, occ):
     """The plan's invariants: its instance holds the grid."""
     n = sz * sz
-    assert plan.cells in k9.CELLS
+    assert plan.cells in k9.CELLS or plan.instance == "strided"
     if plan.instance == "cluster":
         assert sz <= k9.CLUSTER_MAX_SZ
         assert 1 <= plan.blocks <= k9.MAX_CLUSTER
@@ -186,6 +192,13 @@ def check_plan(plan, sz, item, occ):
         assert plan.smem == k9.cluster_smem(plan.rows, sz, item)
         assert plan.smem <= k9.SMEM_BLOCK
         assert occ("cluster", plan.cells, plan.blocks, plan.smem) > 0
+    elif plan.instance == "strided":
+        assert plan.rows == plan.smem == 0
+        per_sm = occ("strided", 1, 1, 0)
+        assert 1 <= plan.blocks <= per_sm * SMS
+        assert plan.blocks == per_sm * SMS or plan.blocks * k9.THREADS >= n
+        assert plan.blocks * k9.THREADS * plan.cells >= n
+        assert plan.blocks * k9.THREADS * (plan.cells - 1) < n
     else:
         assert plan.instance == "grid" and plan.rows == plan.smem == 0
         assert plan.blocks * k9.THREADS * plan.cells >= n
@@ -223,15 +236,41 @@ def test_pcg_plan_never_exceeds_a_cluster(sz, item):
 
 @pytest.mark.parametrize("item", [4, 8])
 def test_pcg_plan_raises_where_no_instance_holds(item):
-    """4096^2 cells fit no cluster and, at 16 cells a thread, more blocks
-    than the card holds; 512^2 on a card that holds no block of the grid
-    instance; an empty grid."""
-    with pytest.raises(ValueError, match="neither"):
-        k9.pcg_plan(4096, item, SMS, occupancy_of())
-    with pytest.raises(ValueError, match="neither"):
-        k9.pcg_plan(512, item, SMS, occupancy_of(grid_per_sm=0))
+    """Only an empty grid, or a card that holds no block of any instance,
+    has no instance: 4096^2 cells, which fit no cluster and at 16 cells a
+    thread more blocks than the card holds, take the strided instance, as
+    512^2 does on a card that holds no block of the grid instance."""
+    plan = k9.pcg_plan(4096, item, SMS, occupancy_of())
+    check_plan(plan, 4096, item, occupancy_of())
+    assert plan.instance == "strided"
+    no_grid = occupancy_of(grid_per_sm=0, strided_per_sm=2)
+    plan = k9.pcg_plan(512, item, SMS, no_grid)
+    check_plan(plan, 512, item, no_grid)
+    assert (plan.instance, plan.blocks, plan.cells) == ("strided", 264, 2)
+    with pytest.raises(ValueError, match="no block"):
+        k9.pcg_plan(4096, item, SMS, occupancy_of(grid_per_sm=0))
     with pytest.raises(ValueError):
         k9.pcg_plan(0, item, SMS, occupancy_of())
+
+
+# (instance, cells a thread, blocks) on an H100 with one 512-thread block an
+# SM: what 64^2, 512^2 and 1024^2 took before the strided instance, and the
+# strided instance on every SM past the grid instance's 132 x 8192 cells
+PLAN_SIZES = {64: ("cluster", 1, 8), 512: ("grid", 4, 128),
+              1024: ("grid", 16, 128), 1040: ("strided", 17, 132),
+              2048: ("strided", 63, 132), 4096: ("strided", 249, 132)}
+
+
+@pytest.mark.parametrize("item", [4, 8])
+@pytest.mark.parametrize("sz", sorted(PLAN_SIZES))
+def test_pcg_plan_takes_the_strided_instance_past_the_grid(sz, item):
+    """Past the largest grid the grid instance holds at 16 cells a thread
+    (1039^2 on 132 SMs) the plan takes the strided instance on every SM;
+    below it exactly what it took before."""
+    occ = occupancy_of()
+    plan = k9.pcg_plan(sz, item, SMS, occ)
+    check_plan(plan, sz, item, occ)
+    assert (plan.instance, plan.cells, plan.blocks) == PLAN_SIZES[sz]
 
 
 def test_pcg_cluster_smem_matches_the_source():
@@ -273,7 +312,7 @@ _COUNT_GATE = {torch.float32: 0.15, torch.float64: 0.0}
 
 
 def force_instance(monkeypatch, instance):
-    """Make pcg plan `instance` wherever it holds the grid: the other one
+    """Make pcg plan `instance` wherever it holds the grid: the others
     reported as unschedulable."""
     def plan_on(index, sz, inst):
         real = k9._occupancy(index, inst)
@@ -285,10 +324,12 @@ def force_instance(monkeypatch, instance):
     monkeypatch.setattr(k9, "plan_on", plan_on)
 
 
-# both instances where each holds the grid (no cluster holds 512^2)
+# every instance where it holds the grid (no cluster holds 512^2); the
+# strided instance also at 1040^2, the smallest grid it takes unforced
 INSTANCE_SIZES = [(sz, inst) for sz in (8, 64, 128, 512)
-                  for inst in ("cluster", "grid")
-                  if not (sz == 512 and inst == "cluster")]
+                  for inst in ("cluster", "grid", "strided")
+                  if not (sz == 512 and inst == "cluster")] + [
+                      (1040, "strided")]
 
 
 @pytest.mark.cuda
@@ -296,10 +337,11 @@ INSTANCE_SIZES = [(sz, inst) for sz in (8, 64, 128, 512)
 @pytest.mark.parametrize("sz,instance", INSTANCE_SIZES)
 def test_pcg_kernel_matches_plain_on_card(cuda_device, monkeypatch, dtype,
                                           sz, instance):
-    """K9 in each instance (one cluster of whole rows; one cooperative grid;
-    1 to 4 cells a thread at these sizes) against pcg_plain on the same
-    card tensors at the DSA preconditioner's tol 1e-8 and dsa512's
-    max_iter; the count stays on the card until read."""
+    """K9 in each instance (one cluster of whole rows; one cooperative grid,
+    1 to 4 cells a thread at these sizes; the strided grid on every SM)
+    against pcg_plain on the same card tensors at the DSA preconditioner's
+    tol 1e-8 and dsa512's max_iter; the count stays on the card until
+    read."""
     force_instance(monkeypatch, instance)
     b, diag, st = _card_inputs(sz, dtype, cuda_device, seed=sz)
     key = f"{instance}_{_cuda.INSTANCES[dtype]}"
@@ -335,27 +377,67 @@ def test_pcg_kernel_stops_where_plain_does_on_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_pcg_grid_too_large_raises_on_card(cuda_device):
-    """4096^2 cells fit no cluster and exceed 16 cells a thread of every
-    block the card holds at once: the plan refuses the grid before any
-    launch, with no smaller path."""
+def test_pcg_grid_too_large_raises_on_card(cuda_device, monkeypatch):
+    """4096^2 cells at 16 cells a thread need more blocks of the grid
+    instance than the card holds at once: a plan that asks for them is
+    refused by the kernel's entry before any launch.  pcg's own plan takes
+    the strided instance there and runs (500 iterations, the default
+    max_iter, stop it)."""
     b, diag, st = _card_inputs(4096, torch.float32, cuda_device)
+    index = cuda_device.index or 0
+    assert k9.plan_on(index, 4096, "f32").instance == "strided"
     n0 = dict(k9.launches)
-    with pytest.raises(ValueError, match="neither"):
+    got = k9.pcg(b, diag, *st)
+    assert int(got.iterations) == 500
+    assert bool(torch.isfinite(got.x).all())
+    assert k9.launches == {**n0, "strided_f32": n0["strided_f32"] + 1}
+    too_many = k9.PcgPlan("grid", 16, 4096 * 4096 // (16 * k9.THREADS), 0, 0)
+    monkeypatch.setattr(k9, "plan_on", lambda *_: too_many)
+    with pytest.raises(RuntimeError, match="CUDA error"):
         k9.pcg(b, diag, *st)
-    assert k9.launches == n0
+    assert k9.launches == {**n0, "strided_f32": n0["strided_f32"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pcg_strided_matches_plain_at_2048_on_card(cuda_device, dtype):
+    """dsa2048's grid: the plan takes the strided instance unforced, one
+    launch, and x and the count agree with pcg_plain on the DSA phases'
+    medium (sigma_t 20.2, sigma_a 0.2) and a Gaussian right-hand side, at
+    tol 1e-8 and max_iter 8000: x within _X_GATE of |x|, the counts within
+    1% (K9 f32 counts within 15% at the smaller grids: the same gate)."""
+    sz = 2048
+    full = torch.full((sz, sz), 0.5 / 20.2, dtype=dtype, device=cuda_device)
+    st, diag = t_dsa.make_diffusion_apply(full, 0.2 + 0 * full, 1.0 / sz)
+    c = (torch.arange(sz, dtype=dtype, device=cuda_device) + 0.5) / sz - 0.5
+    b = 20.0 * torch.exp(-25 * (c[:, None] ** 2 + c[None, :] ** 2))
+    assert k9.plan_on(cuda_device.index or 0, sz,
+                      _cuda.INSTANCES[dtype]).instance == "strided"
+    key = f"strided_{_cuda.INSTANCES[dtype]}"
+    n0 = dict(k9.launches)
+    got = k9.pcg(b, diag, *st, tol=1e-8, max_iter=8000)
+    assert k9.launches == {**n0, key: n0[key] + 1}
+    want = k9.pcg_plain(b, diag, *st, tol=1e-8, max_iter=8000)
+    k = int(got.iterations)
+    assert 0 < k < 8000
+    assert abs(k - want.iterations) <= max(1, 0.01 * want.iterations)
+    err = float(torch.linalg.vector_norm(got.x - want.x)
+                / torch.linalg.vector_norm(want.x))
+    assert err <= _X_GATE[dtype]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sz,instance,dtype", [
     (64, "cluster", torch.float64), (64, "cluster", torch.float32),
-    (128, "cluster", torch.float32), (512, "grid", torch.float32)])
+    (128, "cluster", torch.float32), (512, "grid", torch.float32),
+    (1040, "strided", torch.float32)])
 def test_pcg_captured_replays_repeat_bitwise_on_card(cuda_device, sz,
                                                      instance, dtype):
     """A call captured into a CUDA graph, as the DSA step is (the cluster
-    launch by cudaLaunchKernelEx, the grid by the cooperative launch), at
-    the grids and dtypes of dsa64, demo128 and dsa512, replayed twice: x
-    and the count bitwise the eager call's, each replay the other's."""
+    launch by cudaLaunchKernelEx, the grid and strided ones by the
+    cooperative launch), at the grids and dtypes of dsa64, demo128 and
+    dsa512 and the smallest strided grid, replayed twice: x and the count
+    bitwise the eager call's, each replay the other's."""
     b, diag, st = _card_inputs(sz, dtype, cuda_device, seed=7)
     assert k9.plan_on(cuda_device.index or 0, sz,
                       _cuda.INSTANCES[dtype]).instance == instance

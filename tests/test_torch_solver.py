@@ -42,7 +42,15 @@ def test_gmres_matches_jax(restart):
     ({"refine": True, "dtype": "float32"}, "dense"),
 ])
 def test_later_slices_raise(change, backend):
+    """A backend the port lacks and refine on the dense backend (as in
+    JAX) raise NotImplementedError.  The host f64 twin raised too until it
+    was ported: now it constructs, its twin on the CPU."""
     cfg = SolverConfig(domain_size=8, quad_rule=2, **change)
+    if change.get("refine_twin") == "host":
+        s = TransportSolver(cfg, backend=backend, device="cpu")
+        assert s._twin_device == torch.device("cpu")
+        assert s._fmm_static64 is not None and s._C_fwd64.device.type == "cpu"
+        return
     with pytest.raises(NotImplementedError):
         TransportSolver(cfg, backend=backend, device="cpu")
 
